@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of the dynamic-precision analog serving stack.
+
+A second package beside ``repro`` (the JAX reference, which it never
+imports). The layout mirrors ``repro`` so every module has an obvious
+counterpart:
+
+  kernels/  - counter-based Threefry noise, the plain analog matmul, the
+              hand-written CUDA kernel (``csrc/analog_matmul.cu``) and the
+              backend dispatch ("auto" | "cuda" | "tile")
+  core/     - noise models and ``analog_dot`` (the per-site choke point)
+  quant/    - affine fake-quant
+  models/   - the dense transformer LM with analog matmul hooks
+  configs/  - model configurations
+  serving/  - bucket-batched, batch-synchronous ``ServingEngine``
+  bridge    - numpy parameter trees in the reference layout -> torch
+
+Entry points take an explicit ``device`` and default to ``"cuda"``; on a
+machine without a card they raise instead of running on the CPU.
+"""

@@ -1,0 +1,46 @@
+"""Carry reference parameter trees into the port.
+
+``params_from_numpy`` takes a parameter tree in the reference layout
+(``repro.models.lm.param_leaves`` structure, layer-stacked leaves) as numpy
+arrays and returns the port's tree on ``device``; ``energies_from_numpy``
+does the same for an ``init_energy_tree`` tree. Both packages then compute
+from identical weights. Shapes are checked against ``lm.param_leaves``;
+dtypes are kept (numpy bfloat16 arrays become ``torch.bfloat16``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, cfg, device="cuda"):
+    dev = resolve_device(device)
+
+    def convert(path, leaf, a):
+        if tuple(np.shape(a)) != leaf.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(a)} != {leaf.shape}")
+        return _to_torch(a, dev)
+
+    return lm.map_leaves(convert, lm.param_leaves(cfg), tree)
+
+
+def energies_from_numpy(tree, cfg, device="cuda"):
+    dev = resolve_device(device)
+    sites = lm.group_sites(cfg)
+    if set(tree["groups"]) != set(sites):
+        raise ValueError(f"energy sites {sorted(tree['groups'])} != {sorted(sites)}")
+    return {
+        "groups": {s: _to_torch(tree["groups"][s], dev).to(torch.float32) for s in sites},
+        "lm_head": _to_torch(tree["lm_head"], dev).to(torch.float32),
+    }

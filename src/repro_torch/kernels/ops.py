@@ -1,0 +1,159 @@
+"""Operand preparation and the public analog-matmul entry points.
+
+Port of ``repro/kernels/ops.py``. ``prepare_operands`` maps the high-level
+(AnalogConfig, SiteQuant, energy, seed) description onto the kernel's raw
+operands, so the same preparation feeds the CUDA kernel and the plain
+version. It works on a leading request axis: x is (B, M, K) and each
+request gets what the reference computes for its own ``vmap`` row — its
+own thermal ``x_range`` (over its whole (M, K) slab, pad positions
+included, when no calibrated ``xqp`` is given), its own shot row norms and
+its own seed words.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import noise as noise_lib
+from repro_torch.device import resolve_device
+from repro_torch.kernels.analog_matmul import analog_matmul_raw
+from repro_torch.kernels.ref import analog_matmul_ref_raw
+from repro_torch.quant.affine import ste_snap_levels
+
+F32 = torch.float32
+
+
+def _ranges(sq, w, x3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel weight range (1, 1, N) and per-request input range (B, 1, 1)."""
+    if sq is not None and sq.wqp is not None:
+        w_rng = (sq.wqp.x_max - sq.wqp.x_min).to(F32).reshape(1, 1, -1)
+    else:
+        w_rng = (torch.amax(w, dim=0) - torch.amin(w, dim=0)).to(F32).reshape(1, 1, -1)
+    if sq is not None and sq.xqp is not None:
+        x_rng = (sq.xqp.x_max - sq.xqp.x_min).to(F32).reshape(1, 1, 1)
+    else:
+        x_rng = (torch.amax(x3, dim=(1, 2)) - torch.amin(x3, dim=(1, 2))).to(F32)
+        x_rng = x_rng.reshape(-1, 1, 1)
+    return w_rng, x_rng
+
+
+def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq=None) -> dict:
+    """Raw kernel operands for ``x3`` (B, M, K) @ ``w`` (K, N).
+
+    ``seed`` is the (B, 4) int32 table of uint32 words (k0, k1, row0, col0),
+    one row per request.
+    """
+    b, m, k = x3.shape
+    n = w.shape[1]
+    dev = x3.device
+    energy = torch.as_tensor(energy, dtype=F32, device=dev)
+    if cfg.discrete_energy:
+        energy = ste_snap_levels(energy, cfg.energy_quantum)
+    e_col = energy.reshape(1, 1, -1).expand(1, 1, n)
+
+    kind = cfg.noise.kind
+    ones_row = torch.ones((b, m, 1), dtype=F32, device=dev)
+    if kind == noise_lib.THERMAL:
+        w_rng, x_rng = _ranges(sq, w, x3)
+        col = noise_lib.thermal_noise_std(k, w_rng, x_rng, cfg.noise.sigma, e_col)
+        row = ones_row
+        noise_kind = "output"
+    elif kind == noise_lib.SHOT:
+        w_col = torch.linalg.vector_norm(w.to(F32), dim=0).reshape(1, 1, -1)
+        photons = e_col / cfg.noise.photon_energy_aj
+        col = w_col / torch.sqrt(photons * float(k))  # float32(k) * photons, as the reference
+        row = torch.linalg.vector_norm(x3.to(F32), dim=-1, keepdim=True)
+        noise_kind = "output"
+    elif kind == noise_lib.WEIGHT:
+        w_rng, _ = _ranges(sq, w, x3)
+        col = noise_lib.weight_noise_std(w_rng, cfg.noise.sigma, e_col)
+        row = ones_row
+        noise_kind = "weight"
+    else:
+        col = torch.zeros((1, 1, n), dtype=F32, device=dev)
+        row = ones_row
+        noise_kind = "none"
+
+    quant_w = cfg.weight_bits is not None and sq is not None and sq.wqp is not None
+    quant_x = cfg.act_bits is not None and sq is not None and sq.xqp is not None
+    quant_out = cfg.out_bits is not None and sq is not None and sq.oqp is not None
+
+    if quant_w:
+        qp = sq.wqp
+        wq = torch.stack([
+            qp.delta.reshape(-1).expand(n),
+            qp.zero_point.reshape(-1).expand(n),
+            torch.full((n,), qp.n_bins, dtype=F32, device=dev),
+        ]).to(F32)
+    else:
+        wq = torch.ones((3, n), dtype=F32, device=dev)
+
+    def _sq_scalars(qp):
+        if qp is None:
+            return [1.0, 0.0, 1.0]
+        return [qp.delta, qp.zero_point, qp.n_bins]
+
+    packed = (
+        _sq_scalars(sq.xqp if quant_x else None)
+        + _sq_scalars(sq.oqp if quant_out else None)
+        + [0.0, 0.0]
+    )
+    if all(isinstance(v, float) for v in packed):
+        # one non-blocking copy: a blocking one would stall the stream per site
+        scalars = torch.tensor(packed, dtype=F32).reshape(1, 8).to(dev, non_blocking=True)
+    else:
+        scalars = torch.stack([
+            torch.full((), v, dtype=F32, device=dev) if isinstance(v, float)
+            else torch.as_tensor(v, dtype=F32).to(dev).reshape(())
+            for v in packed
+        ]).reshape(1, 8)
+
+    return dict(
+        x=x3.contiguous(),
+        w=w.contiguous(),
+        row_scale=row.contiguous(),
+        col_scale=col.expand(col.shape[0], 1, n).contiguous(),
+        wq=wq.contiguous(),
+        scalars=scalars,
+        seed=seed.to(dev, torch.int32).reshape(b, 4).contiguous(),
+        noise_kind=noise_kind,
+        quant_x=quant_x,
+        quant_w=quant_w,
+        quant_out=quant_out,
+    )
+
+
+def _run(raw, x, w, energy, seed, cfg, sq, n_repeats) -> torch.Tensor:
+    """``x`` (B, ..., K) with a (B, 4) seed table, or (..., K) with one (4,) seed."""
+    if seed.dim() == 1:
+        lead, x3, seed = x.shape[:-1], x.reshape(1, -1, x.shape[-1]), seed.reshape(1, 4)
+    else:
+        lead, x3 = x.shape[:-1], x.reshape(x.shape[0], -1, x.shape[-1])
+    ops = prepare_operands(x3, w, energy=energy, seed=seed, cfg=cfg, sq=sq)
+    kind = ops.pop("noise_kind")
+    qx, qw, qo = ops.pop("quant_x"), ops.pop("quant_w"), ops.pop("quant_out")
+    y = raw(
+        ops["x"], ops["w"], ops["row_scale"], ops["col_scale"], ops["wq"],
+        ops["scalars"], ops["seed"], noise_kind=kind, quant_x=qx, quant_w=qw,
+        quant_out=qo, n_repeats=n_repeats,
+    )
+    return y.reshape(*lead, w.shape[1])
+
+
+def analog_matmul(
+    x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1, device="cuda"
+) -> torch.Tensor:
+    """Fused analog matmul ``(..., K) @ (K, N)`` on ``device`` (the CUDA
+    kernel there; the plain version on ``device="cpu"``).
+
+    ``seed``: a (4,) int32 seed (one request: every row of x) or a (B, 4)
+    table whose row b seeds ``x[b]`` (stacked per-request streams).
+    """
+    dev = resolve_device(device)
+    return _run(analog_matmul_raw, x.to(dev), w.to(dev), energy, seed.to(dev), cfg, sq, n_repeats)
+
+
+def analog_matmul_reference(x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1) -> torch.Tensor:
+    """The plain version with identical noise draws, on x's device."""
+    return _run(analog_matmul_ref_raw, x, w, energy, seed, cfg, sq, n_repeats)
