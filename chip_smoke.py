@@ -11,8 +11,10 @@ tolerance against the plain PyTorch version at the main path's shapes,
 times the kernel at every analog site shape of granite-3-8b, serves eight
 requests through ``ServingEngine`` on granite-3-8b at full width and depth
 (random bf16 weights from a seed, shot noise), checks that every analog
-site of every forward launched the kernel, and compares that path with the
-plain ("tile") backend on the card. Every phase that fails raises. The
+site of every forward launched the kernel, times the first batch's prefill
+and decode steps, and compares that path with the plain ("tile") backend
+on the card, beside paths with a known fault. Every phase that fails
+raises. The
 last line is ``{"ok": true, "device": {...}}``; without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -27,10 +29,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-#: outside the tensor cores.
+#: published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM
+#: bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
+BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
+#: integer ops of one Threefry-2x32-20 draw's rounds alone (add, rotate,
+#: xor); with Box-Muller a draw costs more, so this keeps the bound a bound
+THREEFRY_OPS = 60
 #: kernel vs plain: the reference test's rule (tests/test_kernels.py:47-52)
 REL_ATOL = 3e-5
 RTOL = 1e-4
@@ -39,7 +45,9 @@ RTOL = 1e-4
 GAUSS_ATOL = 4e-6
 #: whole path, kernel vs plain: bf16 activations (8 significant bits) are
 #: rounded after every site, so one flipped rounding propagates through 40
-#: layers; the bound is on max|dlogit| / max|logit| of the prefill logits
+#: layers; the bound is on max|dlogit| / max|logit| of the prefill logits.
+#: The run also prints what faulty paths give (other seeds, other K, no
+#: noise), so a reader sees whether this bound lies below them.
 LOGIT_REL_TOL = 5e-2
 SERVE_MAX_GEN = 16
 
@@ -54,15 +62,6 @@ def card() -> str:
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def bound_ms(n_bytes: float, flops: float) -> float:
-    """Least time for the work: bytes over HBM rate vs f32 FLOPs over peak."""
-    return max(n_bytes / HBM_BYTES_S, flops / F32_FLOPS_S) * 1e3
-
-
-def bound_by(n_bytes: float, flops: float) -> str:
-    return "bytes" if n_bytes / HBM_BYTES_S >= flops / F32_FLOPS_S else "operations"
 
 
 def cuda_ms(fn, iters: int, flush=None) -> float:
@@ -172,13 +171,34 @@ def _run_raw(raw, o, n_repeats):
     )
 
 
-def _cost(o):
+def _bound(o, n_repeats):
+    """Least time of one raw call on the card, ``(ms, by, f32_simt_ms)``.
+
+    Bytes: each input read once, the f32 output written once, over the HBM
+    rate. Operations: the product's FLOPs at the peak for its operands
+    (bf16 tensor cores when x and w are bf16; the f32 SIMT rate for f32
+    operands or noisy weights, which are not bf16) and, on the SIMT units,
+    the Threefry ops of the noise draws this call needs. ``f32_simt_ms`` is
+    the same bound with the product at the f32 SIMT rate, the route the
+    kernel takes today.
+    """
+    import torch
+
     b, m, k = o["x"].shape
     n = o["w"].shape[1]
     n_bytes = sum(o[t].numel() * o[t].element_size()
                   for t in ("x", "w", "row_scale", "col_scale", "wq", "scalars", "seed"))
     n_bytes += b * m * n * 4
-    return n_bytes, 2.0 * b * m * k * n
+    flops = 2.0 * b * m * k * n
+    draws = {"output": b * m * n, "weight": b * k * n, "none": 0}[o["noise_kind"]] * n_repeats
+    noise_ops = draws * THREEFRY_OPS
+    bytes_s = n_bytes / HBM_BYTES_S
+    if o["x"].dtype == torch.bfloat16 and o["noise_kind"] != "weight":
+        ops_s = max(flops / BF16_FLOPS_S, noise_ops / F32_FLOPS_S)
+    else:
+        ops_s = (flops + noise_ops) / F32_FLOPS_S
+    simt_s = max(bytes_s, (flops + noise_ops) / F32_FLOPS_S)
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations"), simt_s * 1e3
 
 
 def phase_kernels() -> dict:
@@ -225,18 +245,18 @@ def phase_kernels() -> dict:
     for stage, m in (("prefill", 64), ("decode", 1)):
         for site, k, n in sites:
             o, _ = _site_operands(4, m, k, n, shot, 20.0)
-            n_bytes, flops = _cost(o)
+            bound, by, simt = _bound(o, 1)
             row = dict(
                 site=site, stage=stage, shape=[4, m, k, n],
                 ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1), 10, flush),
                 plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
                 matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
-                bound_ms=bound_ms(n_bytes, flops), bound_by=bound_by(n_bytes, flops),
+                bound_ms=bound, bound_by=by, f32_simt_bound_ms=simt,
             )
             rows.append(row)
             log("site_time", **row, card=card())
     o, reps, err = headline
-    n_bytes, flops = _cost(o)
+    bound, by, _ = _bound(o, reps)
     return dict(
         name="analog_matmul",
         route="cuda",
@@ -246,8 +266,8 @@ def phase_kernels() -> dict:
         max_abs_err=err,
         ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, reps), 10, flush),
         plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, reps), 3, flush),
-        bound_ms=bound_ms(n_bytes, flops),
-        bound_by=bound_by(n_bytes, flops),
+        bound_ms=bound,
+        bound_by=by,
         library_ms=None,
         shape=list(o["x"].shape) + [o["w"].shape[1]],
         sites=rows,
@@ -271,7 +291,6 @@ def phase_serve():
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.kernels import analog_matmul as am
     from repro_torch.models import lm
-    from repro_torch.serving import tiers as tiers_lib
     from repro_torch.serving.engine import ServingEngine
 
     t0 = time.perf_counter()
@@ -283,8 +302,10 @@ def phase_serve():
         seconds=round(time.perf_counter() - t0, 3), card=card())
 
     def make_engine(backend):
+        """An engine over the same weights; ``backend=None`` is digital."""
+        analog = None if backend is None else AnalogConfig.shot(backend=backend)
         return ServingEngine(
-            params, CONFIG, analog_cfg=AnalogConfig.shot(backend=backend), energies=energies,
+            params, CONFIG, analog_cfg=analog, energies=None if analog is None else energies,
             max_gen=SERVE_MAX_GEN, batch_buckets=(1, 2, 4), seq_buckets=(32, 64), device="cuda",
         )
 
@@ -293,31 +314,14 @@ def phase_serve():
     for p, k in zip(prompts, tiers):
         engine.submit(p, n_repeats=k, max_new_tokens=SERVE_MAX_GEN)
 
-    # host clock around each prefill / decode call, synchronised at both ends
-    spent = {"prefill": [], "decode": []}
-    originals = {n: getattr(tiers_lib.ExecutionTier, n) for n in spent}
-
-    def timed(name):
-        fn = originals[name]
-
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[name].append(time.perf_counter() - t)
-            return out
-        return wrapper
-
-    for name in spent:
-        setattr(tiers_lib.ExecutionTier, name, timed(name))
-    try:
-        am.LAUNCHES = 0
-        results = engine.flush()
-        launches = am.LAUNCHES
-    finally:
-        for name, fn in originals.items():
-            setattr(tiers_lib.ExecutionTier, name, fn)
+    # one window around the whole drain: the engine's own steps, no added syncs
+    torch.cuda.synchronize()
+    am.LAUNCHES = 0
+    t = time.perf_counter()
+    results = engine.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    launches = am.LAUNCHES
 
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
@@ -331,22 +335,22 @@ def phase_serve():
         raise AssertionError(f"served {len(results)} of {len(prompts)} requests")
     if launches != sites * forwards:
         raise AssertionError(f"kernel launches {launches} != {sites} sites x {forwards} forwards")
-    prefill_s, decode_s = sum(spent["prefill"]), sum(spent["decode"])
     prompt_tokens = sum(len(p) for p in prompts)
-    decode_tokens = st["tokens_generated"] - len(prompts)
     log("serve", config=CONFIG.name, layers=CONFIG.n_layers, requests=len(results),
         batches=st["batches"], decode_steps=st["decode_steps"], launches=launches,
-        expected_launches=sites * forwards, prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3,
-        prefill_tokens_per_s=prompt_tokens / prefill_s, decode_tokens_per_s=decode_tokens / decode_s,
-        mean_decode_step_ms=decode_s * 1e3 / max(1, len(spent["decode"])),
+        expected_launches=sites * forwards, flush_ms=flush_s * 1e3,
+        ms_per_forward=flush_s * 1e3 / forwards, prompt_tokens=prompt_tokens,
+        generated_tokens=st["tokens_generated"],
+        generated_tokens_per_s=st["tokens_generated"] / flush_s,
         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=card())
     return make_engine, engine, results, prompts, tiers, launches
 
 
 def _profile(fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler), its
-    host wall time and the device's idle share of that wall time."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler) and
+    the host wall time of that profiled call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -355,67 +359,137 @@ def _profile(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    from torch.autograd import DeviceType
-
     # device-side events only (kernels, copies): a CPU op's row repeats the
     # device time of the kernels it launched
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
-    device_ms = sum(dev(e) for e in events) / 1e3
     top = sorted(events, key=dev, reverse=True)[:8]
     return out, dict(
-        wall_ms=wall_ms, device_ms=device_ms, idle_share=max(0.0, 1.0 - device_ms / wall_ms),
+        profiled_wall_ms=wall_ms, device_ms=sum(dev(e) for e in events) / 1e3,
         top=[dict(name=e.key[:60], ms=dev(e) / 1e3, calls=e.count) for e in top],
     )
 
 
-def phase_whole_path(make_engine, engine, results, prompts, tiers):
-    """The first batch again on the plain ("tile") backend, on the card; a
-    profile of its prefill and one decode step through the kernel."""
+def _wall_ms(fn):
+    """Host wall time of ``fn``, synchronised once before and once after."""
     import torch
 
-    from repro_torch.kernels import analog_matmul as am
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _first_batch(engine, prompts, tiers):
+    """The scheduler's first batch (request 0's (tier, seq bucket) group),
+    padded as the engine pads it, on the card."""
+    import torch
+
     from repro_torch.kernels.prng import PRNGKey, fold_in
     from repro_torch.serving.bucketing import bucket_shape, next_bucket, pad_to_bucket
     from repro_torch.serving.engine import batch_keys
 
-    # the scheduler's first batch: requests of request 0's (tier, seq bucket) group
     group = lambda i: (tiers[i], next_bucket(len(prompts[i]), engine.seq_buckets))
     first = [i for i in range(len(prompts)) if group(i) == group(0)][: max(engine.batch_buckets)]
     keys = [fold_in(PRNGKey(0), i) for i in first]
     bb, sb = bucket_shape(len(first), max(len(prompts[i]) for i in first),
                           batch_buckets=engine.batch_buckets, seq_buckets=engine.seq_buckets)
     tok_np, lengths_np = pad_to_bucket([prompts[i] for i in first], (bb, sb))
-    tok, lengths = torch.from_numpy(tok_np).cuda(), torch.from_numpy(lengths_np).cuda()
-    table = batch_keys(keys, bb)
-    k = tiers[first[0]]
-    kernel_tier = engine.tiers.get(k)
-    (cache, lk), prefill_prof = _profile(
-        lambda: kernel_tier.prefill(tok, lengths, table, sb + SERVE_MAX_GEN))
+    return dict(first=first, keys=keys, bb=bb, sb=sb, k=tiers[first[0]], lengths_np=lengths_np,
+                tok=torch.from_numpy(tok_np).cuda(), lengths=torch.from_numpy(lengths_np).cuda(),
+                table=batch_keys(keys, bb))
+
+
+def phase_steps(engine, prompts, tiers):
+    """Prefill and decode of the first batch through the kernel: wall time
+    of an unprofiled prefill and of an unprofiled run of decode steps (one
+    sync at each end, as the engine runs them), then one profiled prefill
+    and decode step for the device's time by kernel. The idle share is
+    1 - profiled device time / unprofiled wall time; the profiler's own
+    cost (profiled wall - unprofiled wall) is printed beside it."""
+    import torch
+
+    fb = _first_batch(engine, prompts, tiers)
+    tier = engine.tiers.get(fb["k"])
+    cache_len = fb["sb"] + SERVE_MAX_GEN
+    prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len)
+    (cache, logits), prefill_ms = _wall_ms(prefill)
+    n_steps = SERVE_MAX_GEN - 1
+
+    def decode_run():
+        c, tok = cache, torch.argmax(logits, dim=-1)
+        for t in range(n_steps):
+            lg, c = tier.decode(c, tok, fb["lengths_np"] + t, fb["table"])
+            tok = torch.argmax(lg, dim=-1)
+        return tok
+
+    _, decode_ms = _wall_ms(decode_run)
+    (cache, logits), prefill_prof = _profile(prefill)
     _, decode_prof = _profile(
-        lambda: kernel_tier.decode(cache, torch.argmax(lk, dim=-1), lengths_np, table))
-    for name, prof in (("prefill", prefill_prof), ("decode", decode_prof)):
-        log("profile", step=name, bucket=[bb, sb], **prof, card=card())
+        lambda: tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"], fb["table"]))
+    n_real = len(fb["first"])
+    prompt_tokens = sum(len(prompts[i]) for i in fb["first"])
+    step_ms = decode_ms / n_steps
+    for name, wall, prof, rate in (
+        ("prefill", prefill_ms, prefill_prof, prompt_tokens / prefill_ms * 1e3),
+        ("decode", step_ms, decode_prof, n_real / step_ms * 1e3),
+    ):
+        log("step", step=name, requests=fb["first"], tier=fb["k"], bucket=[fb["bb"], fb["sb"]],
+            wall_ms=wall, tokens_per_s=rate, steps_timed=1 if name == "prefill" else n_steps,
+            idle_share=max(0.0, 1.0 - prof["device_ms"] / wall),
+            profiler_overhead_ms=prof["profiled_wall_ms"] - wall, **prof, card=card())
+    return fb
+
+
+def _rel(a, b, n):
+    return float((a[:n] - b[:n]).abs().max()) / float(b[:n].abs().max())
+
+
+def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
+    """The first batch again on the plain ("tile") backend, on the card:
+    prefill logits and greedy tokens against the kernel's, beside what
+    faulty paths give against the same plain logits."""
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving.engine import batch_keys
+
+    first, k, n = fb["first"], fb["k"], len(fb["first"])
+    cache_len = fb["sb"] + SERVE_MAX_GEN
+    prefill = lambda eng, kk, table: eng.tiers.get(kk).prefill(
+        fb["tok"], fb["lengths"], table, cache_len)[1]
+    lk = prefill(engine, k, fb["table"])
 
     tile = make_engine("tile")
     launches = am.LAUNCHES
-    _, lt = tile.tiers.get(k).prefill(tok, lengths, table, sb + SERVE_MAX_GEN)
-    n = len(first)
-    rel = float((lk[:n] - lt[:n]).abs().max()) / float(lt[:n].abs().max())
+    lt = prefill(tile, k, fb["table"])
     t = time.perf_counter()
-    for i, key in zip(first, keys):
+    for i, key in zip(first, fb["keys"]):
         tile.submit(prompts[i], n_repeats=k, max_new_tokens=SERVE_MAX_GEN, key=key)
     tile_results = tile.flush()
     tile_s = time.perf_counter() - t
     if am.LAUNCHES != launches:
         raise AssertionError("the tile backend launched the CUDA kernel")
+    rel = _rel(lk, lt, n)
+
+    # the same check on paths with a known fault: seeds of other requests,
+    # the other precision tier, noise dropped
+    other_seeds = batch_keys([fold_in(PRNGKey(1), i) for i in first], fb["bb"])
+    controls = {
+        "other_seeds": _rel(prefill(engine, k, other_seeds), lt, n),
+        "other_k": _rel(prefill(engine, 4 if k == 1 else 1, fb["table"]), lt, n),
+        "no_noise": _rel(prefill(make_engine(None), 1, fb["table"]), lt, n),
+    }
     agree = [int((tile_results[j] == results[i]).sum()) for j, i in enumerate(first)]
     if not (rel <= LOGIT_REL_TOL and bool(torch.isfinite(lk).all())):
         raise AssertionError(f"prefill logits kernel vs plain: {rel} > {LOGIT_REL_TOL}")
-    log("whole_path", requests=first, tier=k, bucket=[bb, sb], logit_rel_err=rel,
-        logit_rel_tol=LOGIT_REL_TOL, first_token_equal=[bool(tile_results[j][0] == results[i][0])
-                                                       for j, i in enumerate(first)],
+    log("whole_path", requests=first, tier=k, bucket=[fb["bb"], fb["sb"]], logit_rel_err=rel,
+        logit_rel_tol=LOGIT_REL_TOL, controls=controls,
+        tol_below_controls=LOGIT_REL_TOL < min(controls.values()),
+        first_token_equal=[bool(tile_results[j][0] == results[i][0]) for j, i in enumerate(first)],
         tokens_agree=agree, tokens_per_request=SERVE_MAX_GEN, tile_serve_s=tile_s, card=card())
 
 
@@ -435,7 +509,8 @@ def main() -> int:
     kernel = phase_kernels()
     make_engine, engine, results, prompts, tiers, launches = phase_serve()
     kernel["launches"] = launches
-    phase_whole_path(make_engine, engine, results, prompts, tiers)
+    fb = phase_steps(engine, prompts, tiers)
+    phase_whole_path(make_engine, engine, results, prompts, tiers, fb)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     print(json.dumps({"kernels": [kernel]}))
     print(card())

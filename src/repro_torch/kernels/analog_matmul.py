@@ -93,7 +93,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.analog_matmul_launch.argtypes = [
-            p, i, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i,
+            p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i,
             ctypes.c_float, p,
         ]
         lib.analog_matmul_launch.restype = i
@@ -131,7 +131,7 @@ def analog_matmul_raw(
 ) -> torch.Tensor:
     """(B, M, K) @ (K, N) -> (B, M, N) float32, one request per leading row.
 
-    x bf16/f32 (B, M, K); w bf16/f32 (K, N); row_scale f32 (B, M, 1);
+    x (B, M, K) and w (K, N) both bf16 or both f32; row_scale f32 (B, M, 1);
     col_scale f32 (B, 1, N), or (1, 1, N) shared by every request; wq f32
     (3, N) = (delta, zp, bins); scalars f32 (1, 8) = (xd, xz, xbins, od, oz,
     obins, 0, 0); seed int32 (B, 4) holding the uint32 words (k0, k1, row0,
@@ -164,8 +164,10 @@ def analog_matmul_raw(
         _require(t.device == dev, f"{name} is on {t.device}, x on {dev}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(x.is_contiguous(), "x must be contiguous")
-    for name, t in (("x", x), ("w", w)):
-        _require(t.dtype in (torch.float32, torch.bfloat16), f"{name} dtype {t.dtype}: bf16 or f32")
+    _require(
+        x.dtype == w.dtype and x.dtype in (torch.float32, torch.bfloat16),
+        f"x and w must both be bf16 or both f32, got {x.dtype} and {w.dtype}",
+    )
     for name, t in (("row_scale", row_scale), ("col_scale", col_scale),
                     ("wq", wq), ("scalars", scalars)):
         _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
@@ -177,8 +179,7 @@ def analog_matmul_raw(
         return out
     global LAUNCHES
     err = library().analog_matmul_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        w.data_ptr(), int(w.dtype == torch.bfloat16),
+        x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
         row_scale.data_ptr(), col_scale.data_ptr(),
         n if col_scale.shape[0] == b and b > 1 else 0,
         wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr(),

@@ -24,11 +24,15 @@
 // per request, so for that kind grid.z runs over requests and a block
 // never mixes them.
 //
-// Bounds on the H100: at prefill the f32 FLOPs (this is a SIMT kernel: 67
-// TFLOP/s f32 peak), at decode the weight bytes (3.35 TB/s). This first
+// Bounds on the H100: the function, a bf16 x bf16 product on the serving
+// path (989 TFLOP/s on the tensor cores), is bound by the weight bytes
+// (3.35 TB/s) at every main-path shape. This SIMT kernel does its products
+// at the f32 rate (67 TFLOP/s), so at prefill the f32 FLOPs hold it, at
+// decode the weight bytes. This first
 // version is deliberately simple: 64x64 output tiles, 16-deep K steps
 // through shared memory, 4x4 outputs per thread, f32 sums in registers; no
-// wgmma, no TMA. On the serving path x and w arrive as bf16 and are
+// wgmma, no TMA. x and w are both bf16 or both f32 (one instantiation
+// each). On the serving path they arrive as bf16 and are
 // converted on load (bf16 -> f32 is exact), so a later redesign can take
 // the bf16 tensor-core route within accumulation-order tolerance -- except
 // for noise_kind == weight, whose noisy weights are not bf16-exact.
@@ -138,12 +142,12 @@ __device__ __forceinline__ float fake_quant(float v, float delta, float zp, floa
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename TX, typename TW>
+template <typename T>
 __global__ void __launch_bounds__(THREADS) analog_mm_kernel(const Params p) {
   __shared__ float As[BK][BM + 1];  // +1: conflict-free transposed stores
   __shared__ float Bs[BK][BN];
-  const TX* __restrict__ x = static_cast<const TX*>(p.x);
-  const TW* __restrict__ w = static_cast<const TW*>(p.w);
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const T* __restrict__ w = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -259,9 +263,9 @@ __global__ void threefry_words_kernel(uint32_t k0, uint32_t k1, uint32_t row0, u
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int analog_matmul_launch(const void* x, int x_bf16, const void* w, int w_bf16,
-                                    const float* rs, const float* cs, int cs_stride,
-                                    const float* wq, const float* sc, const uint32_t* seed,
+// x and w are both bf16 (bf16 != 0) or both f32.
+extern "C" int analog_matmul_launch(const void* x, const void* w, int bf16, const float* rs,
+                                    const float* cs, int cs_stride, const float* wq, const float* sc, const uint32_t* seed,
                                     float* out, int B, int M, int K, int N, int noise_kind,
                                     int quant_x, int quant_w, int quant_out, int n_repeats,
                                     float inv_k, void* stream) {
@@ -289,14 +293,10 @@ extern "C" int analog_matmul_launch(const void* x, int x_bf16, const void* w, in
   const dim3 grid((N + BN - 1) / BN, per_req ? (M + BM - 1) / BM : (B * M + BM - 1) / BM,
                   per_req ? B : 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && w_bf16) {
-    analog_mm_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
-  } else if (x_bf16) {
-    analog_mm_kernel<__nv_bfloat16, float><<<grid, THREADS, 0, s>>>(p);
-  } else if (w_bf16) {
-    analog_mm_kernel<float, __nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
+  if (bf16) {
+    analog_mm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
   } else {
-    analog_mm_kernel<float, float><<<grid, THREADS, 0, s>>>(p);
+    analog_mm_kernel<float><<<grid, THREADS, 0, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -10,10 +10,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
-from repro_torch.core.analog import AnalogConfig, analog_dot, fold_key, key_seed, site_key
+from repro_torch.core.analog import AnalogConfig, analog_dot
 
 
 class MatmulHook:
@@ -28,28 +27,21 @@ class AnalogHook(MatmulHook):
     """Analog execution with per-site energies (paper §IV-V).
 
     ``energies`` maps site name -> this layer's energy (0-d or per-channel
-    tensor). The noise stream of a site comes from ``seeds[site]`` when the
-    forward precomputed its seed table (``site_seed_table``), else from
-    ``site_key(key, site)`` folded here. ``key`` may be one (2,) raw key or
-    a stacked (B, 2) array, one stream per request row, as in the reference.
-    ``n_repeats`` is the K-repeat knob, averaged inside the kernel.
+    tensor); ``seeds`` maps site name -> its seed words, the layer's row of
+    the forward's ``site_seed_table`` ((4,) for one key, (B, 4) with one
+    stream per request row). ``n_repeats`` is the K-repeat knob, averaged
+    inside the kernel.
     """
 
     cfg: AnalogConfig
     energies: Dict[str, torch.Tensor]
-    key: Optional[np.ndarray] = None
+    seeds: Dict[str, torch.Tensor]
     n_repeats: int = 1
-    seeds: Optional[Dict[str, torch.Tensor]] = None
-
-    def seed(self, site: str, device) -> torch.Tensor:
-        if self.seeds is not None:
-            return self.seeds[site]
-        return key_seed(site_key(self.key, site), device)
 
     def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = analog_dot(
             x, w, cfg=self.cfg, energy=self.energies[site],
-            seed=self.seed(site, x.device), n_repeats=self.n_repeats,
+            seed=self.seeds[site], n_repeats=self.n_repeats,
         )
         return y.to(x.dtype)
 
@@ -57,18 +49,13 @@ class AnalogHook(MatmulHook):
 def hook_for_layer(
     analog_cfg: Optional[AnalogConfig],
     layer_energies: Optional[Dict[str, torch.Tensor]],
-    key,
-    layer_idx: int,
+    seeds: Optional[Dict[str, torch.Tensor]],
     *,
     n_repeats: int = 1,
-    seeds: Optional[Dict[str, torch.Tensor]] = None,
 ) -> MatmulHook:
-    """Hook for one layer: the layer's key is ``fold_key(key, layer_idx)``.
-    ``seeds`` (the layer's row of a forward's seed table) replaces the
-    per-call host folding; its words are the same chain."""
+    """Hook for one layer: ``seeds`` is the layer's row of the forward's
+    seed table, the reference's ``fold_key(key, layer_idx)`` → ``site_key``
+    chain folded on the host."""
     if analog_cfg is None or layer_energies is None:
         return MatmulHook()
-    lk = None if key is None else fold_key(key, layer_idx)
-    return AnalogHook(
-        cfg=analog_cfg, energies=layer_energies, key=lk, n_repeats=n_repeats, seeds=seeds
-    )
+    return AnalogHook(cfg=analog_cfg, energies=layer_energies, seeds=seeds, n_repeats=n_repeats)

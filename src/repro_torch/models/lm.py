@@ -205,9 +205,8 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
         hook = MatmulHook()
         if analog is not None:
             hook = hook_for_layer(
-                analog.cfg, {s: energies[s][l] for s in sites}, None, l,
-                n_repeats=analog.n_repeats,
-                seeds={s: table[l, i] for i, s in enumerate(sites)},
+                analog.cfg, {s: energies[s][l] for s in sites},
+                {s: table[l, i] for i, s in enumerate(sites)}, n_repeats=analog.n_repeats,
             )
         layer_cache = (cache["groups"]["k"][l, 0], cache["groups"]["v"][l, 0])
         h = _transformer_layer(h, lp, cfg, hook, rope=rope, mode=mode, cache=layer_cache, pos=pos)

@@ -85,16 +85,19 @@ def test_hook_for_layer_site_chain_and_seed_table(stacked):
     jkey = jnp.stack(_stacked()) if stacked else jax.random.PRNGKey(11)
     key = np.asarray(jkey)
     sites = ["attn0_q", "attn0_k", "mlp0_gate", "mlp0_out"]
-    table = analog.site_seed_table(key, 3, sites, "cpu").numpy().view(np.uint32)
+    table = analog.site_seed_table(key, 3, sites, "cpu")
+    words = table.numpy().view(np.uint32)
     for layer in range(3):
         jh = jhooks.hook_for_layer(JAnalogConfig.shot(), {}, jkey, layer)
-        h = hooks.hook_for_layer(AnalogConfig.shot(), {}, key, layer)
-        np.testing.assert_array_equal(h.key, np.asarray(jh.key))
+        h = hooks.hook_for_layer(
+            AnalogConfig.shot(), {}, {s: table[layer, i] for i, s in enumerate(sites)}
+        )
         for s, site in enumerate(sites):
             want = np.asarray(janalog.site_key(jh.key, site))
-            np.testing.assert_array_equal(analog.site_key(h.key, site), want)
-            np.testing.assert_array_equal(table[layer, s][..., :2], want)
-            np.testing.assert_array_equal(table[layer, s][..., 2:], 0)
+            np.testing.assert_array_equal(analog.site_key(analog.fold_key(key, layer), site), want)
+            np.testing.assert_array_equal(words[layer, s][..., :2], want)
+            np.testing.assert_array_equal(words[layer, s][..., 2:], 0)
+            assert torch.equal(h.seeds[site], table[layer, s])
             k0, k1 = jprng.key_to_words(want if not stacked else want[0])
             assert (int(k0), int(k1)) == tuple(int(v) for v in prng.key_to_words(
                 want if not stacked else want[0]))
