@@ -3,23 +3,30 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --only build,threefry,kernels,routes   # a short check
 
-It builds the CUDA kernel from ``src/repro_torch/kernels/csrc``, holds the
-device Threefry words bit-exactly and the kernel's outputs within a stated
-tolerance against the plain PyTorch version at the main path's shapes,
-times the kernel at every analog site shape of granite-3-8b, serves eight
-requests through ``ServingEngine`` on granite-3-8b at full width and depth
-(random bf16 weights from a seed, shot noise), checks that every analog
-site of every forward launched the kernel, times the first batch's prefill
-and decode steps, and compares that path with the plain ("tile") backend
-on the card, beside paths with a known fault. Every phase that fails
-raises. The
-last line is ``{"ok": true, "device": {...}}``; without a CUDA device it
-exits non-zero and prints no result.
+It builds the three routes of the analog-matmul kernel (``decode``, ``tc``,
+``simt``) from ``src/repro_torch/kernels/csrc``, holds the device Threefry
+words bit-exactly and each route's gaussians, its outputs at the main
+path's shapes and at a ragged shape (K = 1 and 4, with output requant)
+within a stated tolerance against the plain PyTorch version, checks that
+each route gives a request the same bits alone as in a batch and from
+launch to launch, times the chosen route beside the simt route at every
+analog site shape of granite-3-8b, sweeps the per-request row count at
+gate/up to place ``M_DECODE``, serves eight requests through
+``ServingEngine`` on granite-3-8b at full width and depth (random bf16
+weights from a seed, shot noise) and checks that every decode-step site
+launched the decode route and every prefill site the tc route, serves two
+requests with weight noise through the simt route, times the first batch's
+prefill and decode steps, and compares that path with the plain ("tile")
+backend on the card, beside paths with a known fault. Every phase that
+fails raises. The last line is ``{"ok": true, "device": {...}}``; without a
+CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -50,6 +57,14 @@ GAUSS_ATOL = 4e-6
 #: noise), so a reader sees whether this bound lies below them.
 LOGIT_REL_TOL = 5e-2
 SERVE_MAX_GEN = 16
+WEIGHT_SERVE_GEN = 4
+PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve")
+SOURCE = {
+    "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
+    "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
+    "simt": "src/repro_torch/kernels/csrc/analog_matmul.cu",
+}
+REPLACES = "src/repro/kernels/analog_matmul.py:208"
 
 
 def card() -> str:
@@ -66,7 +81,9 @@ def log(phase: str, **fields) -> None:
 
 def cuda_ms(fn, iters: int, flush=None) -> float:
     """Median device time of ``fn`` over ``iters`` launches (CUDA events),
-    with the L2 cache flushed before each launch when ``flush`` is given."""
+    with the L2 cache emptied of the operands before each launch when
+    ``flush`` is given: a 256 MB buffer is read (not written, so no dirty
+    lines are left for the timed launch to write back)."""
     import torch
 
     fn()  # warm up
@@ -74,13 +91,19 @@ def cuda_ms(fn, iters: int, flush=None) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         if flush is not None:
-            flush.zero_()
+            flush.sum(dtype=torch.int64)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
     return times[len(times) // 2]
+
+
+def _flush_buffer():
+    import torch
+
+    return torch.zeros(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
 
 
 # ---------------------------------------------------------------------------
@@ -92,14 +115,20 @@ def phase_build() -> None:
     from repro_torch.kernels import analog_matmul as am
 
     am.build(force=True)
-    am.library()
+    for r in am.ROUTES:
+        am.library(r)
     nvcc = subprocess.run([am.find_nvcc(), "--version"], capture_output=True, text=True)
-    ptxas = [l.strip() for l in am.BUILD_LOG.splitlines() if "registers" in l or "spill" in l]
-    log("build", seconds=round(am.BUILD_SECONDS, 3), library=os.path.relpath(am.LIBRARY, HERE),
+    ptxas = {r: [l.strip() for l in am.BUILD_LOG[r].splitlines() if "registers" in l or "spill" in l]
+             for r in am.ROUTES}
+    log("build", seconds=round(am.BUILD_SECONDS, 3),
+        libraries={r: os.path.relpath(p, HERE) for r, p in am.LIBRARIES.items()},
         nvcc=nvcc.stdout.strip().splitlines()[-1], ptxas=ptxas, card=card())
 
 
 def phase_threefry() -> None:
+    """Device Threefry words bit-exact, and each route's gaussians (zero
+    operands, unit scales: the output is the noise itself) against the
+    plain ones: a fault in a route's (row, col) mapping moves the noise."""
     import numpy as np
     import torch
 
@@ -109,7 +138,8 @@ def phase_threefry() -> None:
 
     dev = torch.device("cuda")
     n = 256
-    worst = 0.0
+    worst = {r: 0.0 for r in am.ROUTES}
+    ones = lambda *s: torch.ones(s, device=dev)
     for k0, k1 in ((0, 0), (0x12345678, 0x9ABCDEF0), (0xFFFFFFFF, 7)):
         words = am.threefry_words(k0, k1, 0, 0, (n, n), device=dev)
         rows = torch.arange(n, device=dev, dtype=torch.int64)[:, None]
@@ -118,19 +148,30 @@ def phase_threefry() -> None:
         got = words.to(torch.int64) & prng.MASK
         if not (torch.equal(got[..., 0], w0) and torch.equal(got[..., 1], w1)):
             raise AssertionError(f"device Threefry words differ from the plain words for key {(k0, k1)}")
-        # gaussians through the kernel itself: zero operands, unit scales
-        z = torch.zeros((1, n, 16), device=dev)
-        seed = torch.from_numpy(np.asarray([[k0, k1, 0, 0]], np.uint32).view(np.int32)).to(dev)
-        xi = analog_matmul_raw(
-            z, torch.zeros((16, n), device=dev), torch.ones((1, n, 1), device=dev),
-            torch.ones((1, 1, n), device=dev), torch.ones((3, n), device=dev),
-            torch.ones((1, 8), device=dev), seed, noise_kind="output",
-        )[0]
         ref = prng.gaussian_tile(k0, k1, 0, 0, (n, n), device=dev)
-        worst = max(worst, float((xi - ref).abs().max()))
+        one = np.asarray([[k0, k1, 0, 0]], np.uint32)
+        # simt (f32) and tc: one request of n rows
+        for route, dtype in (("simt", torch.float32), ("tc", torch.bfloat16)):
+            seed = torch.from_numpy(one.view(np.int32)).to(dev)
+            xi = analog_matmul_raw(
+                torch.zeros((1, n, 16), device=dev, dtype=dtype),
+                torch.zeros((16, n), device=dev, dtype=dtype), ones(1, n, 1), ones(1, 1, n),
+                ones(3, n), ones(1, 8), seed, noise_kind="output", route=route,
+            )[0]
+            worst[route] = max(worst[route], float((xi - ref).abs().max()))
+        # decode: n requests of one row; request i's seed starts at row i
+        table = np.repeat(one, n, axis=0)
+        table[:, 2] = np.arange(n, dtype=np.uint32)
+        seed = torch.from_numpy(table.view(np.int32)).to(dev)
+        xi = analog_matmul_raw(
+            torch.zeros((n, 1, 16), device=dev, dtype=torch.bfloat16),
+            torch.zeros((16, n), device=dev, dtype=torch.bfloat16), ones(n, 1, 1),
+            ones(1, 1, n), ones(3, n), ones(1, 8), seed, noise_kind="output", route="decode",
+        )[:, 0]
+        worst["decode"] = max(worst["decode"], float((xi - ref).abs().max()))
     torch.cuda.synchronize()
-    if worst > GAUSS_ATOL:
-        raise AssertionError(f"kernel gaussians differ from plain by {worst} > {GAUSS_ATOL}")
+    if max(worst.values()) > GAUSS_ATOL:
+        raise AssertionError(f"kernel gaussians differ from plain: {worst} > {GAUSS_ATOL}")
     log("threefry", grid=[n, n], keys=3, words="bit-exact", gauss_max_abs_err=worst,
         gauss_atol=GAUSS_ATOL)
 
@@ -163,12 +204,20 @@ def _site_operands(b, m, k, n, cfg, energy, quant=False, seed=1234):
     ), sq
 
 
-def _run_raw(raw, o, n_repeats):
+def _run_raw(raw, o, n_repeats, **kw):
     return raw(
         o["x"], o["w"], o["row_scale"], o["col_scale"], o["wq"], o["scalars"], o["seed"],
         noise_kind=o["noise_kind"], quant_x=o["quant_x"], quant_w=o["quant_w"],
-        quant_out=o["quant_out"], n_repeats=n_repeats,
+        quant_out=o["quant_out"], n_repeats=n_repeats, **kw,
     )
+
+
+def _route_of(o):
+    from repro_torch.kernels.analog_matmul import select_route
+
+    b, m, k = o["x"].shape
+    return select_route(b, m, k, o["w"].shape[1], o["x"].dtype, o["noise_kind"],
+                        o["quant_x"], o["quant_w"], o["quant_out"])
 
 
 def _bound(o, n_repeats):
@@ -179,8 +228,7 @@ def _bound(o, n_repeats):
     (bf16 tensor cores when x and w are bf16; the f32 SIMT rate for f32
     operands or noisy weights, which are not bf16) and, on the SIMT units,
     the Threefry ops of the noise draws this call needs. ``f32_simt_ms`` is
-    the same bound with the product at the f32 SIMT rate, the route the
-    kernel takes today.
+    the same bound with the product at the f32 SIMT rate.
     """
     import torch
 
@@ -201,77 +249,212 @@ def _bound(o, n_repeats):
     return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations"), simt_s * 1e3
 
 
+def _close(yk, yr, o, sq):
+    """(max |err|, atol, ok) under the reference's rule."""
+    import torch
+
+    scale = float(yr.abs().max()) + 1e-6
+    atol = REL_ATOL * scale
+    if o["quant_out"]:
+        atol = max(atol, float(sq.oqp.delta) * 1.01)
+    err = (yk - yr).abs()
+    ok = bool((err <= atol + RTOL * yr.abs()).all()) and bool(torch.isfinite(yk).all())
+    return float(err.max()), atol, ok
+
+
+def _cases():
+    """(name, (b, m, k, n), cfg, energy, quant, n_repeats, route) of the
+    kernel-vs-plain phase: every route at main-path shapes and at a ragged
+    shape, K = 1 and 4, with output requant. ``route`` None takes "auto"."""
+    from repro_torch.core.analog import AnalogConfig
+
+    shot, none = AnalogConfig.shot(), AnalogConfig(mode="analog")
+    thermal_q = AnalogConfig.thermal(0.01)  # quant_x, quant_w and quant_out
+    requant = AnalogConfig.thermal(0.01, weight_bits=None, act_bits=None)  # quant_out only
+    weight = AnalogConfig.weight(0.1)
+    gate, down, kv = (4096, 12800), (12800, 4096), (4096, 1024)
+    return [
+        # decode route: main-path shapes, then the ragged shape
+        ("shot K=1 decode gate/up", (4, 1, *gate), shot, 20.0, False, 1, None),
+        ("shot K=4 decode gate/up", (4, 1, *gate), shot, 20.0, False, 4, None),
+        ("shot K=1 decode down", (4, 1, *down), shot, 20.0, False, 1, None),
+        ("requant K=4 decode k/v", (4, 1, *kv), requant, 4.0, True, 4, None),
+        ("thermal+quant K=1 decode k/v", (4, 1, *kv), thermal_q, 4.0, True, 1, None),
+        ("shot K=1 decode ragged", (3, 1, 4000, 1000), shot, 20.0, False, 1, None),
+        ("requant K=4 decode ragged", (3, 1, 4000, 1000), requant, 4.0, True, 4, None),
+        # tc route
+        ("shot K=1 prefill gate/up", (4, 64, *gate), shot, 20.0, False, 1, None),
+        ("shot K=4 prefill gate/up", (4, 64, *gate), shot, 20.0, False, 4, None),
+        ("shot K=1 prefill down", (4, 64, *down), shot, 20.0, False, 1, None),
+        ("requant K=4 prefill k/v", (4, 64, *kv), requant, 4.0, True, 4, None),
+        ("none prefill k/v", (4, 64, *kv), none, 1.0, False, 1, None),
+        ("shot K=1 tc ragged", (3, 40, 4000, 1000), shot, 20.0, False, 1, None),
+        ("requant K=4 tc ragged", (3, 40, 4000, 1000), requant, 4.0, True, 4, None),
+        # simt route
+        ("thermal+quant K=1 prefill k/v", (4, 64, *kv), thermal_q, 4.0, True, 1, None),
+        ("weight K=4 prefill k/v", (4, 64, *kv), weight, 5.0, False, 4, None),
+        ("weight K=1 decode gate/up", (2, 1, *gate), weight, 5.0, False, 1, None),
+        ("shot K=1 simt prefill gate/up", (4, 64, *gate), shot, 20.0, False, 1, "simt"),
+        ("weight K=4 simt ragged", (3, 40, 4000, 1000), weight, 5.0, False, 4, None),
+        ("requant K=1 simt ragged", (3, 40, 4000, 1000), requant, 4.0, True, 1, "simt"),
+    ]
+
+
+#: the case that stands for each route in the kernels line: the main path's
+#: shape of that route (simt: the weight-noise serve's decode shape)
+HEADLINE = {"decode": "shot K=1 decode gate/up", "tc": "shot K=1 prefill gate/up",
+            "simt": "weight K=1 decode gate/up"}
+
+
 def phase_kernels() -> dict:
-    """Kernel vs plain at the main path's shapes; times every site shape."""
+    """Each route vs plain; returns the headline entries of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+    from repro_torch.kernels.ref import analog_matmul_ref_raw
+
+    flush = _flush_buffer()
+    seen = {r: 0 for r in am.ROUTES}
+    entries = {}
+    for name, (b, m, k, n), cfg, energy, quant, reps, route in _cases():
+        o, sq = _site_operands(b, m, k, n, cfg, energy, quant)
+        taken = route or _route_of(o)
+        before = dict(am.LAUNCHES)
+        yk = _run_raw(analog_matmul_raw, o, reps, route=route or "auto")
+        launched = [r for r in am.ROUTES if am.LAUNCHES[r] != before[r]]
+        yr = _run_raw(analog_matmul_ref_raw, o, reps)
+        torch.cuda.synchronize()
+        err, atol, ok = _close(yk, yr, o, sq)
+        log("kernel_vs_plain", case=name, route=taken, launched=launched, shape=[b, m, k, n],
+            n_repeats=reps, quant_out=o["quant_out"], max_abs_err=err, atol=atol, rtol=RTOL,
+            ok=ok)
+        if not ok or launched != [taken]:
+            raise AssertionError(f"{name}: route {taken} (launched {launched}) disagrees with plain")
+        seen[taken] += 1
+        if HEADLINE.get(taken) == name:
+            bound, by, _ = _bound(o, reps)
+            entries[taken] = dict(
+                name=f"analog_matmul.{taken}", route="cuda", source=SOURCE[taken],
+                replaces=REPLACES, launches=None, max_abs_err=err,
+                ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, reps, route=taken), 10, flush),
+                plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, reps), 3, flush),
+                bound_ms=bound, bound_by=by, library_ms=None, shape=[b, m, k, n],
+                noise=o["noise_kind"], n_repeats=reps,
+            )
+    if min(seen.values()) == 0 or set(entries) != set(am.ROUTES):
+        raise AssertionError(f"a route was not checked: {seen}")
+    return entries
+
+
+def phase_routes() -> None:
+    """Each route: a request's rows are the same bits alone (B = 1) as in a
+    batch, and two launches on the same inputs give the same bits."""
+    import torch
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+
+    shot = AnalogConfig.shot()
+    requant = AnalogConfig.thermal(0.01, weight_bits=None, act_bits=None)
+    weight = AnalogConfig.weight(0.1)
+    cases = [
+        ("decode", (4, 1, 4096, 12800), shot, 20.0, False, 1),
+        ("decode", (3, 1, 4000, 1000), requant, 4.0, True, 4),
+        ("tc", (4, 64, 4096, 12800), shot, 20.0, False, 1),
+        ("tc", (3, 40, 4000, 1000), requant, 4.0, True, 4),
+        ("simt", (4, 64, 4096, 1024), weight, 5.0, False, 4),
+        ("simt", (3, 40, 4000, 1000), requant, 4.0, True, 1),
+    ]
+    for route, (b, m, k, n), cfg, energy, quant, reps in cases:
+        o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77)
+        batched = _run_raw(analog_matmul_raw, o, reps, route=route)
+        again = _run_raw(analog_matmul_raw, o, reps, route=route)
+        solo_equal = []
+        for i in range(b):
+            solo = dict(o)
+            for t in ("x", "row_scale", "seed"):
+                solo[t] = o[t][i:i + 1].contiguous()
+            if o["col_scale"].shape[0] == b:
+                solo["col_scale"] = o["col_scale"][i:i + 1].contiguous()
+            y = _run_raw(analog_matmul_raw, solo, reps, route=route)
+            solo_equal.append(bool(torch.equal(y[0], batched[i])))
+        deterministic = bool(torch.equal(batched, again))
+        log("routes", route=route, shape=[b, m, k, n], noise=o["noise_kind"], n_repeats=reps,
+            quant_out=o["quant_out"], solo_equals_batched=solo_equal, deterministic=deterministic)
+        if not (all(solo_equal) and deterministic):
+            raise AssertionError(f"route {route} at {(b, m, k, n)}: solo {solo_equal}, "
+                                 f"deterministic {deterministic}")
+
+
+SITES = [("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 12800), ("down", 12800, 4096)]
+
+
+def phase_site_time() -> list:
+    """The chosen route and the simt route, in turns, at every analog site
+    shape of granite-3-8b (4 requests, shot noise, K = 1), beside the bound,
+    the plain version, the bare product and the route without its noise
+    (what the output noise costs inside the kernel)."""
     import torch
 
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.kernels.analog_matmul import analog_matmul_raw
     from repro_torch.kernels.ref import analog_matmul_ref_raw
 
-    cases = [
-        ("shot K=1 prefill gate/up", (4, 64, 4096, 12800), AnalogConfig.shot(), 20.0, False, 1),
-        ("shot K=4 prefill gate/up", (4, 64, 4096, 12800), AnalogConfig.shot(), 20.0, False, 4),
-        ("shot K=1 decode gate/up", (4, 1, 4096, 12800), AnalogConfig.shot(), 20.0, False, 1),
-        ("shot K=4 decode gate/up", (4, 1, 4096, 12800), AnalogConfig.shot(), 20.0, False, 4),
-        ("thermal+quant K=1 prefill k/v", (4, 64, 4096, 1024), AnalogConfig.thermal(0.01), 4.0, True, 1),
-        ("weight K=4 prefill k/v", (4, 64, 4096, 1024), AnalogConfig.weight(0.1), 5.0, False, 4),
-        ("none prefill k/v", (4, 64, 4096, 1024), AnalogConfig(mode="analog"), 1.0, False, 1),
-    ]
-    headline = None
-    for name, (b, m, k, n), cfg, energy, quant, reps in cases:
-        o, sq = _site_operands(b, m, k, n, cfg, energy, quant)
-        yk = _run_raw(analog_matmul_raw, o, reps)
-        yr = _run_raw(analog_matmul_ref_raw, o, reps)
-        torch.cuda.synchronize()
-        scale = float(yr.abs().max()) + 1e-6
-        atol = REL_ATOL * scale
-        if o["quant_out"]:
-            atol = max(atol, float(sq.oqp.delta) * 1.01)
-        err = (yk - yr).abs()
-        ok = bool((err <= atol + RTOL * yr.abs()).all()) and bool(torch.isfinite(yk).all())
-        log("kernel_vs_plain", case=name, shape=[b, m, k, n], max_abs_err=float(err.max()),
-            atol=atol, rtol=RTOL, ok=ok)
-        if not ok:
-            raise AssertionError(f"kernel disagrees with plain version: {name}")
-        if headline is None:
-            headline = (o, reps, float(err.max()))
-
-    # times at every analog site shape of granite-3-8b, 4 requests
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    flush = _flush_buffer()
     shot = AnalogConfig.shot()
-    sites = [("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 12800), ("down", 12800, 4096)]
     rows = []
     for stage, m in (("prefill", 64), ("decode", 1)):
-        for site, k, n in sites:
+        for site, k, n in SITES:
             o, _ = _site_operands(4, m, k, n, shot, 20.0)
-            bound, by, simt = _bound(o, 1)
+            route = _route_of(o)
+            bound, by, simt_bound = _bound(o, 1)
+            run = lambda r: (lambda: _run_raw(analog_matmul_raw, o, 1, route=r))
+            turns = [cuda_ms(run(route), 10, flush), cuda_ms(run("simt"), 10, flush),
+                     cuda_ms(run("simt"), 10, flush), cuda_ms(run(route), 10, flush)]
+            ms, simt_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            quiet = dict(o, noise_kind="none")
             row = dict(
-                site=site, stage=stage, shape=[4, m, k, n],
-                ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1), 10, flush),
+                site=site, stage=stage, shape=[4, m, k, n], route=route, ms=ms, simt_ms=simt_ms,
+                turns_ms=turns, share_of_bound=bound / ms,
+                no_noise_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1, route=route),
+                                    10, flush),
                 plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
                 matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
-                bound_ms=bound, bound_by=by, f32_simt_bound_ms=simt,
+                bound_ms=bound, bound_by=by, f32_simt_bound_ms=simt_bound,
             )
             rows.append(row)
             log("site_time", **row, card=card())
-    o, reps, err = headline
-    bound, by, _ = _bound(o, reps)
-    return dict(
-        name="analog_matmul",
-        route="cuda",
-        source="src/repro_torch/kernels/csrc/analog_matmul.cu",
-        replaces="src/repro/kernels/analog_matmul.py:208",
-        launches=None,
-        max_abs_err=err,
-        ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, reps), 10, flush),
-        plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, reps), 3, flush),
-        bound_ms=bound,
-        bound_by=by,
-        library_ms=None,
-        shape=list(o["x"].shape) + [o["w"].shape[1]],
-        sites=rows,
-    )
+            if ms > simt_ms:
+                raise AssertionError(f"{stage} {site}: route {route} {ms} ms > simt {simt_ms} ms")
+    return rows
+
+
+def phase_sweep() -> None:
+    """decode and tc routes at gate/up (4 requests, shot, K = 1) over the
+    per-request row count M: where the decode route stops winning places
+    M_DECODE."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+
+    flush = _flush_buffer()
+    rows = []
+    for m in (1, 2, 4, 16, 32):
+        o, _ = _site_operands(4, m, 4096, 12800, AnalogConfig.shot(), 20.0)
+        t = {r: cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1, route=r), 10, flush)
+             for r in ("decode", "tc")}
+        t["tc_again"] = cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1, route="tc"), 10, flush)
+        t["decode_again"] = cuda_ms(
+            lambda: _run_raw(analog_matmul_raw, o, 1, route="decode"), 10, flush)
+        dec, tc = (t["decode"] + t["decode_again"]) / 2, (t["tc"] + t["tc_again"]) / 2
+        rows.append(dict(m=m, decode_ms=dec, tc_ms=tc, faster="decode" if dec < tc else "tc",
+                         chosen=_route_of(o)))
+        log("sweep", shape=[4, m, 4096, 12800], decode_ms=dec, tc_ms=tc, turns_ms=t,
+            faster=rows[-1]["faster"], chosen=rows[-1]["chosen"], card=card())
+    agrees = all(r["faster"] == r["chosen"] for r in rows)
+    log("m_decode", m_decode=am.M_DECODE, sweep_agrees=agrees,
+        decode_wins_at=[r["m"] for r in rows if r["faster"] == "decode"])
 
 
 def _traffic(cfg):
@@ -282,6 +465,13 @@ def _traffic(cfg):
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lengths]
     tiers = [1, 1, 1, 1, 4, 4, 4, 4]
     return prompts, tiers
+
+
+def _zero_launches():
+    from repro_torch.kernels import analog_matmul as am
+
+    for r in am.ROUTES:
+        am.LAUNCHES[r] = 0
 
 
 def phase_serve():
@@ -301,12 +491,15 @@ def phase_serve():
         gib=round(torch.cuda.memory_allocated() / 2**30, 3),
         seconds=round(time.perf_counter() - t0, 3), card=card())
 
-    def make_engine(backend):
+    def make_engine(backend, analog=None, **kw):
         """An engine over the same weights; ``backend=None`` is digital."""
-        analog = None if backend is None else AnalogConfig.shot(backend=backend)
+        if backend is not None and analog is None:
+            analog = AnalogConfig.shot(backend=backend)
+        opts = dict(max_gen=SERVE_MAX_GEN, batch_buckets=(1, 2, 4), seq_buckets=(32, 64))
+        opts.update(kw)
         return ServingEngine(
             params, CONFIG, analog_cfg=analog, energies=None if analog is None else energies,
-            max_gen=SERVE_MAX_GEN, batch_buckets=(1, 2, 4), seq_buckets=(32, 64), device="cuda",
+            device="cuda", **opts,
         )
 
     engine = make_engine("auto")
@@ -316,12 +509,12 @@ def phase_serve():
 
     # one window around the whole drain: the engine's own steps, no added syncs
     torch.cuda.synchronize()
-    am.LAUNCHES = 0
+    _zero_launches()
     t = time.perf_counter()
     results = engine.flush()
     torch.cuda.synchronize()
     flush_s = time.perf_counter() - t
-    launches = am.LAUNCHES
+    launches = dict(am.LAUNCHES)
 
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
@@ -333,17 +526,58 @@ def phase_serve():
         log("request", uid=uid, tier=tiers[uid], prompt_len=len(prompts[uid]), tokens=toks.tolist())
     if len(results) != len(prompts):
         raise AssertionError(f"served {len(results)} of {len(prompts)} requests")
-    if launches != sites * forwards:
-        raise AssertionError(f"kernel launches {launches} != {sites} sites x {forwards} forwards")
+    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+    if launches != expected:
+        raise AssertionError(f"launches by route {launches} != {expected} "
+                             f"({sites} sites x decode steps / prefill batches)")
     prompt_tokens = sum(len(p) for p in prompts)
     log("serve", config=CONFIG.name, layers=CONFIG.n_layers, requests=len(results),
         batches=st["batches"], decode_steps=st["decode_steps"], launches=launches,
-        expected_launches=sites * forwards, flush_ms=flush_s * 1e3,
+        expected_launches=expected, flush_ms=flush_s * 1e3,
         ms_per_forward=flush_s * 1e3 / forwards, prompt_tokens=prompt_tokens,
         generated_tokens=st["tokens_generated"],
         generated_tokens_per_s=st["tokens_generated"] / flush_s,
         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=card())
     return make_engine, engine, results, prompts, tiers, launches
+
+
+def phase_serve_weight(make_engine, prompts):
+    """Two requests served with weight noise (noisy weights are not
+    bf16-exact): every site of every forward takes the simt route."""
+    import torch
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.models import lm
+
+    engine = make_engine("auto", AnalogConfig.weight(0.1), max_gen=WEIGHT_SERVE_GEN,
+                         batch_buckets=(1, 2), seq_buckets=(32, 64))
+    short = [p for p in prompts if len(p) <= 32][:2]
+    for p in short:
+        engine.submit(p, n_repeats=1, max_new_tokens=WEIGHT_SERVE_GEN)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t = time.perf_counter()
+    results = engine.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    launches = dict(am.LAUNCHES)
+    st = engine.stats
+    forwards = st["batches"] + st["decode_steps"]
+    sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
+    for uid, toks in results.items():
+        if len(toks) != WEIGHT_SERVE_GEN or toks.min() < 0 or toks.max() >= CONFIG.vocab_size:
+            raise AssertionError(f"weight-noise request {uid}: bad tokens {toks}")
+    expected = {"decode": 0, "tc": 0, "simt": sites * forwards}
+    if len(results) != len(short) or launches != expected:
+        raise AssertionError(f"weight-noise serve: {len(results)} results, launches {launches} "
+                             f"!= {expected}")
+    log("serve_weight", requests=len(results), batches=st["batches"],
+        decode_steps=st["decode_steps"], launches=launches, expected_launches=expected,
+        flush_ms=flush_s * 1e3, ms_per_forward=flush_s * 1e3 / forwards,
+        tokens={int(u): r.tolist() for u, r in results.items()}, card=card())
+    return launches
 
 
 def _profile(fn):
@@ -403,7 +637,7 @@ def _first_batch(engine, prompts, tiers):
 
 
 def phase_steps(engine, prompts, tiers):
-    """Prefill and decode of the first batch through the kernel: wall time
+    """Prefill and decode of the first batch through the kernels: wall time
     of an unprofiled prefill and of an unprofiled run of decode steps (one
     sync at each end, as the engine runs them), then one profiled prefill
     and decode step for the device's time by kernel. The idle share is
@@ -449,7 +683,7 @@ def _rel(a, b, n):
 
 def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     """The first batch again on the plain ("tile") backend, on the card:
-    prefill logits and greedy tokens against the kernel's, beside what
+    prefill logits and greedy tokens against the kernels', beside what
     faulty paths give against the same plain logits."""
     import torch
 
@@ -464,7 +698,7 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     lk = prefill(engine, k, fb["table"])
 
     tile = make_engine("tile")
-    launches = am.LAUNCHES
+    launches = dict(am.LAUNCHES)
     lt = prefill(tile, k, fb["table"])
     t = time.perf_counter()
     for i, key in zip(first, fb["keys"]):
@@ -472,7 +706,7 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     tile_results = tile.flush()
     tile_s = time.perf_counter() - t
     if am.LAUNCHES != launches:
-        raise AssertionError("the tile backend launched the CUDA kernel")
+        raise AssertionError("the tile backend launched a CUDA kernel")
     rel = _rel(lk, lt, n)
 
     # the same check on paths with a known fault: seeds of other requests,
@@ -494,6 +728,15 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help=f"comma-separated phases to run, of {','.join(PHASES)} "
+                         "(serve includes the step and whole-path phases); default all")
+    args = ap.parse_args()
+    only = [p for p in args.only.split(",") if p]
+    if set(only) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(only) - set(PHASES))}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -503,16 +746,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     log("start", python=sys.version.split()[0], torch=torch.__version__,
-        cuda=torch.version.cuda, card=card())
+        cuda=torch.version.cuda, card=card(), phases=only)
     phase_build()
-    phase_threefry()
-    kernel = phase_kernels()
-    make_engine, engine, results, prompts, tiers, launches = phase_serve()
-    kernel["launches"] = launches
-    fb = phase_steps(engine, prompts, tiers)
-    phase_whole_path(make_engine, engine, results, prompts, tiers, fb)
+    if "threefry" in only:
+        phase_threefry()
+    entries = phase_kernels() if "kernels" in only else None
+    if "routes" in only:
+        phase_routes()
+    if "site_time" in only:
+        phase_site_time()
+    if "sweep" in only:
+        phase_sweep()
+    if "serve" in only:
+        make_engine, engine, results, prompts, tiers, launches = phase_serve()
+        launches["simt"] = phase_serve_weight(make_engine, prompts)["simt"]
+        fb = phase_steps(engine, prompts, tiers)
+        phase_whole_path(make_engine, engine, results, prompts, tiers, fb)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
-    print(json.dumps({"kernels": [kernel]}))
+    if only != list(PHASES):
+        print(json.dumps({"ok": True, "partial": only}))
+        return 0
+    kernels = []
+    for r in ("decode", "tc", "simt"):
+        entries[r]["launches"] = launches[r]
+        if launches[r] == 0:
+            raise AssertionError(f"route {r} was launched no time on its path")
+        kernels.append(entries[r])
+    print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

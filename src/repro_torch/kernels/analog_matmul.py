@@ -1,13 +1,27 @@
-"""Wrapper of the hand-written CUDA analog-matmul kernel.
+"""Wrapper of the hand-written CUDA analog-matmul kernels: one function,
+three routes.
 
-``csrc/analog_matmul.cu`` replaces the Pallas TPU kernel of
-``repro/kernels/analog_matmul.py``. It is built with ``nvcc`` for
-``sm_90a`` into ``_build/`` at first use (from the sources in this
-checkout) and bound through its plain C interface with ``ctypes``.
+The sources in ``csrc/`` replace the Pallas TPU kernel of
+``repro/kernels/analog_matmul.py``. Each route is its own source and its
+own library, built with ``nvcc`` for ``sm_90a`` into ``_build/`` at first
+use (all three compiled side by side) and bound through a plain C
+interface with ``ctypes``:
 
+  * ``decode`` (``csrc/analog_decode.cu``) - at most ``M_DECODE`` rows a
+    request: bound by the weight bytes; split-K over one wave of blocks,
+    16-byte weight loads, f32 SIMT products, the splits added in a second
+    pass;
+  * ``tc`` (``csrc/analog_tc.cu``) - more rows, bf16 operands, no input
+    quantizers: bf16 tensor-core products (``wgmma`` fed by TMA), f32 sums;
+  * ``simt`` (``csrc/analog_matmul.cu``) - everything else: weight noise,
+    f32 operands, input quantizers above ``M_DECODE`` rows.
+
+``select_route`` picks the route from the call's shapes and flags alone,
+never from the batch size, and every route's tiling depends on (K, N)
+only, so a request's rows are the same bits alone or in any batch.
 ``analog_matmul_raw`` keeps the reference's signature plus a leading
 request axis: for a CPU tensor it runs the plain version
-(``kernels/ref.py``); for a CUDA tensor it launches the kernel or raises.
+(``kernels/ref.py``); for a CUDA tensor it launches its route or raises.
 """
 from __future__ import annotations
 
@@ -23,24 +37,114 @@ import torch
 from repro_torch.kernels.ref import analog_matmul_ref_raw
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "analog_matmul.cu")
+CSRC = os.path.join(_HERE, "csrc")
+HEADER = os.path.join(CSRC, "analog_common.cuh")
 BUILD_DIR = os.path.join(_HERE, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libanalog_matmul.so")
+ROUTES = ("decode", "tc", "simt")
+SOURCES = {
+    "decode": os.path.join(CSRC, "analog_decode.cu"),
+    "tc": os.path.join(CSRC, "analog_tc.cu"),
+    "simt": os.path.join(CSRC, "analog_matmul.cu"),
+}
+LIBRARIES = {r: os.path.join(BUILD_DIR, f"libanalog_{r}.so") for r in ROUTES}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 NOISE_KINDS = {"none": 0, "output": 1, "weight": 2}
 
-#: kernel launches so far in this process (one per ``analog_matmul_raw``
-#: call on CUDA tensors); a run shows the main path used the kernel.
-LAUNCHES = 0
-#: seconds the last build took (0.0 when the library was already built),
-#: and what nvcc/ptxas printed (registers, shared memory, spills).
-BUILD_SECONDS = 0.0
-BUILD_LOG = ""
+#: largest per-request row count M that takes the decode route. Every decode
+#: step has M = 1 and every prefill M >= 32 (the smallest seq bucket). The
+#: gate/up sweep of ``chip_smoke.py`` (4 requests) placed the crossover on
+#: the H100: decode faster at M = 1 and 2, tc from M = 4 on.
+M_DECODE = 2
 
-_lib = None
+#: decode route: 256 threads a block, 8 k lanes, 4 loads in flight a
+#: thread; K split for at most one wave of 4 blocks a SM, of 256 columns
+#: each, on the H100's 132 SMs.
+DECODE_BN = 256
+DECODE_STEP = 32  # k lanes x loads in flight: the granule of a split
+DECODE_KC_MAX = 1024
+DECODE_TARGET_BLOCKS = 4 * 132
+#: tc route: 128 x 128 output tiles, 64-deep K tiles.
+TC_BM = 128
+TC_BN = 128
+TC_BK = 64
+
+#: kernel launches so far in this process, by route (one per
+#: ``analog_matmul_raw`` call on CUDA tensors): a run shows the main path
+#: used the kernels.
+LAUNCHES = {r: 0 for r in ROUTES}
+#: seconds the last build took (0.0 when the libraries were already built),
+#: and what nvcc/ptxas printed for each route (registers, shared memory,
+#: spills).
+BUILD_SECONDS = 0.0
+BUILD_LOG = {r: "" for r in ROUTES}
+
+_libs: dict = {}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bf16_rows(k: int, n: int, dtype: torch.dtype, noise_kind: str) -> bool:
+    """Whether the decode and tc routes compute such a call at all: bf16
+    operands whose products are exact in f32 (noisy weights are not), and
+    rows of 16-byte multiples."""
+    return noise_kind != "weight" and dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+
+
+def select_route(b: int, m: int, k: int, n: int, dtype: torch.dtype, noise_kind: str,
+                 quant_x: bool = False, quant_w: bool = False, quant_out: bool = False) -> str:
+    """The route that computes a (b, m, k) @ (k, n) call on the card.
+
+    A function of the shapes and flags; ``b`` is taken so the signature
+    matches a call, and deliberately never read: a request must take the
+    same route alone as in a batch. ``quant_out`` is allowed on every route.
+    """
+    del b, quant_out
+    if not _bf16_rows(k, n, dtype, noise_kind):
+        return "simt"
+    if m <= M_DECODE:
+        return "decode"
+    return "simt" if quant_x or quant_w else "tc"
+
+
+def route_takes(route: str, m: int, k: int, n: int, dtype: torch.dtype, noise_kind: str,
+                quant_x: bool, quant_w: bool) -> bool:
+    """Whether ``route`` computes such a call at all (any M); the simt route
+    computes every call."""
+    if route == "simt":
+        return True
+    return _bf16_rows(k, n, dtype, noise_kind) and (route == "decode" or not (quant_x or quant_w))
+
+
+def decode_plan(k: int, n: int, rows: int) -> dict:
+    """Launch plan of the decode route for B * M = ``rows``.
+
+    The split of K is a function of (K, N) alone: ``kc`` rows of K a block
+    (a multiple of ``DECODE_STEP``), ``splits`` slices cover K exactly (the
+    last may be short), at most ``DECODE_TARGET_BLOCKS`` blocks of 256
+    columns (one wave) unless the 32-row granule forces more. The rows
+    only decide which block computes an output, never the order of its
+    sum: ``rt`` rows a block in ``row_groups``, ``cpt`` columns a thread
+    (8, one 16-byte load, at 4 rows; 4 at 8 or 16 rows, where 8 would need
+    64-128 accumulator registers a thread), ``col_tiles`` of 32 * ``cpt``
+    columns.
+    """
+    want = max(1, DECODE_TARGET_BLOCKS // _cdiv(n, DECODE_BN))
+    kc = min(DECODE_KC_MAX, max(DECODE_STEP, _cdiv(_cdiv(k, want), DECODE_STEP) * DECODE_STEP))
+    rt = 4 if rows <= 4 else 8 if rows <= 8 else 16
+    cpt = 8 if rt == 4 else 4
+    return dict(kc=kc, splits=_cdiv(k, kc), rt=rt, row_groups=_cdiv(rows, rt), cpt=cpt,
+                col_tiles=_cdiv(n, 32 * cpt))
+
+
+def tc_plan(rows: int, k: int, n: int) -> dict:
+    """Grid of the tc route: 128 x 128 output tiles (row tiles on grid.x),
+    ``k_tiles`` 64-deep K tiles in K order."""
+    return dict(grid_m=_cdiv(rows, TC_BM), grid_n=_cdiv(n, TC_BN), k_tiles=_cdiv(k, TC_BK))
 
 
 def find_nvcc() -> str:
@@ -56,52 +160,72 @@ def find_nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH); "
-            "the CUDA kernel is built from csrc/ at first use"
+            "the CUDA kernels are built from csrc/ at first use"
         )
     return found
 
 
-def build(force: bool = False) -> str:
-    """Compile ``csrc/analog_matmul.cu`` into ``_build/`` unless the library
-    is newer than its source. Returns the library path."""
-    global BUILD_SECONDS, BUILD_LOG
-    if (
-        not force
-        and os.path.exists(LIBRARY)
-        and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-    ):
-        return LIBRARY
+def _stale(route: str) -> bool:
+    lib = LIBRARIES[route]
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return built < os.path.getmtime(SOURCES[route]) or built < os.path.getmtime(HEADER)
+
+
+def build(force: bool = False) -> dict:
+    """Compile every route's source into ``_build/``, one ``nvcc`` a source,
+    all started together, skipping a library newer than its sources unless
+    ``force``. Returns the library paths by route."""
+    global BUILD_SECONDS
+    todo = [r for r in ROUTES if force or _stale(r)]
+    if not todo:
+        return dict(LIBRARIES)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    procs = {}
+    for r in todo:
+        tmp = f"{LIBRARIES[r]}.{os.getpid()}.tmp"
+        procs[r] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    failed = []
+    for r, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        BUILD_LOG[r] = out + err
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[r]} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, LIBRARIES[r])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    return LIBRARY
+    return dict(LIBRARIES)
 
 
-def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.analog_matmul_launch.argtypes = [
-            p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i,
-            ctypes.c_float, p,
-        ]
-        lib.analog_matmul_launch.restype = i
-        u32 = ctypes.c_uint32
-        lib.threefry_words.argtypes = [u32, u32, u32, u32, i, i, p, p]
-        lib.threefry_words.restype = i
-        _lib = lib
-    return _lib
+def library(route: str) -> ctypes.CDLL:
+    """The built library of ``route``, loaded once per process."""
+    if route not in _libs:
+        lib = ctypes.CDLL(build()[route])
+        p, i, f, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+        common = [p, p, p, p, i, p, p, p, p]  # x, w, rs, cs, cs_stride, wq, sc, seed, out
+        if route == "simt":
+            lib.analog_matmul_launch.argtypes = [
+                p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p,
+            ]
+            lib.analog_matmul_launch.restype = i
+            lib.threefry_words.argtypes = [u32, u32, u32, u32, i, i, p, p]
+            lib.threefry_words.restype = i
+        elif route == "decode":
+            lib.analog_decode_launch.argtypes = common + [p] + [i] * 9 + [f] + [i] * 5 + [p]
+            lib.analog_decode_launch.restype = i
+        else:
+            lib.analog_tc_launch.argtypes = common + [i] * 7 + [f, i, i, p]
+            lib.analog_tc_launch.restype = i
+        _libs[route] = lib
+    return _libs[route]
 
 
 def _check(err: int, what: str) -> None:
@@ -112,6 +236,12 @@ def _check(err: int, what: str) -> None:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its storage is not 16-byte aligned (a view
+    at an odd offset): the decode and tc routes read 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def analog_matmul_raw(
@@ -128,6 +258,7 @@ def analog_matmul_raw(
     quant_w: bool = False,
     quant_out: bool = False,
     n_repeats: int = 1,
+    route: str = "auto",
 ) -> torch.Tensor:
     """(B, M, K) @ (K, N) -> (B, M, N) float32, one request per leading row.
 
@@ -136,7 +267,9 @@ def analog_matmul_raw(
     (3, N) = (delta, zp, bins); scalars f32 (1, 8) = (xd, xz, xbins, od, oz,
     obins, 0, 0); seed int32 (B, 4) holding the uint32 words (k0, k1, row0,
     col0) of each request. ``n_repeats`` K-repeat streams are averaged in
-    the epilogue (or the weight load, for weight noise).
+    the epilogue (or the weight load, for weight noise). ``route`` "auto"
+    takes ``select_route``'s; naming one forces it (for checks and
+    timings) and raises if that route does not compute such a call.
     """
     _require(x.dim() == 3 and w.dim() == 2, f"x must be (B, M, K), w (K, N): {x.shape} {w.shape}")
     b, m, k = x.shape
@@ -144,6 +277,7 @@ def analog_matmul_raw(
     n = w.shape[1]
     _require(n_repeats >= 1, f"n_repeats must be >= 1, got {n_repeats}")
     _require(noise_kind in NOISE_KINDS, f"bad noise_kind {noise_kind!r}")
+    _require(route == "auto" or route in ROUTES, f"bad route {route!r}")
     _require(tuple(row_scale.shape) == (b, m, 1), f"row_scale {tuple(row_scale.shape)} != {(b, m, 1)}")
     _require(
         tuple(col_scale.shape) in ((b, 1, n), (1, 1, n)),
@@ -152,6 +286,12 @@ def analog_matmul_raw(
     _require(tuple(wq.shape) == (3, n), f"wq {tuple(wq.shape)} != {(3, n)}")
     _require(tuple(scalars.shape) == (1, 8), f"scalars {tuple(scalars.shape)} != (1, 8)")
     _require(tuple(seed.shape) == (b, 4), f"seed {tuple(seed.shape)} != {(b, 4)}")
+    if route == "auto":
+        route = select_route(b, m, k, n, x.dtype, noise_kind, quant_x, quant_w, quant_out)
+    else:
+        _require(route_takes(route, m, k, n, x.dtype, noise_kind, quant_x, quant_w),
+                 f"route {route!r} does not compute {noise_kind} noise on {x.dtype} "
+                 f"(K={k}, N={n}, quant_x={quant_x}, quant_w={quant_w})")
     if x.device.type == "cpu":
         return analog_matmul_ref_raw(
             x, w, row_scale, col_scale, wq, scalars, seed, noise_kind=noise_kind,
@@ -177,19 +317,38 @@ def analog_matmul_raw(
     out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    global LAUNCHES
-    err = library().analog_matmul_launch(
-        x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
-        row_scale.data_ptr(), col_scale.data_ptr(),
-        n if col_scale.shape[0] == b and b > 1 else 0,
-        wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr(),
-        b, m, k, n, NOISE_KINDS[noise_kind],
-        int(quant_x), int(quant_w), int(quant_out), int(n_repeats),
-        float(np.float32(1.0 / n_repeats)),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check(err, "analog_matmul")
-    LAUNCHES += 1
+    cs_stride = n if col_scale.shape[0] == b and b > 1 else 0
+    inv_k = float(np.float32(1.0 / n_repeats))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kind = NOISE_KINDS[noise_kind]
+    if route == "simt":
+        err = library("simt").analog_matmul_launch(
+            x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
+            row_scale.data_ptr(), col_scale.data_ptr(), cs_stride,
+            wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr(),
+            b, m, k, n, kind, int(quant_x), int(quant_w), int(quant_out), int(n_repeats),
+            inv_k, stream,
+        )
+    else:
+        x, w = _aligned(x), _aligned(w)
+        ptrs = (x.data_ptr(), w.data_ptr(), row_scale.data_ptr(), col_scale.data_ptr(),
+                cs_stride, wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr())
+        if route == "decode":
+            plan = decode_plan(k, n, b * m)
+            ws = torch.empty((plan["splits"], b * m, n), dtype=torch.float32, device=dev)
+            err = library("decode").analog_decode_launch(
+                *ptrs, ws.data_ptr(), b, m, k, n, kind, int(quant_x), int(quant_w),
+                int(quant_out), int(n_repeats), inv_k, plan["kc"], plan["splits"], plan["rt"],
+                plan["row_groups"], plan["col_tiles"], stream,
+            )
+        else:
+            plan = tc_plan(b * m, k, n)
+            err = library("tc").analog_tc_launch(
+                *ptrs, b, m, k, n, kind, int(quant_out), int(n_repeats), inv_k,
+                plan["grid_m"], plan["grid_n"], stream,
+            )
+    _check(err, f"analog_matmul ({route})")
+    LAUNCHES[route] += 1
     return out
 
 
@@ -200,7 +359,7 @@ def threefry_words(k0: int, k1: int, row0: int, col0: int, shape, device="cuda")
     rows, cols = shape
     out = torch.empty((rows, cols, 2), dtype=torch.int32, device=device)
     _require(out.device.type == "cuda", "threefry_words runs on the card only")
-    err = library().threefry_words(
+    err = library("simt").threefry_words(
         k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, row0 & 0xFFFFFFFF, col0 & 0xFFFFFFFF,
         rows, cols, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
     )

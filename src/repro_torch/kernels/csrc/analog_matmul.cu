@@ -1,9 +1,13 @@
-// Fused analog matmul for Hopper (sm_90a), plain C entry points for ctypes.
+// Route "simt" of the analog matmul for Hopper (sm_90a): the PR 11 kernel,
+// plain C entry points for ctypes.
 //
 // Replaces the Pallas TPU kernel `_kernel` / `analog_matmul_raw` of
 // src/repro/kernels/analog_matmul.py (pallas_call at line 208) and the
-// in-register noise of src/repro/kernels/prng.py. Per output element it
-// computes, in this order:
+// in-register noise of src/repro/kernels/prng.py, for what the two faster
+// routes do not take (src/repro_torch/kernels/analog_matmul.py select_route):
+// noise_kind == weight, f32 operands, quant_x / quant_w above M_DECODE rows,
+// rows not a multiple of 16 bytes. Per output element it computes, in
+// this order:
 //   1. optional per-tensor fake-quant of x            (scalars[0:3])
 //   2. optional per-channel fake-quant of w           (wq rows: delta, zp, bins)
 //   3. noise_kind == weight: w += cs[j] * xi(k, col0 + j), key k0 ^ SALT
@@ -11,40 +15,30 @@
 //   5. noise_kind == output: y += rs[i] * cs[j] * xi(row0 + i, col0 + j)
 //   6. optional output fake-quant                     (scalars[3:6])
 // xi is the mean of n_repeats Threefry-2x32-20 / Box-Muller streams whose k1
-// is xor-ed with r * 0x85EBCA6B. The noise tensor never exists in memory.
+// is xor-ed with r * 0x85EBCA6B (analog_common.cuh). The noise tensor never
+// exists in memory.
 //
 // One launch serves a whole bucket batch. x is (B, M, K) flattened to B*M
 // rows; each row carries its request index b = row / M and reads request
 // b's seed words (k0, k1, row0, col0), row scale and col scale (col scale
 // stride 0 when it is shared), and uses its local row index as the noise
 // counter, so every request draws exactly what it would draw alone. For
-// output/none noise a block spans rows of several requests and every
-// weight tile is read once per 64-row tile, which at decode (M = 1 per
-// request) means once per step. Weight noise makes the noisy w tile differ
-// per request, so for that kind grid.z runs over requests and a block
-// never mixes them.
+// output/none noise a block spans rows of several requests. Weight noise
+// makes the noisy w tile differ per request, so for that kind grid.z runs
+// over requests and a block never mixes them.
 //
-// Bounds on the H100: the function, a bf16 x bf16 product on the serving
-// path (989 TFLOP/s on the tensor cores), is bound by the weight bytes
-// (3.35 TB/s) at every main-path shape. This SIMT kernel does its products
-// at the f32 rate (67 TFLOP/s), so at prefill the f32 FLOPs hold it, at
-// decode the weight bytes. This first
-// version is deliberately simple: 64x64 output tiles, 16-deep K steps
-// through shared memory, 4x4 outputs per thread, f32 sums in registers; no
-// wgmma, no TMA. x and w are both bf16 or both f32 (one instantiation
-// each). On the serving path they arrive as bf16 and are
-// converted on load (bf16 -> f32 is exact), so a later redesign can take
-// the bf16 tensor-core route within accumulation-order tolerance -- except
-// for noise_kind == weight, whose noisy weights are not bf16-exact.
-//
-// Build without --use_fast_math: logf/cosf/sqrtf and division must be the
-// IEEE versions for the gaussians to match the reference to a few ulp.
+// Bound on the H100: with noisy weights (not bf16-exact) or f32 operands
+// the product runs at the f32 SIMT rate (67 TFLOP/s), which bounds it at
+// prefill shapes; at decode the weight bytes (3.35 TB/s) do. The design is
+// deliberately simple: 64x64 output tiles, 16-deep K steps through shared
+// memory, 4x4 outputs per thread, f32 sums in registers. It is also the
+// yardstick the decode and tc routes are timed against.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "analog_common.cuh"
 
 namespace {
+
+using namespace analog;
 
 constexpr int BM = 64;
 constexpr int BN = 64;
@@ -52,95 +46,6 @@ constexpr int BK = 16;
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int TM = 4;
 constexpr int TN = 4;
-
-constexpr int NOISE_NONE = 0;
-constexpr int NOISE_OUTPUT = 1;
-constexpr int NOISE_WEIGHT = 2;
-
-constexpr uint32_t PARITY = 0x1BD11BDAu;
-constexpr uint32_t WEIGHT_STREAM_SALT = 0x9E3779B9u;
-constexpr uint32_t REPEAT_STREAM_MULT = 0x85EBCA6Bu;
-constexpr float UNIT = 5.9604644775390625e-8f;  // 2^-24
-constexpr float TWO_PI = 0x1.921fb6p+2f;        // float32(2.0 * 3.14159265358979)
-
-struct Params {
-  const void* x;
-  const void* w;
-  const float* rs;        // (B * M)
-  const float* cs;        // (B or 1, N)
-  const float* wq;        // (3, N)
-  const float* sc;        // (8)
-  const uint32_t* seed;   // (B, 4)
-  float* out;             // (B * M, N)
-  int B, M, K, N;
-  int cs_stride;          // N, or 0 when the col scale is shared
-  int noise_kind;
-  int quant_x, quant_w, quant_out;
-  int n_repeats;
-  float inv_k;            // float32(1 / n_repeats), rounded on the host
-};
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0,
-                                             uint32_t c1, uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks2 = k0 ^ k1 ^ PARITY;
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#define TF_ROUND(d) \
-  x0 += x1;         \
-  x1 = rotl(x1, d); \
-  x1 ^= x0;
-#define TF_A TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-#define TF_B TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  TF_A
-  x0 += k1; x1 += ks2 + 1u;
-  TF_B
-  x0 += ks2; x1 += k0 + 2u;
-  TF_A
-  x0 += k0; x1 += k1 + 3u;
-  TF_B
-  x0 += k1; x1 += ks2 + 4u;
-  TF_A
-  x0 += ks2; x1 += k0 + 5u;
-#undef TF_A
-#undef TF_B
-#undef TF_ROUND
-  o0 = x0;
-  o1 = x1;
-}
-
-__device__ __forceinline__ float counter_gaussian(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                  uint32_t c1) {
-  uint32_t b0, b1;
-  threefry2x32(k0, k1, c0, c1, b0, b1);
-  const float u1 = 1.0f - (float)(b0 >> 8) * UNIT;  // (0, 1]: log finite
-  const float u2 = (float)(b1 >> 8) * UNIT;
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  return __fmul_rn(r, cosf(__fmul_rn(TWO_PI, u2)));
-}
-
-__device__ __forceinline__ float repeat_gaussian(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                 uint32_t c1, int n_repeats, float inv_k) {
-  float xi = counter_gaussian(k0, k1, c0, c1);
-  for (int r = 1; r < n_repeats; ++r) {
-    xi = __fadd_rn(xi, counter_gaussian(k0, k1 ^ ((uint32_t)r * REPEAT_STREAM_MULT), c0, c1));
-  }
-  if (n_repeats > 1) xi = __fmul_rn(xi, inv_k);
-  return xi;
-}
-
-__device__ __forceinline__ float fake_quant(float v, float delta, float zp, float bins) {
-  // rintf rounds half to even, as jnp.round does
-  float code = __fadd_rn(rintf(__fdiv_rn(v, delta)), zp);
-  code = fminf(fmaxf(code, 0.0f), bins);
-  return __fmul_rn(__fsub_rn(code, zp), delta);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) analog_mm_kernel(const Params p) {
@@ -269,26 +174,8 @@ extern "C" int analog_matmul_launch(const void* x, const void* w, int bf16, cons
                                     float* out, int B, int M, int K, int N, int noise_kind,
                                     int quant_x, int quant_w, int quant_out, int n_repeats,
                                     float inv_k, void* stream) {
-  Params p;
-  p.x = x;
-  p.w = w;
-  p.rs = rs;
-  p.cs = cs;
-  p.wq = wq;
-  p.sc = sc;
-  p.seed = seed;
-  p.out = out;
-  p.B = B;
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.cs_stride = cs_stride;
-  p.noise_kind = noise_kind;
-  p.quant_x = quant_x;
-  p.quant_w = quant_w;
-  p.quant_out = quant_out;
-  p.n_repeats = n_repeats;
-  p.inv_k = inv_k;
+  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N,
+                               noise_kind, quant_x, quant_w, quant_out, n_repeats, inv_k);
   const bool per_req = noise_kind == NOISE_WEIGHT;
   const dim3 grid((N + BN - 1) / BN, per_req ? (M + BM - 1) / BM : (B * M + BM - 1) / BM,
                   per_req ? B : 1);

@@ -91,3 +91,9 @@ except ImportError:
     _mod.strategies = _st
     sys.modules["hypothesis"] = _mod
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one; run on the card with -m cuda)"
+    )

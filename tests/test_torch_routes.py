@@ -1,0 +1,213 @@
+"""The analog matmul's three routes: which calls each takes, how its launch
+plan covers the problem, and that each route's call shapes compute the
+reference's function.
+
+On the CPU every route runs the plain version (``kernels/ref.py``), so the
+parity tests here hold the plain version against the JAX reference at the
+shapes, dtypes and flags each route takes on the card; ``chip_smoke.py``
+and ``tests/test_torch_card.py`` hold the route's kernel against the plain
+version there. Tolerance: the
+reference's rule (``tests/test_kernels.py``), ``atol = 3e-5 * max|y|``,
+widened to one output-quantizer bin under requant, ``rtol = 1e-4``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import AnalogConfig as JAnalogConfig  # noqa: E402
+from repro.core import SiteQuant as JSiteQuant  # noqa: E402
+from repro.kernels import analog_matmul_reference as jreference  # noqa: E402
+from repro.quant import calibrate_minmax  # noqa: E402
+from repro_torch.core.analog import AnalogConfig, SiteQuant, key_seed  # noqa: E402
+from repro_torch.kernels import analog_matmul as am  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.quant.affine import QuantParams  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+# (m, k, n, dtype, noise_kind, quant_x, quant_w, quant_out) -> route
+ROUTE_TABLE = [
+    ((1, 4096, 12800, BF16, "output", False, False, False), "decode"),
+    ((1, 12800, 4096, BF16, "none", False, False, True), "decode"),
+    ((1, 4096, 1024, BF16, "output", True, True, True), "decode"),
+    ((am.M_DECODE, 4000, 1000, BF16, "output", False, False, False), "decode"),
+    ((am.M_DECODE + 1, 4000, 1000, BF16, "output", False, False, False), "tc"),
+    ((32, 4096, 12800, BF16, "output", False, False, False), "tc"),
+    ((64, 4096, 1024, BF16, "none", False, False, True), "tc"),
+    ((40, 4000, 1000, BF16, "output", False, False, True), "tc"),
+    ((64, 4096, 1024, BF16, "output", True, False, False), "simt"),
+    ((64, 4096, 1024, BF16, "output", False, True, False), "simt"),
+    ((1, 4096, 12800, BF16, "weight", False, False, False), "simt"),
+    ((64, 4096, 12800, BF16, "weight", False, False, False), "simt"),
+    ((1, 4096, 12800, F32, "output", False, False, False), "simt"),
+    ((64, 4096, 12800, F32, "none", False, False, False), "simt"),
+    ((1, 4001, 1000, BF16, "output", False, False, False), "simt"),
+    ((64, 4096, 1001, BF16, "output", False, False, False), "simt"),
+]
+
+
+@pytest.mark.parametrize("case,route", ROUTE_TABLE,
+                         ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_select_route(case, route, b):
+    m, k, n, dtype, kind, qx, qw, qo = case
+    assert am.select_route(b, m, k, n, dtype, kind, qx, qw, qo) == route
+    assert am.route_takes(route, m, k, n, dtype, kind, qx, qw)
+
+
+def test_route_never_depends_on_batch():
+    for m in (1, 2, am.M_DECODE, am.M_DECODE + 1, 32, 64, 512):
+        for kind in ("output", "none", "weight"):
+            for dtype in (BF16, F32):
+                for flags in ((False, False, False), (True, False, True), (False, True, False)):
+                    routes = {am.select_route(b, m, 4096, 1024, dtype, kind, *flags)
+                              for b in range(1, 17)}
+                    assert len(routes) == 1, (m, kind, dtype, flags, routes)
+
+
+def test_route_takes_refuses():
+    assert not am.route_takes("tc", 64, 4096, 1024, BF16, "output", True, False)
+    assert not am.route_takes("tc", 64, 4096, 1024, BF16, "weight", False, False)
+    assert not am.route_takes("decode", 1, 4096, 1024, F32, "output", False, False)
+    assert not am.route_takes("decode", 1, 4096, 1020, BF16, "output", False, False)
+    assert am.route_takes("decode", 64, 4096, 1024, BF16, "output", True, True)
+    assert am.route_takes("simt", 1, 7, 5, F32, "weight", True, True)
+
+
+KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096), (4000, 1000), (16, 8),
+      (8, 256), (40, 20 * 8), (100000, 8), (1000, 300000)]
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16])
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_decode_plan_covers_k_and_n(k, n, rows):
+    plan = am.decode_plan(k, n, rows)
+    kc, splits, tiles = plan["kc"], plan["splits"], plan["col_tiles"]
+    assert kc % am.DECODE_STEP == 0 and 0 < kc <= am.DECODE_KC_MAX
+    assert (splits - 1) * kc < k <= splits * kc  # every split non-empty, K covered
+    width = 32 * plan["cpt"]
+    assert (tiles - 1) * width < n <= tiles * width
+    covered = np.zeros(k, np.int64)
+    for s in range(splits):
+        covered[s * kc: min(k, (s + 1) * kc)] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_decode_split_never_depends_on_rows(k, n):
+    """The order of every output's sum is fixed by the split of K: it must
+    be the same for a request alone as in any batch."""
+    splits = {(p["kc"], p["splits"]) for p in (am.decode_plan(k, n, r) for r in range(1, 65))}
+    assert len(splits) == 1
+
+
+def test_decode_plan_fills_the_card_at_granite_sites():
+    """At least 3 blocks for each of the H100's 132 SMs at every granite-3-8b
+    site (k/v is held to 512 by the 32-row granule of a split)."""
+    for k, n in KN[:4]:
+        plan = am.decode_plan(k, n, 4)
+        assert plan["splits"] * plan["col_tiles"] >= 3 * 132, (k, n, plan)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 5, 8, 9, 16, 17, 64, 16 * am.M_DECODE])
+def test_decode_rows_cover(rows):
+    plan = am.decode_plan(4096, 1024, rows)
+    rt, groups = plan["rt"], plan["row_groups"]
+    assert rt in (4, 8, 16) and plan["cpt"] in (4, 8)
+    assert (groups - 1) * rt < rows <= groups * rt
+
+
+@pytest.mark.parametrize("rows,k,n", [(256, 4096, 12800), (120, 4000, 1000), (128, 8, 8),
+                                      (129, 12800, 4096), (5, 40, 136)])
+def test_tc_plan_covers(rows, k, n):
+    plan = am.tc_plan(rows, k, n)
+    assert (plan["grid_m"] - 1) * am.TC_BM < rows <= plan["grid_m"] * am.TC_BM
+    assert (plan["grid_n"] - 1) * am.TC_BN < n <= plan["grid_n"] * am.TC_BN
+    assert (plan["k_tiles"] - 1) * am.TC_BK < k <= plan["k_tiles"] * am.TC_BK
+
+
+def _raw(b, m, k, n, dtype=F32):
+    return [torch.zeros(b, m, k, dtype=dtype), torch.zeros(k, n, dtype=dtype),
+            torch.ones(b, m, 1), torch.ones(1, 1, n), torch.ones(3, n), torch.ones(1, 8),
+            torch.zeros(b, 4, dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("route,kw", [
+    ("tc", dict(noise_kind="weight")),
+    ("tc", dict(quant_x=True)),
+    ("decode", dict()),  # f32 operands
+    ("warp", dict()),
+])
+def test_forced_route_refuses_what_it_does_not_compute(route, kw):
+    with pytest.raises(ValueError):
+        am.analog_matmul_raw(*_raw(2, 3, 16, 8), route=route, **kw)
+
+
+# ---------------------------------------------------------------------------
+# each route's call shapes against the JAX reference (plain version on CPU)
+# ---------------------------------------------------------------------------
+
+ROUTE_CASES = {
+    "decode": (3, 1, 64, 40),
+    "tc": (3, 9, 64, 40),
+    "simt": (2, 9, 36, 20),
+}
+
+
+def _bf16_data(b, m, k, n, seed):
+    """numpy inputs already on the bf16 grid, so both packages see the same
+    numbers whether they hold them in bf16 or f32."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, m, k)).astype(np.float32)).to(BF16)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(np.float32)).to(BF16)
+    return x.float().numpy(), w.float().numpy()
+
+
+def _configs(route, requant):
+    if route == "simt":
+        return JAnalogConfig.weight(0.1), AnalogConfig.weight(0.1), 5.0
+    if requant:
+        kw = dict(weight_bits=None, act_bits=None)
+        return JAnalogConfig.thermal(0.01, **kw), AnalogConfig.thermal(0.01, **kw), 4.0
+    return JAnalogConfig.shot(), AnalogConfig.shot(), 10.0
+
+
+@pytest.mark.parametrize("requant", [False, True], ids=["float", "requant"])
+@pytest.mark.parametrize("n_repeats", [1, 4])
+@pytest.mark.parametrize("route", list(ROUTE_CASES))
+def test_route_call_matches_reference(route, n_repeats, requant):
+    """The batched call a route takes on the card, every request against
+    the reference's solo call with its own key."""
+    b, m, k, n = ROUTE_CASES[route]
+    x, w = _bf16_data(b, m, k, n, seed=5)
+    jcfg, cfg, e = _configs(route, requant)
+    jsq = sq = None
+    if requant:
+        jsq = JSiteQuant(oqp=calibrate_minmax(jnp.asarray(x) @ jnp.asarray(w)))
+        sq = SiteQuant(oqp=QuantParams(torch.from_numpy(np.array(jsq.oqp.x_min)),
+                                       torch.from_numpy(np.array(jsq.oqp.x_max)), jsq.oqp.bits))
+    keys = [jax.random.fold_in(jax.random.PRNGKey(3), u) for u in range(b)]
+    seed = key_seed(np.asarray(jnp.stack(keys)), "cpu")
+    dtype = F32 if route == "simt" else BF16  # simt: f32 operands, as the reference's
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    o = ops.prepare_operands(xt, wt, energy=torch.tensor(e), seed=seed, cfg=cfg, sq=sq)
+    assert am.select_route(b, m, k, n, dtype, o["noise_kind"], o["quant_x"], o["quant_w"],
+                           o["quant_out"]) == route
+    got = am.analog_matmul_raw(
+        o["x"], o["w"], o["row_scale"], o["col_scale"], o["wq"], o["scalars"], o["seed"],
+        noise_kind=o["noise_kind"], quant_x=o["quant_x"], quant_w=o["quant_w"],
+        quant_out=o["quant_out"], n_repeats=n_repeats, route=route,
+    ).numpy()
+    for i in range(b):
+        want = np.asarray(jreference(
+            jnp.asarray(x[i]), jnp.asarray(w), energy=jnp.asarray(e), key=keys[i],
+            cfg=jcfg, sq=jsq, n_repeats=n_repeats,
+        ))
+        atol = 3e-5 * (float(np.abs(want).max()) + 1e-6)
+        if requant:
+            atol = max(atol, float(jsq.oqp.delta) * 1.01)
+        np.testing.assert_allclose(got[i], want, atol=atol, rtol=1e-4)
