@@ -20,9 +20,17 @@ weights from a seed, shot noise) and checks that every decode-step site
 launched the decode route and every prefill site the tc route, serves two
 requests with weight noise through the simt route, times the first batch's
 prefill and decode steps, and compares that path with the plain ("tile")
-backend on the card, beside paths with a known fault. Every phase that
-fails raises. The last line is ``{"ok": true, "device": {...}}``; without a
-CUDA device it exits non-zero and prints no result.
+backend on the card, beside paths with a known fault. On the same
+weights it then serves a hand-written per-layer precision profile
+(``edge4``: K=4 in the first and last four layers, K=1 between), checks
+its modelled energy per token against K=1 and K=4, the kernels' launches
+by K and its prefill logits against the plain path (``profile``), and
+serves 24 requests of mixed budgets over K=1, K=4 and ``edge4`` through
+continuous batching (per-tier 4-slot decode pools) and batch-synchronous
+batches, holding every request's tokens equal bit for bit across the
+two, and alone (``continuous``). Every phase that fails raises; each
+prints its seconds. The last line is ``{"ok": true, "device": {...}}``;
+without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -58,7 +66,15 @@ GAUSS_ATOL = 4e-6
 LOGIT_REL_TOL = 5e-2
 SERVE_MAX_GEN = 16
 WEIGHT_SERVE_GEN = 4
-PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve")
+#: the hand-written profile of the profile and continuous phases (not
+#: learned: the search is not ported): K=4 at the first and last 4 layers
+EDGE4 = (4,) * 4 + (1,) * 32 + (4,) * 4
+PROFILE_SERVE_GEN = 8
+POOL_SLOTS = 4
+PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
+          "profile", "continuous")
+#: phases that ``serve`` runs after its own (they share its weights)
+SERVE_FOLLOWERS = ("profile", "continuous")
 SOURCE = {
     "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
     "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
@@ -472,14 +488,30 @@ def _zero_launches():
 
     for r in am.ROUTES:
         am.LAUNCHES[r] = 0
+    am.LAUNCHES_BY_K.clear()
 
 
-def phase_serve():
+def _drain(engine):
+    """``engine.flush()`` in one window, launches counted from zero."""
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    t = time.perf_counter()
+    results = engine.flush()
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t, dict(am.LAUNCHES)
+
+
+def phase_weights():
+    """granite-3-8b's random weights and energies on the card; returns
+    ``make_engine(backend, analog=None, **engine_kw)`` over them."""
     import torch
 
     from repro_torch.configs.granite_3_8b import CONFIG
     from repro_torch.core.analog import AnalogConfig
-    from repro_torch.kernels import analog_matmul as am
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine
 
@@ -502,19 +534,21 @@ def phase_serve():
             device="cuda", **opts,
         )
 
+    return make_engine
+
+
+def phase_serve(make_engine, prompts, tiers):
+    import torch
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.models import lm
+
     engine = make_engine("auto")
-    prompts, tiers = _traffic(CONFIG)
     for p, k in zip(prompts, tiers):
         engine.submit(p, n_repeats=k, max_new_tokens=SERVE_MAX_GEN)
 
     # one window around the whole drain: the engine's own steps, no added syncs
-    torch.cuda.synchronize()
-    _zero_launches()
-    t = time.perf_counter()
-    results = engine.flush()
-    torch.cuda.synchronize()
-    flush_s = time.perf_counter() - t
-    launches = dict(am.LAUNCHES)
+    results, flush_s, launches = _drain(engine)
 
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
@@ -538,17 +572,14 @@ def phase_serve():
         generated_tokens=st["tokens_generated"],
         generated_tokens_per_s=st["tokens_generated"] / flush_s,
         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=card())
-    return make_engine, engine, results, prompts, tiers, launches
+    return engine, results, launches
 
 
 def phase_serve_weight(make_engine, prompts):
     """Two requests served with weight noise (noisy weights are not
     bf16-exact): every site of every forward takes the simt route."""
-    import torch
-
     from repro_torch.configs.granite_3_8b import CONFIG
     from repro_torch.core.analog import AnalogConfig
-    from repro_torch.kernels import analog_matmul as am
     from repro_torch.models import lm
 
     engine = make_engine("auto", AnalogConfig.weight(0.1), max_gen=WEIGHT_SERVE_GEN,
@@ -556,13 +587,7 @@ def phase_serve_weight(make_engine, prompts):
     short = [p for p in prompts if len(p) <= 32][:2]
     for p in short:
         engine.submit(p, n_repeats=1, max_new_tokens=WEIGHT_SERVE_GEN)
-    torch.cuda.synchronize()
-    _zero_launches()
-    t = time.perf_counter()
-    results = engine.flush()
-    torch.cuda.synchronize()
-    flush_s = time.perf_counter() - t
-    launches = dict(am.LAUNCHES)
+    results, flush_s, launches = _drain(engine)
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
     sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
@@ -727,11 +752,160 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
         tokens_agree=agree, tokens_per_request=SERVE_MAX_GEN, tile_serve_s=tile_s, card=card())
 
 
+def _edge4():
+    from repro_torch.core.profile import PrecisionProfile
+
+    return PrecisionProfile(EDGE4, name="edge4")
+
+
+def phase_profile(make_engine, prompts, tiers):
+    """The edge4 profile as a tier: its modelled energy per token between
+    K=1's and K=4's (each equal to ``profile_token_energy`` of its
+    schedule), a serve whose every site launched at its layer's K, and its
+    prefill logits, kernels against the plain path, within the whole-path
+    bound, beside the uniform K=1 logits as a control."""
+    import torch
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.core.profile import PrecisionProfile
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.models import lm
+
+    edge4 = _edge4()
+    engine = make_engine("auto", profiles=[edge4])
+    energy = {str(t): engine.tier_energy_per_token(t) for t in (1, 4, "edge4")}
+    schedules = {"1": PrecisionProfile.uniform(1, CONFIG.n_layers),
+                 "4": PrecisionProfile.uniform(4, CONFIG.n_layers), "edge4": edge4}
+    direct = {t: lm.profile_token_energy(CONFIG, engine.energies, p)
+              for t, p in schedules.items()}
+    if not (energy["1"] < energy["edge4"] < energy["4"]) or energy != direct:
+        raise AssertionError(f"tier energies {energy} (profile_token_energy: {direct})")
+
+    serve = [p for p in prompts if len(p) <= 64][:4]
+    for p in serve:
+        engine.submit(p, profile="edge4", max_new_tokens=PROFILE_SERVE_GEN)
+    results, flush_s, launches = _drain(engine)
+    by_k = dict(am.LAUNCHES_BY_K)
+    st = engine.stats
+    forwards = st["batches"] + st["decode_steps"]
+    n_sites = len(lm.group_sites(CONFIG))
+    want_k = {k: n_sites * EDGE4.count(k) * forwards for k in sorted(set(EDGE4))}
+    sites = n_sites * CONFIG.n_layers
+    want_route = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+    if by_k != want_k or launches != want_route:
+        raise AssertionError(f"edge4 launches by K {by_k} != {want_k}, by route {launches} "
+                             f"!= {want_route}")
+    for uid, toks in results.items():
+        if len(toks) != PROFILE_SERVE_GEN or toks.min() < 0 or toks.max() >= CONFIG.vocab_size:
+            raise AssertionError(f"edge4 request {uid}: bad tokens {toks}")
+
+    fb = _first_batch(engine, prompts, tiers)
+    cache_len = fb["sb"] + SERVE_MAX_GEN
+    prefill = lambda eng, tier: eng.tiers.get(tier).prefill(
+        fb["tok"], fb["lengths"], fb["table"], cache_len)[1]
+    n = len(fb["first"])
+    lk = prefill(engine, "edge4")
+    lt = prefill(make_engine("tile", profiles=[edge4]), "edge4")
+    rel = _rel(lk, lt, n)
+    control = _rel(prefill(engine, 1), lt, n)
+    if not (rel <= LOGIT_REL_TOL and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"edge4 prefill logits kernel vs plain: {rel} > {LOGIT_REL_TOL}")
+    log("profile", profile=list(EDGE4), energy_aj_per_token=energy,
+        lm_head_aj=float(lm.energy_macs(CONFIG, 1)["lm_head"] * engine.energies["lm_head"].cpu()),
+        requests=len(results), batches=st["batches"], decode_steps=st["decode_steps"],
+        launches_by_k=by_k, expected_by_k=want_k, launches=launches,
+        flush_ms=flush_s * 1e3, ms_per_forward=flush_s * 1e3 / forwards,
+        tokens={int(u): r.tolist() for u, r in results.items()},
+        prefill_requests=fb["first"], logit_rel_err=rel, logit_rel_tol=LOGIT_REL_TOL,
+        control_uniform_k1=control, tol_below_control=LOGIT_REL_TOL < control, card=card())
+    return launches
+
+
+def phase_continuous(make_engine, prompts):
+    """The 8 prompts at each of K=1, K=4 and edge4 (24 requests, budgets
+    from ``default_rng(1)`` in [2, 16]) through 4-slot continuous pools and
+    through batch-synchronous batches, one seq bucket (64) so both decode
+    over caches of one length: every request's tokens equal across the
+    two and alone through its pool, bit for bit; fewer decode row-slots
+    for the pools; kernel launches per pool step and per admission."""
+    import numpy as np
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.models import lm
+
+    budgets = [int(b) for b in np.random.default_rng(1).integers(2, 17, size=len(prompts))]
+    edge4 = _edge4()
+    kw = dict(profiles=[edge4], seq_buckets=(64,), max_wait=0.0)
+    engines = {"continuous": make_engine("auto", continuous=True, pool_slots=POOL_SLOTS, **kw),
+               "sync": make_engine("auto", **kw)}
+    tiers = ({"n_repeats": 1}, {"n_repeats": 4}, {"profile": "edge4"})
+    sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
+    useful = len(tiers) * sum(b - 1 for b in budgets)  # row-steps the requests need
+    out, rows = {}, {}
+    for name, engine in engines.items():
+        for tier in tiers:
+            for p, b in zip(prompts, budgets):
+                engine.submit(p, max_new_tokens=b, **tier)
+        results, flush_s, launches = _drain(engine)
+        st = engine.stats
+        want = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+        out[name] = results
+        forwards = st["batches"] + st["decode_steps"]
+        rows[name] = dict(
+            requests=len(results), prefills=st["batches"], decode_steps=st["decode_steps"],
+            decode_slot_steps=st["decode_slot_steps"], active_slot_steps=st["active_slot_steps"],
+            useful_share=useful / st["decode_slot_steps"], launches=launches,
+            flush_ms=flush_s * 1e3, ms_per_forward=flush_s * 1e3 / forwards,
+            generated_tokens=st["tokens_generated"],
+            generated_tokens_per_s=st["tokens_generated"] / flush_s,
+            read_ms_per_step=st["pool_read_s"] * 1e3 / max(1, st["decode_steps"]),
+        )
+        log("continuous_drain", discipline=name, **rows[name], card=card())
+    cont, sync = engines["continuous"], engines["sync"]
+    n = len(prompts) * len(tiers)
+    if sorted(out["continuous"]) != list(range(n)) or sorted(out["sync"]) != list(range(n)):
+        raise AssertionError(f"served {len(out['continuous'])} and {len(out['sync'])} of {n}")
+    differ = [u for u in range(n) if not np.array_equal(out["continuous"][u], out["sync"][u])]
+    lengths = [len(out["continuous"][u]) for u in range(n)]
+    if differ or lengths != budgets * len(tiers):
+        raise AssertionError(f"pooled != sync for uids {differ}; lengths {lengths}")
+    if cont.stats["active_slot_steps"] != useful:
+        raise AssertionError(f"active slot steps {cont.stats['active_slot_steps']} != {useful}")
+    if not rows["continuous"]["decode_slot_steps"] < rows["sync"]["decode_slot_steps"]:
+        raise AssertionError(f"decode slot steps: continuous {rows['continuous']} >= sync")
+
+    # one request admitted mid-flight in the drain (edge4, index 5), alone
+    # through its pool; pump_step by pump_step: the steps after the
+    # admission round are pure pool steps (B = 4, one active row)
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+
+    uid = 2 * len(prompts) + 5
+    cont.submit(prompts[5], profile="edge4", max_new_tokens=budgets[5], key=fold_in(PRNGKey(0), uid))
+    solo, step_ms = {}, []
+    while cont.n_in_flight:
+        t = time.perf_counter()
+        solo.update(cont.pump_step(force=True))  # ends in the host read of the tokens
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    (solo_tokens,) = solo.values()
+    if not np.array_equal(solo_tokens, out["continuous"][uid]):
+        raise AssertionError(f"request {uid} alone {solo_tokens} != in the pool {out['continuous'][uid]}")
+    pure = sorted(step_ms[1:])
+    log("continuous", pools=[str(t) for t in cont.pools], pool_slots=POOL_SLOTS,
+        budgets=budgets, pooled_equals_sync=True, solo_uid=uid, solo_equals_pooled=True,
+        solo_step_ms=step_ms, ms_per_pool_step=pure[len(pure) // 2],
+        slot_steps={k: r["decode_slot_steps"] for k, r in rows.items()},
+        tokens_per_s={k: r["generated_tokens_per_s"] for k, r in rows.items()}, card=card())
+    return rows["continuous"]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} "
-                         "(serve includes the step and whole-path phases); default all")
+                         "(serve includes the step, whole-path, profile and continuous "
+                         "phases); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -747,29 +921,50 @@ def main() -> int:
     t0 = time.perf_counter()
     log("start", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, card=card(), phases=only)
-    phase_build()
-    if "threefry" in only:
-        phase_threefry()
-    entries = phase_kernels() if "kernels" in only else None
-    if "routes" in only:
-        phase_routes()
-    if "site_time" in only:
-        phase_site_time()
-    if "sweep" in only:
-        phase_sweep()
-    if "serve" in only:
-        make_engine, engine, results, prompts, tiers, launches = phase_serve()
-        launches["simt"] = phase_serve_weight(make_engine, prompts)["simt"]
-        fb = phase_steps(engine, prompts, tiers)
-        phase_whole_path(make_engine, engine, results, prompts, tiers, fb)
+    run = set(only) | (set(SERVE_FOLLOWERS) if "serve" in only else set())
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log("phase_seconds", of=name, seconds=round(time.perf_counter() - t, 3))
+        return out
+
+    timed("build", phase_build)
+    if "threefry" in run:
+        timed("threefry", phase_threefry)
+    entries = timed("kernels", phase_kernels) if "kernels" in run else None
+    if "routes" in run:
+        timed("routes", phase_routes)
+    if "site_time" in run:
+        timed("site_time", phase_site_time)
+    if "sweep" in run:
+        timed("sweep", phase_sweep)
+    by_path = {}
+    if run & {"serve", *SERVE_FOLLOWERS}:
+        from repro_torch.configs.granite_3_8b import CONFIG
+
+        make_engine = timed("weights", phase_weights)
+        prompts, tiers = _traffic(CONFIG)
+    if "serve" in run:
+        engine, results, by_path["serve"] = timed("serve", phase_serve, make_engine, prompts, tiers)
+        by_path["serve_weight"] = timed("serve_weight", phase_serve_weight, make_engine, prompts)
+        fb = timed("step", phase_steps, engine, prompts, tiers)
+        timed("whole_path", phase_whole_path, make_engine, engine, results, prompts, tiers, fb)
+    if "profile" in run:
+        by_path["profile"] = timed("profile", phase_profile, make_engine, prompts, tiers)
+    if "continuous" in run:
+        by_path["continuous"] = timed("continuous", phase_continuous, make_engine, prompts)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))
         return 0
     kernels = []
     for r in ("decode", "tc", "simt"):
-        entries[r]["launches"] = launches[r]
-        if launches[r] == 0:
+        # the main path of each route: serve for decode and tc, the
+        # weight-noise serve for simt
+        entries[r]["launches"] = by_path["serve"][r] + by_path["serve_weight"][r]
+        entries[r]["launches_by_path"] = {path: l[r] for path, l in by_path.items()}
+        if entries[r]["launches"] == 0:
             raise AssertionError(f"route {r} was launched no time on its path")
         kernels.append(entries[r])
     print(json.dumps({"kernels": kernels}))

@@ -75,6 +75,9 @@ TC_BK = 64
 #: ``analog_matmul_raw`` call on CUDA tensors): a run shows the main path
 #: used the kernels.
 LAUNCHES = {r: 0 for r in ROUTES}
+#: the same launches by their K-repeat count ``n_repeats`` (every route):
+#: a run shows which K each layer of a precision profile ran at.
+LAUNCHES_BY_K: dict = {}
 #: seconds the last build took (0.0 when the libraries were already built),
 #: and what nvcc/ptxas printed for each route (registers, shared memory,
 #: spills).
@@ -349,6 +352,7 @@ def analog_matmul_raw(
             )
     _check(err, f"analog_matmul ({route})")
     LAUNCHES[route] += 1
+    LAUNCHES_BY_K[int(n_repeats)] = LAUNCHES_BY_K.get(int(n_repeats), 0) + 1
     return out
 
 

@@ -11,8 +11,11 @@ or an ``AnalogHook`` carrying the layer's energies and its row of the
 forward's seed table (``core.analog.site_seed_table``: the whole
 (layers, sites, requests) key chain is folded on the host and copied to
 the card once per forward). The ``lm_head`` stays a digital matmul.
+Under a ``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
+``energy_macs`` and ``profile_token_energy`` price that schedule.
 
-Decode updates the KV cache in place (one slot per row) and returns it.
+Decode updates the KV cache in place (one slot per row) and returns it;
+``scatter_cache_rows`` copies prefilled rows into a decode pool's cache.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.analog import AnalogConfig, site_seed_table
+from repro_torch.core.energy import apply_repeats, total_energy
+from repro_torch.core.profile import PrecisionProfile
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.hooks import MatmulHook, hook_for_layer
@@ -34,6 +39,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.tree import map_leaves
 
 F32 = torch.float32
 
@@ -45,12 +51,23 @@ class AnalogSpec:
     ``energies``: an ``init_energy_tree``-shaped tree. ``key``: one raw
     (2,) uint32 key or a stacked (B, 2) array, one stream per batch row.
     ``n_repeats``: the K-repeat dynamic-precision knob for every site.
+    ``profile``: its per-layer form, a ``PrecisionProfile`` giving layer
+    ``l`` its own K_l; it overrides ``n_repeats``, which must stay 1.
     """
 
     cfg: AnalogConfig
     energies: Dict[str, Any]
     key: np.ndarray
     n_repeats: int = 1
+    profile: Optional[PrecisionProfile] = None
+
+    def __post_init__(self):
+        if self.profile is not None and self.n_repeats != 1:
+            raise ValueError(
+                f"AnalogSpec carries both n_repeats={self.n_repeats} and profile "
+                f"{self.profile.name!r}; a profile is the per-layer form of the same "
+                "knob and overrides n_repeats, which must stay 1"
+            )
 
 
 # ===========================================================================
@@ -91,16 +108,6 @@ def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def map_leaves(fn, tree, *rest, path=()):
-    """Apply ``fn(path, leaf, *other_leaves)`` over a nested dict."""
-    if isinstance(tree, dict):
-        return {
-            k: map_leaves(fn, v, *(r[k] for r in rest), path=path + (k,))
-            for k, v in tree.items()
-        }
-    return fn(path, tree, *rest)
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights at the reference's shapes and scales, drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed``. Stacked
@@ -138,6 +145,65 @@ def init_energy_tree(cfg: ModelConfig, e0: float, device="cuda") -> Dict[str, An
         },
         "lm_head": torch.tensor(float(e0), dtype=F32, device=dev),
     }
+
+
+def energy_macs(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
+    """Per-example MAC counts in ``init_energy_tree``'s structure (float32,
+    on the CPU): ``seq_len`` tokens through every analog site of every
+    layer, and the lm_head. ``E_tot = sum E * macs`` (``core.energy``)."""
+    d, ff, hd, t = cfg.d_model, cfg.d_ff, cfg.head_dim, seq_len
+    qo, kv, mlp_macs = t * d * cfg.n_heads * hd, t * d * cfg.n_kv_heads * hd, t * d * ff
+    per_site = {"attn0_q": qo, "attn0_k": kv, "attn0_v": kv, "attn0_o": qo,
+                "mlp0_gate": mlp_macs, "mlp0_up": mlp_macs, "mlp0_out": mlp_macs}
+    return {
+        "groups": {s: torch.full((cfg.n_layers,) + suf, float(per_site[s]), dtype=F32)
+                   for s, suf in group_sites(cfg).items()},
+        "lm_head": torch.tensor(float(t * d * cfg.vocab_size), dtype=F32),
+    }
+
+
+# ===========================================================================
+# precision profiles (paper §V-VI: per-layer K on the layer stack)
+# ===========================================================================
+
+
+def group_site_subs(cfg: ModelConfig) -> Dict[str, int]:
+    """Analog site -> its sublayer within one layer group. The dense family
+    has one layer a group, so every site belongs to sublayer 0."""
+    return dict.fromkeys(group_sites(cfg), 0)
+
+
+def profile_rows(cfg: ModelConfig, profile: PrecisionProfile):
+    """Validate a profile against the model and split it onto the layer
+    groups: ``(rows, tail_ks)``, ``rows[l]`` the K-tuple of group ``l``
+    (one layer each in the dense family), ``tail_ks`` empty."""
+    if profile.n_layers != cfg.n_layers:
+        raise ValueError(
+            f"profile {profile.name!r} has {profile.n_layers} layers but "
+            f"model {cfg.name!r} has {cfg.n_layers}"
+        )
+    return [(k,) for k in profile.repeats], []
+
+
+def profile_repeat_tree(cfg: ModelConfig, profile: PrecisionProfile) -> Dict[str, Any]:
+    """Per-site repeat factors in ``init_energy_tree``'s structure: each
+    site's leaf carries K_l along the layer dim; the lm_head (a digital
+    matmul) stays at 1. With ``core.energy.apply_repeats`` it gives the
+    served energy ``sum_l K_l * E_l * MACs_l``."""
+    rows, _ = profile_rows(cfg, profile)
+    ks = torch.tensor([r[0] for r in rows], dtype=F32)
+    return {
+        "groups": {s: ks.reshape((cfg.n_layers,) + (1,) * len(suf))
+                   for s, suf in group_sites(cfg).items()},
+        "lm_head": torch.tensor(1.0, dtype=F32),
+    }
+
+
+def profile_token_energy(cfg: ModelConfig, energies, profile: PrecisionProfile) -> float:
+    """Serving energy per generated token, ``sum_l K_l * E_l * MACs_l``
+    over the analog sites plus the lm_head at K=1 (decode: one token)."""
+    scaled = apply_repeats(energies, profile_repeat_tree(cfg, profile))
+    return float(total_energy(scaled, energy_macs(cfg, 1)))
 
 
 # ===========================================================================
@@ -200,17 +266,42 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     if analog is not None:
         table = site_seed_table(analog.key, cfg.n_layers, sites, h.device)
         energies = analog.energies["groups"]
+        if analog.profile is None:
+            ks = [analog.n_repeats] * cfg.n_layers
+        else:
+            ks = [row[0] for row in profile_rows(cfg, analog.profile)[0]]
     for l in range(cfg.n_layers):
         lp = map_leaves(lambda _p, a: a[l], blocks)
         hook = MatmulHook()
         if analog is not None:
+            # the global layer index keys the noise: a profile's layer l
+            # draws the stream of the uniform path's layer l
             hook = hook_for_layer(
                 analog.cfg, {s: energies[s][l] for s in sites},
-                {s: table[l, i] for i, s in enumerate(sites)}, n_repeats=analog.n_repeats,
+                {s: table[l, i] for i, s in enumerate(sites)}, n_repeats=ks[l],
             )
         layer_cache = (cache["groups"]["k"][l, 0], cache["groups"]["v"][l, 0])
         h = _transformer_layer(h, lp, cfg, hook, rope=rope, mode=mode, cache=layer_cache, pos=pos)
     return h
+
+
+def scatter_cache_rows(cfg: ModelConfig, dst, src, slot_ids) -> Dict[str, Any]:
+    """Copy the rows of a freshly prefilled cache ``src`` (batch b) into
+    the decode pool's cache ``dst`` (batch ``slots``) at ``slot_ids`` (b,),
+    in place along the batch dim (dim 2 of (L, 1, B, S, KH, hd)). Both
+    share the pool's cache length. Ids >= ``slots`` are dropped, as the
+    reference's ``mode="drop"`` drops them: the engine aims prefill
+    batch-padding rows at ``slots``. Returns ``dst``."""
+    del cfg  # one cache layout in the dense family
+    ids = np.asarray(slot_ids, np.int64).reshape(-1)
+    for name, d in dst["groups"].items():
+        s = src["groups"][name]
+        keep = np.flatnonzero((ids >= 0) & (ids < d.shape[2]))
+        if keep.size == 0:
+            continue
+        rows = torch.from_numpy(keep).to(s.device)
+        d.index_copy_(2, torch.from_numpy(ids[keep]).to(d.device), s.index_select(2, rows).to(d.dtype))
+    return dst
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

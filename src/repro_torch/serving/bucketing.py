@@ -25,6 +25,22 @@ def next_bucket(value: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"{value} exceeds largest bucket {max(buckets)}")
 
 
+def pool_shape(slots: int, seq_buckets: Sequence[int], max_gen: int) -> Tuple[int, int]:
+    """(slots, cache_len) of a persistent continuous-batching decode pool.
+
+    The pool's cache keeps one shape for the tier's lifetime (admissions
+    copy rows in), so a slot must hold the largest admissible prompt, the
+    top of the seq ladder, plus the whole decode budget. A request
+    prefilled at a smaller seq bucket lands in the same pool: its prefill
+    runs at the pool's cache length.
+    """
+    if slots < 1:
+        raise ValueError(f"pool needs at least 1 slot, got {slots}")
+    if max_gen < 1:
+        raise ValueError(f"max_gen must be >= 1, got {max_gen}")
+    return int(slots), int(max(seq_buckets)) + int(max_gen)
+
+
 def bucket_shape(
     n_rows: int,
     max_len: int,

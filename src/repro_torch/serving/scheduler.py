@@ -1,16 +1,19 @@
 """Precision-tiered request scheduling; port of ``repro/serving/scheduler.py``
-(the batch-synchronous subset).
+(without cancellation, retiering and queue bounds).
 
 What a tier computes is fixed for a whole batch, so a batch never mixes
-tiers. The scheduler keeps one FIFO queue per (tier, seq_bucket) group and
-dispatches a group when it fills its batch or its oldest request has
-waited ``max_wait`` seconds. Pure Python and deterministic.
+tiers. A tier id is an opaque grouping key: a uniform K int or a
+registered profile's name. The scheduler keeps one FIFO queue per (tier,
+seq_bucket) group and dispatches a group when it fills its batch or its
+oldest request has waited ``max_wait`` seconds; ``pop_admissible`` does
+the same for continuous batching, capped by each tier's free decode
+slots. Pure Python and deterministic.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,7 +32,7 @@ class Request:
 
     uid: int
     tokens: np.ndarray  # (L,) prompt token ids
-    tier: object = 1  # tier id: the uniform K of an analog engine
+    tier: object = 1  # tier id: a uniform K int or a profile name
     max_new_tokens: int = 16
     key: Optional[np.ndarray] = None
     arrival: float = 0.0
@@ -78,6 +81,40 @@ class TierScheduler:
             if q and now - q[0].arrival >= self.max_wait:
                 batches.append(q[:])
                 q.clear()
+            if not q:
+                del self._queues[g]
+        return batches
+
+    def pending_tiers(self) -> set:
+        """Tiers with queued requests (pools are created lazily, so the
+        engine sizes its free-slot accounting off this set)."""
+        return {tier for tier, _sb in self._queues}
+
+    def pop_admissible(self, now: Optional[float], free_slots: Dict[object, int], *,
+                       force: bool = False) -> List[List[Request]]:
+        """Slot-aware admission for continuous batching.
+
+        ``free_slots`` maps tier -> free decode slots in that tier's pool
+        and is decremented in place as requests are admitted (the groups of
+        one tier at different seq buckets share its pool). A group
+        dispatches under ``pop_ready``'s rule, a full batch or an oldest
+        request aged past ``max_wait`` (``force`` ignores both), but never
+        more rows than its tier has free slots: the rest stays queued in
+        FIFO order and is admitted as retirements free slots.
+        """
+        batches: List[List[Request]] = []
+        for g in list(self._queues):
+            tier, _sb = g
+            q = self._queues[g]
+            free = free_slots.get(tier, 0)
+            while q and free > 0 and (
+                force or len(q) >= self.max_batch or now - q[0].arrival >= self.max_wait
+            ):
+                n = min(len(q), self.max_batch, free)
+                batches.append(q[:n])
+                del q[:n]
+                free -= n
+            free_slots[tier] = free
             if not q:
                 del self._queues[g]
         return batches
