@@ -6,31 +6,36 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --only build,threefry,kernels,routes   # a short check
 
-It builds the three routes of the analog-matmul kernel (``decode``, ``tc``,
-``simt``) from ``src/repro_torch/kernels/csrc``, holds the device Threefry
-words bit-exactly and each route's gaussians, its outputs at the main
-path's shapes and at a ragged shape (K = 1 and 4, with output requant)
-within a stated tolerance against the plain PyTorch version, checks that
-each route gives a request the same bits alone as in a batch and from
-launch to launch, times the chosen route beside the simt route at every
-analog site shape of granite-3-8b, sweeps the per-request row count at
-gate/up to place ``M_DECODE``, serves eight requests through
-``ServingEngine`` on granite-3-8b at full width and depth (random bf16
-weights from a seed, shot noise) and checks that every decode-step site
-launched the decode route and every prefill site the tc route, serves two
-requests with weight noise through the simt route, times the first batch's
-prefill and decode steps, and compares that path with the plain ("tile")
-backend on the card, beside paths with a known fault. On the same
-weights it then serves a hand-written per-layer precision profile
-(``edge4``: K=4 in the first and last four layers, K=1 between), checks
-its modelled energy per token against K=1 and K=4, the kernels' launches
-by K and its prefill logits against the plain path (``profile``), and
-serves 24 requests of mixed budgets over K=1, K=4 and ``edge4`` through
-continuous batching (per-tier 4-slot decode pools) and batch-synchronous
-batches, holding every request's tokens equal bit for bit across the
-two, and alone (``continuous``). Every phase that fails raises; each
-prints its seconds. The last line is ``{"ok": true, "device": {...}}``;
-without a CUDA device it exits non-zero and prints no result.
+It builds the four routes of the analog-matmul kernel (``decode``, ``tc``,
+``simt``, ``weight``) from ``src/repro_torch/kernels/csrc``, holds the
+device Threefry words bit-exactly and each route's gaussians, times the
+weight route's draws alone (the measured ceiling of the draw rate), holds
+its outputs at the main path's shapes and at a ragged shape (K = 1 and 4,
+with output requant, col scales shared and per request) within a stated
+tolerance against the plain PyTorch version, checks that each route gives
+a request the same bits alone as in a batch and from launch to launch,
+times the chosen route beside the simt route at every analog site shape
+of granite-3-8b (shot noise; weight noise at K = 1 and 4), sweeps the
+per-request row count at gate/up to place ``M_DECODE``, serves eight
+requests through ``ServingEngine`` on granite-3-8b at full width and depth
+(random bf16 weights from a seed, shot noise) and checks that every
+decode-step site launched the decode route and every prefill site the tc
+route, times the first batch's prefill and decode steps, and compares
+that path with the plain ("tile") backend on the card, beside paths with
+a known fault. On the same weights it serves four requests with weight
+noise (two at K = 1, two at K = 4) through the weight route, profiles a
+forward of each tier and compares the K = 1 prefill logits with the plain
+path (``serve_weight``); it then serves a hand-written per-layer precision
+profile (``edge4``: K=4 in the first and last four layers, K=1 between),
+checks its modelled energy per token against K=1 and K=4, the kernels'
+launches by K and its prefill logits against the plain path
+(``profile``), and serves 24 requests of mixed budgets over K=1, K=4 and
+``edge4`` through continuous batching (per-tier 4-slot decode pools) and
+batch-synchronous batches, holding every request's tokens equal bit for
+bit across the two, and alone (``continuous``). Every phase that fails
+raises; each prints its seconds. The last line is ``{"ok": true,
+"device": {...}}``; without a CUDA device it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -49,9 +54,22 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
-#: integer ops of one Threefry-2x32-20 draw's rounds alone (add, rotate,
-#: xor); with Box-Muller a draw costs more, so this keeps the bound a bound
-THREEFRY_OPS = 60
+#: lanes of an H100 SM a clock (Hopper white paper; spec, not measured) on
+#: 132 SMs at the 1.98 GHz boost clock: 64 INT32, 128 FP32 (64 of which also
+#: issue IMAD, integer multiply-add) and 16 SFU lanes
+SMS, SM_HZ = 132, 1.98e9
+INT_LANE_OPS_S = SMS * (64 + 64) * SM_HZ  # integer ops: INT32 lanes + IMAD on FP32 lanes
+INT32_LANE_OPS_S = SMS * 64 * SM_HZ
+SFU_OPS_S = SMS * 16 * SM_HZ
+#: one noise draw (analog_common.cuh counter_gaussian), counted from the
+#: source: Threefry-2x32-20 is 72 integer ops (20 rounds of add, rotate and
+#: xor; 5 key injections of 2 adds; 2 counter adds); Box-Muller takes 2
+#: int -> float conversions, logf, sqrtf and cosf on the SFU lanes (one op
+#: each at least) and 5 f32 multiplies or adds. The integer ops bound a draw
+#: at 72 / 128 lane-clocks of an SM (2.15 ps on the H100 at 700 W, spec); on
+#: the INT32 lanes alone, 72 / 64 (4.3 ps).
+DRAW_INT_OPS = 72
+DRAW_SFU_OPS = 5
 #: kernel vs plain: the reference test's rule (tests/test_kernels.py:47-52)
 REL_ATOL = 3e-5
 RTOL = 1e-4
@@ -66,21 +84,31 @@ GAUSS_ATOL = 4e-6
 LOGIT_REL_TOL = 5e-2
 SERVE_MAX_GEN = 16
 WEIGHT_SERVE_GEN = 4
+#: rows a request of the weight-noise serve's prefill (its prompts fit the
+#: 32 bucket)
+WEIGHT_PREFILL_ROWS = 32
 #: the hand-written profile of the profile and continuous phases (not
 #: learned: the search is not ported): K=4 at the first and last 4 layers
 EDGE4 = (4,) * 4 + (1,) * 32 + (4,) * 4
 PROFILE_SERVE_GEN = 8
 POOL_SLOTS = 4
 PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
-          "profile", "continuous")
+          "serve_weight", "profile", "continuous")
 #: phases that ``serve`` runs after its own (they share its weights)
-SERVE_FOLLOWERS = ("profile", "continuous")
+SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous")
 SOURCE = {
     "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
     "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
     "simt": "src/repro_torch/kernels/csrc/analog_matmul.cu",
+    "weight": "src/repro_torch/kernels/csrc/analog_weight.cu",
 }
 REPLACES = "src/repro/kernels/analog_matmul.py:208"
+#: the main paths whose launches each route's entry of the kernels line
+#: counts: the serves for decode, tc and weight; simt serves no path since
+#: the weight route, so its count is 0 there. ``check_launches`` counts each
+#: route's launches in the phases that hold it against the plain version.
+MAIN_PATHS = {"decode": ("serve",), "tc": ("serve",), "simt": (), "weight": ("serve_weight",)}
+CHECK_PATHS = ("kernels", "routes", "site_time")
 
 
 def card() -> str:
@@ -134,17 +162,21 @@ def phase_build() -> None:
     for r in am.ROUTES:
         am.library(r)
     nvcc = subprocess.run([am.find_nvcc(), "--version"], capture_output=True, text=True)
-    ptxas = {r: [l.strip() for l in am.BUILD_LOG[r].splitlines() if "registers" in l or "spill" in l]
+    keep = ("entry function", "registers", "spill", "stack frame", "Performance")
+    ptxas = {r: [l.strip() for l in am.BUILD_LOG[r].splitlines() if any(w in l for w in keep)]
              for r in am.ROUTES}
     log("build", seconds=round(am.BUILD_SECONDS, 3),
         libraries={r: os.path.relpath(p, HERE) for r, p in am.LIBRARIES.items()},
         nvcc=nvcc.stdout.strip().splitlines()[-1], ptxas=ptxas, card=card())
 
 
-def phase_threefry() -> None:
+def phase_threefry() -> dict:
     """Device Threefry words bit-exact, and each route's gaussians (zero
     operands, unit scales: the output is the noise itself) against the
-    plain ones: a fault in a route's (row, col) mapping moves the noise."""
+    plain ones: a fault in a route's (row, col) mapping moves the noise.
+    Then the weight route's draws alone (``weight_draws``) timed at the
+    draws of a 2-request decode gate/up call: the measured ceiling of the
+    draw rate, ps a draw by K, which the function returns."""
     import numpy as np
     import torch
 
@@ -185,16 +217,42 @@ def phase_threefry() -> None:
             ones(1, 1, n), ones(3, n), ones(1, 8), seed, noise_kind="output", route="decode",
         )[:, 0]
         worst["decode"] = max(worst["decode"], float((xi - ref).abs().max()))
+        # weight (decode kernel): n requests of one row, all on the same
+        # seed, request i's row the unit vector e_i over K = n, w = 0, cs = 1:
+        # row i of the output is the weight noise of row k = i itself
+        seed = torch.from_numpy(np.repeat(one, n, axis=0).view(np.int32)).to(dev)
+        eye = torch.eye(n, device=dev, dtype=torch.bfloat16).reshape(n, 1, n)
+        xi = analog_matmul_raw(
+            eye, torch.zeros((n, n), device=dev, dtype=torch.bfloat16), ones(n, 1, 1),
+            ones(1, 1, n), ones(3, n), ones(1, 8), seed, noise_kind="weight", route="weight",
+        )[:, 0]
+        wref = prng.gaussian_tile(k0 ^ prng.WEIGHT_STREAM_SALT, k1, 0, 0, (n, n), device=dev)
+        worst["weight"] = max(worst["weight"], float((xi - wref).abs().max()))
     torch.cuda.synchronize()
     if max(worst.values()) > GAUSS_ATOL:
         raise AssertionError(f"kernel gaussians differ from plain: {worst} > {GAUSS_ATOL}")
     log("threefry", grid=[n, n], keys=3, words="bit-exact", gauss_max_abs_err=worst,
         gauss_atol=GAUSS_ATOL)
 
+    # the draws alone, at the draws of decode gate/up for 2 requests
+    k, nn = 2 * 4096, 12800
+    ps = {}
+    for reps in (1, 4):
+        ms = cuda_ms(lambda: am.weight_draws(1, 2, k, nn, reps, device=dev), 10)
+        draws = k * nn * reps
+        ps[reps] = ms * 1e9 / draws
+        log("draw_ceiling", grid=[k, nn], n_repeats=reps, draws=draws, ms=ms, ps_per_draw=ps[reps],
+            bound_ps_per_draw=DRAW_INT_OPS / INT_LANE_OPS_S * 1e12,
+            int32_only_ps_per_draw=DRAW_INT_OPS / INT32_LANE_OPS_S * 1e12,
+            share_of_bound=DRAW_INT_OPS / INT_LANE_OPS_S * 1e12 / ps[reps], card=card())
+    return ps
 
-def _site_operands(b, m, k, n, cfg, energy, quant=False, seed=1234):
+
+def _site_operands(b, m, k, n, cfg, energy, quant=False, seed=1234, cs_per_request=False):
     """Raw kernel operands for one analog site at (b, m, k) @ (k, n), bf16
-    inputs, per-request seeds, optional calibrated quantizers."""
+    inputs, per-request seeds, optional calibrated quantizers; with
+    ``cs_per_request`` request i's col scale is the shared one times 1 +
+    i / 4 (a (b, 1, n) col scale, as per-request ranges give)."""
     import torch
 
     from repro_torch.core.analog import SiteQuant, key_seed
@@ -215,9 +273,13 @@ def _site_operands(b, m, k, n, cfg, energy, quant=False, seed=1234):
         y = torch.matmul(x.float(), w.float())
         sq = SiteQuant(wqp=minmax(w, 0), xqp=minmax(x), oqp=minmax(y))
     keys = prng.fold_in(prng.PRNGKey(seed), list(range(b)))
-    return ops.prepare_operands(
+    o = ops.prepare_operands(
         x, w, energy=torch.tensor(energy, device=dev), seed=key_seed(keys, dev), cfg=cfg, sq=sq
-    ), sq
+    )
+    if cs_per_request:
+        scale = 1.0 + torch.arange(b, device=dev, dtype=torch.float32).reshape(b, 1, 1) / 4
+        o["col_scale"] = (o["col_scale"] * scale).contiguous()
+    return o, sq
 
 
 def _run_raw(raw, o, n_repeats, **kw):
@@ -236,15 +298,25 @@ def _route_of(o):
                         o["quant_x"], o["quant_w"], o["quant_out"])
 
 
-def _bound(o, n_repeats):
-    """Least time of one raw call on the card, ``(ms, by, f32_simt_ms)``.
+def _draws(o, n_repeats):
+    """Noise draws of one raw call: each output for output noise, each
+    weight of each request for weight noise, times the repeats."""
+    b, m, k = o["x"].shape
+    n = o["w"].shape[1]
+    return {"output": b * m * n, "weight": b * k * n, "none": 0}[o["noise_kind"]] * n_repeats
 
-    Bytes: each input read once, the f32 output written once, over the HBM
-    rate. Operations: the product's FLOPs at the peak for its operands
-    (bf16 tensor cores when x and w are bf16; the f32 SIMT rate for f32
-    operands or noisy weights, which are not bf16) and, on the SIMT units,
-    the Threefry ops of the noise draws this call needs. ``f32_simt_ms`` is
-    the same bound with the product at the f32 SIMT rate.
+
+def _bound(o, n_repeats):
+    """Least time of one raw call on the card, ``(ms, by, detail)``.
+
+    The larger of the bytes (each input read once, the f32 output written
+    once, over the HBM rate) and the operations, the busiest of: the
+    product's FLOPs at the peak for its operands (bf16 x bf16 on the tensor
+    cores, twice for noisy weights, which take two bf16 parts; f32 operands
+    at the f32 SIMT rate) and the noise draws this call needs on the integer
+    lanes and on the SFU lanes. ``detail`` holds each term in ms, the
+    draws' on the INT32 lanes alone (``int32_only``) and the bound with the
+    product at the f32 SIMT rate (``f32_simt``).
     """
     import torch
 
@@ -254,15 +326,20 @@ def _bound(o, n_repeats):
                   for t in ("x", "w", "row_scale", "col_scale", "wq", "scalars", "seed"))
     n_bytes += b * m * n * 4
     flops = 2.0 * b * m * k * n
-    draws = {"output": b * m * n, "weight": b * k * n, "none": 0}[o["noise_kind"]] * n_repeats
-    noise_ops = draws * THREEFRY_OPS
-    bytes_s = n_bytes / HBM_BYTES_S
-    if o["x"].dtype == torch.bfloat16 and o["noise_kind"] != "weight":
-        ops_s = max(flops / BF16_FLOPS_S, noise_ops / F32_FLOPS_S)
+    draws = _draws(o, n_repeats)
+    if o["x"].dtype == torch.bfloat16:
+        product = flops * (2 if o["noise_kind"] == "weight" else 1) / BF16_FLOPS_S
     else:
-        ops_s = (flops + noise_ops) / F32_FLOPS_S
-    simt_s = max(bytes_s, (flops + noise_ops) / F32_FLOPS_S)
-    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations"), simt_s * 1e3
+        product = flops / F32_FLOPS_S
+    terms = dict(bytes=n_bytes / HBM_BYTES_S, product=product,
+                 draws_int=draws * DRAW_INT_OPS / INT_LANE_OPS_S,
+                 draws_sfu=draws * DRAW_SFU_OPS / SFU_OPS_S)
+    ops_s = max(v for t, v in terms.items() if t != "bytes")
+    detail = {t: v * 1e3 for t, v in terms.items()}
+    detail["int32_only"] = draws * DRAW_INT_OPS / INT32_LANE_OPS_S * 1e3
+    detail["f32_simt"] = max(terms["bytes"], flops / F32_FLOPS_S, terms["draws_int"]) * 1e3
+    by = "bytes" if terms["bytes"] >= ops_s else "operations"
+    return max(terms["bytes"], ops_s) * 1e3, by, detail
 
 
 def _close(yk, yr, o, sq):
@@ -279,17 +356,19 @@ def _close(yk, yr, o, sq):
 
 
 def _cases():
-    """(name, (b, m, k, n), cfg, energy, quant, n_repeats, route) of the
-    kernel-vs-plain phase: every route at main-path shapes and at a ragged
-    shape, K = 1 and 4, with output requant. ``route`` None takes "auto"."""
+    """(name, (b, m, k, n), cfg, energy, quant, n_repeats, route, cs per
+    request) of the kernel-vs-plain phase: every route at main-path shapes
+    and at a ragged shape, K = 1 and 4, with output requant. ``route`` None
+    takes "auto"."""
     from repro_torch.core.analog import AnalogConfig
 
     shot, none = AnalogConfig.shot(), AnalogConfig(mode="analog")
     thermal_q = AnalogConfig.thermal(0.01)  # quant_x, quant_w and quant_out
     requant = AnalogConfig.thermal(0.01, weight_bits=None, act_bits=None)  # quant_out only
-    weight = AnalogConfig.weight(0.1)
+    weight = AnalogConfig.weight(0.1)  # with quant: quant_x, quant_w and quant_out
+    weight_rq = AnalogConfig.weight(0.1, weight_bits=None, act_bits=None)  # quant_out only
     gate, down, kv = (4096, 12800), (12800, 4096), (4096, 1024)
-    return [
+    cases = [
         # decode route: main-path shapes, then the ragged shape
         ("shot K=1 decode gate/up", (4, 1, *gate), shot, 20.0, False, 1, None),
         ("shot K=4 decode gate/up", (4, 1, *gate), shot, 20.0, False, 4, None),
@@ -306,20 +385,43 @@ def _cases():
         ("none prefill k/v", (4, 64, *kv), none, 1.0, False, 1, None),
         ("shot K=1 tc ragged", (3, 40, 4000, 1000), shot, 20.0, False, 1, None),
         ("requant K=4 tc ragged", (3, 40, 4000, 1000), requant, 4.0, True, 4, None),
-        # simt route
+        # simt route: quantized prefill, and the others forced
         ("thermal+quant K=1 prefill k/v", (4, 64, *kv), thermal_q, 4.0, True, 1, None),
-        ("weight K=4 prefill k/v", (4, 64, *kv), weight, 5.0, False, 4, None),
-        ("weight K=1 decode gate/up", (2, 1, *gate), weight, 5.0, False, 1, None),
+        ("weight K=4 simt prefill k/v", (4, 64, *kv), weight, 5.0, False, 4, "simt"),
+        ("weight K=1 simt decode gate/up", (2, 1, *gate), weight, 5.0, False, 1, "simt"),
         ("shot K=1 simt prefill gate/up", (4, 64, *gate), shot, 20.0, False, 1, "simt"),
-        ("weight K=4 simt ragged", (3, 40, 4000, 1000), weight, 5.0, False, 4, None),
+        ("weight K=4 simt ragged", (3, 40, 4000, 1000), weight, 5.0, False, 4, "simt"),
         ("requant K=1 simt ragged", (3, 40, 4000, 1000), requant, 4.0, True, 1, "simt"),
+        ("weight+quant K=1 prefill k/v", (2, 32, *kv), weight, 5.0, True, 1, None),
+        # weight route: the weight-noise serve's shapes (2 requests, M = 1
+        # and 32), gate/up, down and k/v, K = 1 and 4, requant, the ragged
+        # shape, two row tiles, col scales per request
+        ("weight K=1 decode gate/up", (2, 1, *gate), weight, 5.0, False, 1, None),
+        ("weight K=4 decode gate/up", (2, 1, *gate), weight, 5.0, False, 4, None),
+        ("weight K=1 decode down", (2, 1, *down), weight, 5.0, False, 1, None),
+        ("weight K=4 decode k/v", (2, 1, *kv), weight, 5.0, False, 4, None),
+        ("weight+requant K=4 decode k/v", (2, 1, *kv), weight_rq, 5.0, True, 4, None),
+        ("weight+quant K=1 decode k/v", (2, 1, *kv), weight, 5.0, True, 1, None),
+        ("weight K=1 prefill gate/up", (2, 32, *gate), weight, 5.0, False, 1, None),
+        ("weight K=4 prefill down", (2, 32, *down), weight, 5.0, False, 4, None),
+        ("weight K=1 prefill k/v", (2, 64, *kv), weight, 5.0, False, 1, None),
+        ("weight+requant K=4 prefill k/v", (2, 32, *kv), weight_rq, 5.0, True, 4, None),
+        ("weight K=1 decode ragged", (3, 1, 4000, 1000), weight, 5.0, False, 1, None),
+        ("weight+requant K=4 prefill ragged", (3, 40, 4000, 1000), weight_rq, 5.0, True, 4, None),
+        ("weight K=1 prefill 2 row tiles", (2, 100, 4000, 1000), weight, 5.0, False, 1, None),
     ]
+    per_request = [
+        ("weight K=4 decode gate/up, cs per request", (2, 1, *gate), weight, 5.0, False, 4, None),
+        ("weight K=1 prefill k/v, cs per request", (2, 32, *kv), weight, 5.0, False, 1, None),
+    ]
+    return [c + (False,) for c in cases] + [c + (True,) for c in per_request]
 
 
 #: the case that stands for each route in the kernels line: the main path's
-#: shape of that route (simt: the weight-noise serve's decode shape)
+#: shape of that route (simt: the weight-noise serve's decode shape, which
+#: it took until the weight route)
 HEADLINE = {"decode": "shot K=1 decode gate/up", "tc": "shot K=1 prefill gate/up",
-            "simt": "weight K=1 decode gate/up"}
+            "simt": "weight K=1 simt decode gate/up", "weight": "weight K=1 decode gate/up"}
 
 
 def phase_kernels() -> dict:
@@ -333,8 +435,8 @@ def phase_kernels() -> dict:
     flush = _flush_buffer()
     seen = {r: 0 for r in am.ROUTES}
     entries = {}
-    for name, (b, m, k, n), cfg, energy, quant, reps, route in _cases():
-        o, sq = _site_operands(b, m, k, n, cfg, energy, quant)
+    for name, (b, m, k, n), cfg, energy, quant, reps, route, cs_req in _cases():
+        o, sq = _site_operands(b, m, k, n, cfg, energy, quant, cs_per_request=cs_req)
         taken = route or _route_of(o)
         before = dict(am.LAUNCHES)
         yk = _run_raw(analog_matmul_raw, o, reps, route=route or "auto")
@@ -343,20 +445,21 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         err, atol, ok = _close(yk, yr, o, sq)
         log("kernel_vs_plain", case=name, route=taken, launched=launched, shape=[b, m, k, n],
-            n_repeats=reps, quant_out=o["quant_out"], max_abs_err=err, atol=atol, rtol=RTOL,
-            ok=ok)
+            n_repeats=reps, quant=[o["quant_x"], o["quant_w"], o["quant_out"]],
+            cs_per_request=tuple(o["col_scale"].shape) == (b, 1, n) and b > 1,
+            max_abs_err=err, atol=atol, rtol=RTOL, ok=ok)
         if not ok or launched != [taken]:
             raise AssertionError(f"{name}: route {taken} (launched {launched}) disagrees with plain")
         seen[taken] += 1
         if HEADLINE.get(taken) == name:
-            bound, by, _ = _bound(o, reps)
+            bound, by, detail = _bound(o, reps)
             entries[taken] = dict(
                 name=f"analog_matmul.{taken}", route="cuda", source=SOURCE[taken],
                 replaces=REPLACES, launches=None, max_abs_err=err,
                 ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, reps, route=taken), 10, flush),
                 plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, reps), 3, flush),
                 bound_ms=bound, bound_by=by, library_ms=None, shape=[b, m, k, n],
-                noise=o["noise_kind"], n_repeats=reps,
+                noise=o["noise_kind"], n_repeats=reps, bound_terms_ms=detail,
             )
     if min(seen.values()) == 0 or set(entries) != set(am.ROUTES):
         raise AssertionError(f"a route was not checked: {seen}")
@@ -374,16 +477,23 @@ def phase_routes() -> None:
     shot = AnalogConfig.shot()
     requant = AnalogConfig.thermal(0.01, weight_bits=None, act_bits=None)
     weight = AnalogConfig.weight(0.1)
+    weight_rq = AnalogConfig.weight(0.1, weight_bits=None, act_bits=None)
     cases = [
-        ("decode", (4, 1, 4096, 12800), shot, 20.0, False, 1),
-        ("decode", (3, 1, 4000, 1000), requant, 4.0, True, 4),
-        ("tc", (4, 64, 4096, 12800), shot, 20.0, False, 1),
-        ("tc", (3, 40, 4000, 1000), requant, 4.0, True, 4),
-        ("simt", (4, 64, 4096, 1024), weight, 5.0, False, 4),
-        ("simt", (3, 40, 4000, 1000), requant, 4.0, True, 1),
+        ("decode", (4, 1, 4096, 12800), shot, 20.0, False, 1, False),
+        ("decode", (3, 1, 4000, 1000), requant, 4.0, True, 4, False),
+        ("tc", (4, 64, 4096, 12800), shot, 20.0, False, 1, False),
+        ("tc", (3, 40, 4000, 1000), requant, 4.0, True, 4, False),
+        ("simt", (4, 64, 4096, 1024), weight, 5.0, False, 4, False),
+        ("simt", (3, 40, 4000, 1000), requant, 4.0, True, 1, False),
+        ("weight", (2, 1, 4096, 12800), weight, 5.0, False, 1, False),
+        ("weight", (3, 1, 4000, 1000), weight_rq, 5.0, True, 4, False),
+        ("weight", (3, 1, 4096, 1024), weight, 5.0, False, 1, True),
+        ("weight", (2, 32, 4096, 1024), weight, 5.0, False, 4, False),
+        ("weight", (3, 40, 4000, 1000), weight_rq, 5.0, True, 1, False),
+        ("weight", (3, 32, 12800, 4096), weight, 5.0, False, 1, True),
     ]
-    for route, (b, m, k, n), cfg, energy, quant, reps in cases:
-        o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77)
+    for route, (b, m, k, n), cfg, energy, quant, reps, cs_req in cases:
+        o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77, cs_per_request=cs_req)
         batched = _run_raw(analog_matmul_raw, o, reps, route=route)
         again = _run_raw(analog_matmul_raw, o, reps, route=route)
         solo_equal = []
@@ -397,7 +507,8 @@ def phase_routes() -> None:
             solo_equal.append(bool(torch.equal(y[0], batched[i])))
         deterministic = bool(torch.equal(batched, again))
         log("routes", route=route, shape=[b, m, k, n], noise=o["noise_kind"], n_repeats=reps,
-            quant_out=o["quant_out"], solo_equals_batched=solo_equal, deterministic=deterministic)
+            quant_out=o["quant_out"], cs_per_request=cs_req, solo_equals_batched=solo_equal,
+            deterministic=deterministic)
         if not (all(solo_equal) and deterministic):
             raise AssertionError(f"route {route} at {(b, m, k, n)}: solo {solo_equal}, "
                                  f"deterministic {deterministic}")
@@ -406,11 +517,16 @@ def phase_routes() -> None:
 SITES = [("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 12800), ("down", 12800, 4096)]
 
 
-def phase_site_time() -> list:
+def phase_site_time(draw_ps=None) -> list:
     """The chosen route and the simt route, in turns, at every analog site
-    shape of granite-3-8b (4 requests, shot noise, K = 1), beside the bound,
+    shape of granite-3-8b: 4 requests, shot noise, K = 1, beside the bound,
     the plain version, the bare product and the route without its noise
-    (what the output noise costs inside the kernel)."""
+    (what the output noise costs inside the kernel); then the weight route
+    at the weight-noise serve's shapes (2 requests, M = 1 and 32), K = 1
+    and 4, beside its bound, the draws' bound on the INT32 lanes alone, the
+    measured draw ceiling (``draw_ps``, ps a draw by K, from the threefry
+    phase) and the plain version. Raises where a route is slower than
+    simt."""
     import torch
 
     from repro_torch.core.analog import AnalogConfig
@@ -420,29 +536,54 @@ def phase_site_time() -> list:
     flush = _flush_buffer()
     shot = AnalogConfig.shot()
     rows = []
+
+    def turns(o, reps, route):
+        run = lambda r: (lambda: _run_raw(analog_matmul_raw, o, reps, route=r))
+        t = [cuda_ms(run(route), 10, flush), cuda_ms(run("simt"), 10, flush),
+             cuda_ms(run("simt"), 10, flush), cuda_ms(run(route), 10, flush)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
     for stage, m in (("prefill", 64), ("decode", 1)):
         for site, k, n in SITES:
             o, _ = _site_operands(4, m, k, n, shot, 20.0)
             route = _route_of(o)
-            bound, by, simt_bound = _bound(o, 1)
-            run = lambda r: (lambda: _run_raw(analog_matmul_raw, o, 1, route=r))
-            turns = [cuda_ms(run(route), 10, flush), cuda_ms(run("simt"), 10, flush),
-                     cuda_ms(run("simt"), 10, flush), cuda_ms(run(route), 10, flush)]
-            ms, simt_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            bound, by, detail = _bound(o, 1)
+            ms, simt_ms, t = turns(o, 1, route)
             quiet = dict(o, noise_kind="none")
             row = dict(
-                site=site, stage=stage, shape=[4, m, k, n], route=route, ms=ms, simt_ms=simt_ms,
-                turns_ms=turns, share_of_bound=bound / ms,
+                site=site, stage=stage, shape=[4, m, k, n], noise="output", n_repeats=1,
+                route=route, ms=ms, simt_ms=simt_ms, turns_ms=t, share_of_bound=bound / ms,
                 no_noise_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1, route=route),
                                     10, flush),
                 plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
                 matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
-                bound_ms=bound, bound_by=by, f32_simt_bound_ms=simt_bound,
+                bound_ms=bound, bound_by=by, f32_simt_bound_ms=detail["f32_simt"],
             )
             rows.append(row)
             log("site_time", **row, card=card())
             if ms > simt_ms:
                 raise AssertionError(f"{stage} {site}: route {route} {ms} ms > simt {simt_ms} ms")
+    weight = AnalogConfig.weight(0.1)
+    for stage, m in (("prefill", WEIGHT_PREFILL_ROWS), ("decode", 1)):
+        for site, k, n in SITES:
+            for reps in (1, 4):
+                o, _ = _site_operands(2, m, k, n, weight, 5.0)
+                route = _route_of(o)
+                bound, by, detail = _bound(o, reps)
+                ms, simt_ms, t = turns(o, reps, route)
+                ceiling = None if draw_ps is None else _draws(o, reps) * draw_ps[reps] * 1e-9
+                row = dict(
+                    site=site, stage=stage, shape=[2, m, k, n], noise="weight", n_repeats=reps,
+                    route=route, ms=ms, simt_ms=simt_ms, turns_ms=t, share_of_bound=bound / ms,
+                    plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, reps), 3, flush),
+                    bound_ms=bound, bound_by=by, int32_only_bound_ms=detail["int32_only"],
+                    draw_ceiling_ms=ceiling, bound_terms_ms=detail,
+                )
+                rows.append(row)
+                log("site_time", **row, card=card())
+                if route != "weight" or ms > simt_ms:
+                    raise AssertionError(f"weight noise {stage} {site} K={reps}: route {route} "
+                                         f"{ms} ms, simt {simt_ms} ms")
     return rows
 
 
@@ -560,7 +701,8 @@ def phase_serve(make_engine, prompts, tiers):
         log("request", uid=uid, tier=tiers[uid], prompt_len=len(prompts[uid]), tokens=toks.tolist())
     if len(results) != len(prompts):
         raise AssertionError(f"served {len(results)} of {len(prompts)} requests")
-    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                "weight": 0}
     if launches != expected:
         raise AssertionError(f"launches by route {launches} != {expected} "
                              f"({sites} sites x decode steps / prefill batches)")
@@ -575,34 +717,128 @@ def phase_serve(make_engine, prompts, tiers):
     return engine, results, launches
 
 
-def phase_serve_weight(make_engine, prompts):
-    """Two requests served with weight noise (noisy weights are not
-    bf16-exact): every site of every forward takes the simt route."""
-    from repro_torch.configs.granite_3_8b import CONFIG
+#: analog sites of one granite-3-8b layer by site shape (q and o, k and v,
+#: gate and up, down)
+SITE_COUNT = {"q/o": 2, "k/v": 2, "gate/up": 2, "down": 1}
+
+
+def _weight_engine(make_engine, backend="auto"):
     from repro_torch.core.analog import AnalogConfig
+
+    return make_engine(backend, AnalogConfig.weight(0.1, backend=backend),
+                       max_gen=WEIGHT_SERVE_GEN, batch_buckets=(1, 2), seq_buckets=(32, 64))
+
+
+def _weight_traffic(prompts):
+    """The weight-noise serve's requests: the first four prompts of at most
+    32 tokens, two at K = 1 and two at K = 4."""
+    return [p for p in prompts if len(p) <= 32][:4], [1, 1, 4, 4]
+
+
+def phase_serve_weight(make_engine, prompts, site_rows=None):
+    """Four requests served with weight noise, two at K = 1 and two at K = 4
+    (4 new tokens each, batch buckets 1 and 2): every site of every forward
+    launches the weight route, counted by route and by K, ms a forward over
+    one window around the drain. Then one profiled prefill and decode step
+    of each tier, for the device's time by kernel, beside what the weight
+    and simt routes take for a forward's sites in ``site_rows`` (the
+    site_time phase, same shapes)."""
+    import torch
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.kernels import analog_matmul as am
     from repro_torch.models import lm
 
-    engine = make_engine("auto", AnalogConfig.weight(0.1), max_gen=WEIGHT_SERVE_GEN,
-                         batch_buckets=(1, 2), seq_buckets=(32, 64))
-    short = [p for p in prompts if len(p) <= 32][:2]
-    for p in short:
-        engine.submit(p, n_repeats=1, max_new_tokens=WEIGHT_SERVE_GEN)
+    engine = _weight_engine(make_engine)
+    short, tiers = _weight_traffic(prompts)
+    for p, k in zip(short, tiers):
+        engine.submit(p, n_repeats=k, max_new_tokens=WEIGHT_SERVE_GEN)
     results, flush_s, launches = _drain(engine)
+    by_k = dict(am.LAUNCHES_BY_K)
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
     sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
     for uid, toks in results.items():
         if len(toks) != WEIGHT_SERVE_GEN or toks.min() < 0 or toks.max() >= CONFIG.vocab_size:
             raise AssertionError(f"weight-noise request {uid}: bad tokens {toks}")
-    expected = {"decode": 0, "tc": 0, "simt": sites * forwards}
-    if len(results) != len(short) or launches != expected:
-        raise AssertionError(f"weight-noise serve: {len(results)} results, launches {launches} "
-                             f"!= {expected}")
-    log("serve_weight", requests=len(results), batches=st["batches"],
-        decode_steps=st["decode_steps"], launches=launches, expected_launches=expected,
+    per_tier = WEIGHT_SERVE_GEN  # a prefill of both requests, then a decode step a token
+    expected = {"decode": 0, "tc": 0, "simt": 0, "weight": sites * forwards}
+    want_k = {1: sites * per_tier, 4: sites * per_tier}
+    if (len(results) != len(short) or forwards != 2 * per_tier or launches != expected
+            or by_k != want_k):
+        raise AssertionError(f"weight-noise serve: {len(results)} results, {forwards} forwards, "
+                             f"launches {launches} != {expected}, by K {by_k} != {want_k}")
+    log("serve_weight", requests=len(results), tiers=tiers, prompt_lens=[len(p) for p in short],
+        batches=st["batches"], decode_steps=st["decode_steps"], launches=launches,
+        expected_launches=expected, launches_by_k=by_k, expected_by_k=want_k,
         flush_ms=flush_s * 1e3, ms_per_forward=flush_s * 1e3 / forwards,
         tokens={int(u): r.tolist() for u, r in results.items()}, card=card())
+
+    for k in (1, 4):
+        group = [i for i, t in enumerate(tiers) if t == k]
+        fb = _first_batch(engine, [short[i] for i in group], [k] * len(group))
+        tier = engine.tiers.get(k)
+        cache_len = fb["sb"] + WEIGHT_SERVE_GEN
+        prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len)
+        (cache, logits), prefill_ms = _wall_ms(prefill)
+        step = lambda: tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"],
+                                   fb["table"])
+        _, decode_ms = _wall_ms(step)
+        (cache, logits), prefill_prof = _profile(prefill)
+        _, decode_prof = _profile(step)
+        for name, wall, prof, stage, m in (("prefill", prefill_ms, prefill_prof, "prefill",
+                                            WEIGHT_PREFILL_ROWS),
+                                           ("decode", decode_ms, decode_prof, "decode", 1)):
+            kernel_ms = {}
+            for r in site_rows or []:
+                if r["noise"] == "weight" and r["stage"] == stage and r["n_repeats"] == k:
+                    for route in ("weight", "simt"):
+                        kernel_ms[route] = kernel_ms.get(route, 0.0) + (
+                            CONFIG.n_layers * SITE_COUNT[r["site"]]
+                            * r["ms" if route == "weight" else "simt_ms"])
+            log("serve_weight_step", step=name, tier=k, bucket=[fb["bb"], fb["sb"]],
+                rows_a_request=m if name == "prefill" else 1, wall_ms=wall,
+                idle_share=max(0.0, 1.0 - prof["device_ms"] / wall),
+                weight_kernels_ms=sum(t["ms"] for t in prof["top"] if "weight_" in t["name"]),
+                site_time_forward_ms=kernel_ms, **prof, card=card())
     return launches
+
+
+def phase_whole_path_weight(make_engine, prompts):
+    """The weight-noise serve's K = 1 batch (2 requests), prefill logits on
+    the kernels against the plain ("tile") backend on the card, all 40
+    layers, beside what paths with a known fault give against the same
+    plain logits: other seeds, no noise."""
+    import torch
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving.engine import batch_keys
+
+    short, tiers = _weight_traffic(prompts)
+    engine = _weight_engine(make_engine)
+    fb = _first_batch(engine, short[:2], tiers[:2])
+    n = len(fb["first"])
+    cache_len = fb["sb"] + WEIGHT_SERVE_GEN
+    prefill = lambda eng, table: eng.tiers.get(1).prefill(
+        fb["tok"], fb["lengths"], table, cache_len)[1]
+    lk = prefill(engine, fb["table"])
+    launches = dict(am.LAUNCHES)
+    lt, plain_ms = _wall_ms(lambda: prefill(_weight_engine(make_engine, "tile"), fb["table"]))
+    if am.LAUNCHES != launches:
+        raise AssertionError("the tile backend launched a CUDA kernel")
+    rel = _rel(lk, lt, n)
+    other_seeds = batch_keys([fold_in(PRNGKey(1), i) for i in fb["first"]], fb["bb"])
+    controls = {"other_seeds": _rel(prefill(engine, other_seeds), lt, n),
+                "no_noise": _rel(prefill(make_engine(None), fb["table"]), lt, n)}
+    if not (rel <= LOGIT_REL_TOL and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"weight-noise prefill logits kernel vs plain: {rel} > {LOGIT_REL_TOL}")
+    log("whole_path_weight", requests=fb["first"], tier=1, bucket=[fb["bb"], fb["sb"]],
+        layers=CONFIG.n_layers,
+        logit_rel_err=rel, logit_rel_tol=LOGIT_REL_TOL, controls=controls,
+        tol_below_controls=LOGIT_REL_TOL < min(controls.values()), plain_prefill_ms=plain_ms,
+        card=card())
 
 
 def _profile(fn):
@@ -791,7 +1027,8 @@ def phase_profile(make_engine, prompts, tiers):
     n_sites = len(lm.group_sites(CONFIG))
     want_k = {k: n_sites * EDGE4.count(k) * forwards for k in sorted(set(EDGE4))}
     sites = n_sites * CONFIG.n_layers
-    want_route = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+    want_route = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                  "weight": 0}
     if by_k != want_k or launches != want_route:
         raise AssertionError(f"edge4 launches by K {by_k} != {want_k}, by route {launches} "
                              f"!= {want_route}")
@@ -848,7 +1085,8 @@ def phase_continuous(make_engine, prompts):
                 engine.submit(p, max_new_tokens=b, **tier)
         results, flush_s, launches = _drain(engine)
         st = engine.stats
-        want = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0}
+        want = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                "weight": 0}
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} != {want}")
         out[name] = results
@@ -904,8 +1142,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} "
-                         "(serve includes the step, whole-path, profile and continuous "
-                         "phases); default all")
+                         "(serve includes the step, whole-path, serve_weight, profile and "
+                         "continuous phases); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -929,27 +1167,38 @@ def main() -> int:
         log("phase_seconds", of=name, seconds=round(time.perf_counter() - t, 3))
         return out
 
+    from repro_torch.kernels import analog_matmul as am
+
+    by_path = {}
+
+    def counted(name, fn, *args):
+        """``timed``, with the phase's kernel launches by route in by_path."""
+        before = dict(am.LAUNCHES)
+        out = timed(name, fn, *args)
+        by_path[name] = {r: am.LAUNCHES[r] - before[r] for r in am.ROUTES}
+        return out
+
     timed("build", phase_build)
-    if "threefry" in run:
-        timed("threefry", phase_threefry)
-    entries = timed("kernels", phase_kernels) if "kernels" in run else None
+    draw_ps = timed("threefry", phase_threefry) if "threefry" in run else None
+    entries = counted("kernels", phase_kernels) if "kernels" in run else None
     if "routes" in run:
-        timed("routes", phase_routes)
-    if "site_time" in run:
-        timed("site_time", phase_site_time)
+        counted("routes", phase_routes)
+    site_rows = counted("site_time", phase_site_time, draw_ps) if "site_time" in run else None
     if "sweep" in run:
         timed("sweep", phase_sweep)
-    by_path = {}
-    if run & {"serve", *SERVE_FOLLOWERS}:
+    if run & {"serve", "serve_weight", *SERVE_FOLLOWERS}:
         from repro_torch.configs.granite_3_8b import CONFIG
 
         make_engine = timed("weights", phase_weights)
         prompts, tiers = _traffic(CONFIG)
     if "serve" in run:
         engine, results, by_path["serve"] = timed("serve", phase_serve, make_engine, prompts, tiers)
-        by_path["serve_weight"] = timed("serve_weight", phase_serve_weight, make_engine, prompts)
         fb = timed("step", phase_steps, engine, prompts, tiers)
         timed("whole_path", phase_whole_path, make_engine, engine, results, prompts, tiers, fb)
+    if "serve_weight" in run:
+        by_path["serve_weight"] = timed("serve_weight", phase_serve_weight, make_engine, prompts,
+                                        site_rows)
+        timed("whole_path_weight", phase_whole_path_weight, make_engine, prompts)
     if "profile" in run:
         by_path["profile"] = timed("profile", phase_profile, make_engine, prompts, tiers)
     if "continuous" in run:
@@ -959,14 +1208,18 @@ def main() -> int:
         print(json.dumps({"ok": True, "partial": only}))
         return 0
     kernels = []
-    for r in ("decode", "tc", "simt"):
-        # the main path of each route: serve for decode and tc, the
-        # weight-noise serve for simt
-        entries[r]["launches"] = by_path["serve"][r] + by_path["serve_weight"][r]
-        entries[r]["launches_by_path"] = {path: l[r] for path, l in by_path.items()}
-        if entries[r]["launches"] == 0:
-            raise AssertionError(f"route {r} was launched no time on its path")
-        kernels.append(entries[r])
+    for r in ("decode", "tc", "simt", "weight"):
+        entry = entries[r]
+        entry["paths"] = list(MAIN_PATHS[r])
+        entry["launches"] = sum(by_path[p][r] for p in MAIN_PATHS[r])
+        entry["check_launches"] = sum(by_path[p][r] for p in CHECK_PATHS)
+        entry["launches_by_path"] = {path: l[r] for path, l in by_path.items()}
+        idle = [p for p in MAIN_PATHS[r] if by_path[p][r] == 0]
+        if idle:
+            raise AssertionError(f"route {r} was launched no time on its paths {idle}")
+        if entry["check_launches"] == 0:
+            raise AssertionError(f"route {r} was launched no time in the checks {CHECK_PATHS}")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Wrapper of the hand-written CUDA analog-matmul kernels: one function,
-three routes.
+four routes.
 
 The sources in ``csrc/`` replace the Pallas TPU kernel of
 ``repro/kernels/analog_matmul.py``. Each route is its own source and its
 own library, built with ``nvcc`` for ``sm_90a`` into ``_build/`` at first
-use (all three compiled side by side) and bound through a plain C
+use (all four compiled side by side) and bound through a plain C
 interface with ``ctypes``:
 
   * ``decode`` (``csrc/analog_decode.cu``) - at most ``M_DECODE`` rows a
@@ -13,8 +13,15 @@ interface with ``ctypes``:
     pass;
   * ``tc`` (``csrc/analog_tc.cu``) - more rows, bf16 operands, no input
     quantizers: bf16 tensor-core products (``wgmma`` fed by TMA), f32 sums;
-  * ``simt`` (``csrc/analog_matmul.cu``) - everything else: weight noise,
-    f32 operands, input quantizers above ``M_DECODE`` rows.
+  * ``weight`` (``csrc/analog_weight.cu``) - weight noise, bf16 operands:
+    bound by the noise draws; each drawn weight taken once a request, split-K
+    over two waves of blocks, the splits added in a second pass; SIMT
+    products at up to ``M_DECODE`` rows a request, bf16 tensor-core products
+    of the noisy weights split into two bf16 parts above (input quantizers
+    there go to simt);
+  * ``simt`` (``csrc/analog_matmul.cu``) - everything else: f32 operands,
+    rows not a multiple of 16 bytes, input quantizers above ``M_DECODE``
+    rows.
 
 ``select_route`` picks the route from the call's shapes and flags alone,
 never from the batch size, and every route's tiling depends on (K, N)
@@ -40,11 +47,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 HEADER = os.path.join(CSRC, "analog_common.cuh")
 BUILD_DIR = os.path.join(_HERE, "_build")
-ROUTES = ("decode", "tc", "simt")
+ROUTES = ("decode", "tc", "simt", "weight")
 SOURCES = {
     "decode": os.path.join(CSRC, "analog_decode.cu"),
     "tc": os.path.join(CSRC, "analog_tc.cu"),
     "simt": os.path.join(CSRC, "analog_matmul.cu"),
+    "weight": os.path.join(CSRC, "analog_weight.cu"),
 }
 LIBRARIES = {r: os.path.join(BUILD_DIR, f"libanalog_{r}.so") for r in ROUTES}
 NVCC_FLAGS = (
@@ -70,6 +78,15 @@ DECODE_TARGET_BLOCKS = 4 * 132
 TC_BM = 128
 TC_BN = 128
 TC_BK = 64
+#: weight route: blocks of 128 threads over 64 columns and a slice of K
+#: (a multiple of 32 rows, at most 2048); prefill tiles of 64 rows. K is
+#: split for two waves of 4 blocks a SM on the H100's 132 SMs.
+WEIGHT_BN = 64
+WEIGHT_BM = 64
+WEIGHT_STEP = 32
+WEIGHT_KC_MAX = 2048
+WEIGHT_WAVE = 4 * 132
+WEIGHT_TARGET_BLOCKS = 2 * WEIGHT_WAVE
 
 #: kernel launches so far in this process, by route (one per
 #: ``analog_matmul_raw`` call on CUDA tensors): a run shows the main path
@@ -91,11 +108,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _bf16_rows(k: int, n: int, dtype: torch.dtype, noise_kind: str) -> bool:
-    """Whether the decode and tc routes compute such a call at all: bf16
-    operands whose products are exact in f32 (noisy weights are not), and
-    rows of 16-byte multiples."""
-    return noise_kind != "weight" and dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+def _bf16_rows(k: int, n: int, dtype: torch.dtype) -> bool:
+    """Whether the decode, tc and weight routes take such operands at all:
+    bf16, whose products are exact in f32, and rows of 16-byte multiples."""
+    return dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
 
 
 def select_route(b: int, m: int, k: int, n: int, dtype: torch.dtype, noise_kind: str,
@@ -107,20 +123,25 @@ def select_route(b: int, m: int, k: int, n: int, dtype: torch.dtype, noise_kind:
     same route alone as in a batch. ``quant_out`` is allowed on every route.
     """
     del b, quant_out
-    if not _bf16_rows(k, n, dtype, noise_kind):
+    if not _bf16_rows(k, n, dtype):
         return "simt"
-    if m <= M_DECODE:
-        return "decode"
-    return "simt" if quant_x or quant_w else "tc"
+    if m > M_DECODE and (quant_x or quant_w):
+        return "simt"
+    if noise_kind == "weight":
+        return "weight"
+    return "decode" if m <= M_DECODE else "tc"
 
 
 def route_takes(route: str, m: int, k: int, n: int, dtype: torch.dtype, noise_kind: str,
                 quant_x: bool, quant_w: bool) -> bool:
-    """Whether ``route`` computes such a call at all (any M); the simt route
-    computes every call."""
+    """Whether ``route`` computes such a call at all; the simt route computes
+    every call, decode and tc every row count, weight only weight noise and,
+    above ``M_DECODE`` rows a request, no input quantizer."""
     if route == "simt":
         return True
-    return _bf16_rows(k, n, dtype, noise_kind) and (route == "decode" or not (quant_x or quant_w))
+    if not _bf16_rows(k, n, dtype) or (route == "weight") != (noise_kind == "weight"):
+        return False
+    return route == "decode" or (route == "weight" and m <= M_DECODE) or not (quant_x or quant_w)
 
 
 def decode_plan(k: int, n: int, rows: int) -> dict:
@@ -142,6 +163,24 @@ def decode_plan(k: int, n: int, rows: int) -> dict:
     cpt = 8 if rt == 4 else 4
     return dict(kc=kc, splits=_cdiv(k, kc), rt=rt, row_groups=_cdiv(rows, rt), cpt=cpt,
                 col_tiles=_cdiv(n, 32 * cpt))
+
+
+def weight_plan(k: int, n: int, rows: int) -> dict:
+    """Launch plan of the weight route for ``rows`` = M rows a request.
+
+    The split of K is a function of (K, N) alone: ``splits`` slices of
+    ``kc`` rows (a multiple of ``WEIGHT_STEP``, at most ``WEIGHT_KC_MAX``;
+    the last may be short) over ``col_tiles`` of 64 columns give at least
+    ``WEIGHT_TARGET_BLOCKS`` blocks a request (two waves) unless the
+    granule forbids it. The rows only pick the kernel: ``row_tiles`` 0 takes
+    the decode kernel (M <= ``M_DECODE``), else that many tiles of 64 rows
+    of each request take the tensor-core one.
+    """
+    col_tiles = _cdiv(n, WEIGHT_BN)
+    want = _cdiv(WEIGHT_TARGET_BLOCKS, col_tiles)
+    kc = min(WEIGHT_KC_MAX, max(WEIGHT_STEP, k // want // WEIGHT_STEP * WEIGHT_STEP))
+    return dict(kc=kc, splits=_cdiv(k, kc), col_tiles=col_tiles,
+                row_tiles=0 if rows <= M_DECODE else _cdiv(rows, WEIGHT_BM))
 
 
 def tc_plan(rows: int, k: int, n: int) -> dict:
@@ -224,6 +263,11 @@ def library(route: str) -> ctypes.CDLL:
         elif route == "decode":
             lib.analog_decode_launch.argtypes = common + [p] + [i] * 9 + [f] + [i] * 5 + [p]
             lib.analog_decode_launch.restype = i
+        elif route == "weight":
+            lib.analog_weight_launch.argtypes = common + [p] + [i] * 8 + [f] + [i] * 4 + [p]
+            lib.analog_weight_launch.restype = i
+            lib.weight_draw_sum.argtypes = [u32, u32, i, i, i, f, i, p, p]
+            lib.weight_draw_sum.restype = i
         else:
             lib.analog_tc_launch.argtypes = common + [i] * 7 + [f, i, i, p]
             lib.analog_tc_launch.restype = i
@@ -243,7 +287,8 @@ def _require(cond: bool, msg: str) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy when its storage is not 16-byte aligned (a view
-    at an odd offset): the decode and tc routes read 16 bytes at a time."""
+    at an odd offset): the decode, tc and weight routes read 16 bytes at a
+    time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -344,6 +389,14 @@ def analog_matmul_raw(
                 int(quant_out), int(n_repeats), inv_k, plan["kc"], plan["splits"], plan["rt"],
                 plan["row_groups"], plan["col_tiles"], stream,
             )
+        elif route == "weight":
+            plan = weight_plan(k, n, m)
+            ws = torch.empty((plan["splits"], b * m, n), dtype=torch.float32, device=dev)
+            err = library("weight").analog_weight_launch(
+                *ptrs, ws.data_ptr(), b, m, k, n, int(quant_x), int(quant_w), int(quant_out),
+                int(n_repeats), inv_k, plan["kc"], plan["splits"], plan["col_tiles"],
+                plan["row_tiles"], stream,
+            )
         else:
             plan = tc_plan(b * m, k, n)
             err = library("tc").analog_tc_launch(
@@ -368,4 +421,23 @@ def threefry_words(k0: int, k1: int, row0: int, col0: int, shape, device="cuda")
         rows, cols, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
     )
     _check(err, "threefry_words")
+    return out
+
+
+def weight_draws(k0: int, k1: int, k: int, n: int, n_repeats: int = 1,
+                 device="cuda") -> torch.Tensor:
+    """The weight route's noise draws alone: xi over the (k, n) counter grid
+    of key (k0, k1), ``n_repeats`` streams, summed per thread of
+    ``WEIGHT_TARGET_BLOCKS`` blocks of 128 (the route's two waves) into one
+    f32 tensor. A measured ceiling of the draw rate, not a path of the
+    model: it does not count as a kernel launch."""
+    _require(n % 8 == 0 and n_repeats >= 1, f"n={n} must be a multiple of 8, n_repeats >= 1")
+    blocks = WEIGHT_TARGET_BLOCKS
+    out = torch.empty((blocks * 128,), dtype=torch.float32, device=device)
+    _require(out.device.type == "cuda", "weight_draws runs on the card only")
+    err = library("weight").weight_draw_sum(
+        k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, k, n, n_repeats, float(np.float32(1.0 / n_repeats)),
+        blocks, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    _check(err, "weight_draw_sum")
     return out

@@ -1,7 +1,8 @@
 // Shared by every route of the analog matmul (analog_matmul.cu = simt,
-// analog_decode.cu = decode, analog_tc.cu = tc): the operand struct, the
-// Threefry-2x32-20 / Box-Muller noise of src/repro/kernels/prng.py, the
-// fake quantizer and the output epilogue. Every route draws its noise
+// analog_decode.cu = decode, analog_tc.cu = tc, analog_weight.cu = weight):
+// the operand struct, the Threefry-2x32-20 / Box-Muller noise of
+// src/repro/kernels/prng.py, the fake quantizer, the output epilogue and
+// the second pass of the split-K routes. Every route draws its noise
 // through these functions at global (row, col) counters, so a result does
 // not depend on which route or tiling produced it.
 //
@@ -145,6 +146,33 @@ __device__ __forceinline__ float finish_output(const Params& p, int r, int c, fl
   }
   if (p.quant_out) y = fake_quant(y, p.sc[3], p.sc[4], p.sc[5]);
   return y;
+}
+
+// The second pass of a split-K route (decode, weight): ws holds `splits`
+// partial sums (splits, B * M, N). Warp l adds splits l, l + 8, l + 16, ...
+// in order, then lane order 0..7 adds the warps' sums and thread (0, j)
+// finishes output (row, col j): one fixed order, no float atomics.
+// grid (N / 32, B * M), F_LANES * 32 threads.
+constexpr int F_LANES = 8;
+static __global__ void __launch_bounds__(F_LANES * 32)
+    splits_finish_kernel(const Params p, int splits, const float* __restrict__ ws) {
+  __shared__ float part[F_LANES][32];
+  const int lane = threadIdx.x & 31, l = threadIdx.x >> 5;
+  const int r = blockIdx.y, c = blockIdx.x * 32 + lane;
+  const size_t n_out = (size_t)p.B * p.M * p.N;
+  const size_t idx = (size_t)r * p.N + c;
+  float s = 0.0f;
+  if (c < p.N && l < splits) {
+    s = ws[(size_t)l * n_out + idx];
+#pragma unroll 4
+    for (int sp = l + F_LANES; sp < splits; sp += F_LANES) s = __fadd_rn(s, ws[(size_t)sp * n_out + idx]);
+  }
+  part[l][lane] = s;
+  __syncthreads();
+  if (l != 0 || c >= p.N) return;
+  float y = part[0][lane];
+  for (int i = 1; i < min(F_LANES, splits); ++i) y = __fadd_rn(y, part[i][lane]);
+  p.out[idx] = finish_output(p, r, c, y);
 }
 
 }  // namespace analog

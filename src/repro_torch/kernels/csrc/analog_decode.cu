@@ -27,9 +27,10 @@
 //     quant_x applied on load; quant_w is applied to each loaded weight;
 //   * the k lanes of a block are added in shared memory in lane order, the
 //     block writes one partial per (split, row, col) to a workspace, and a
-//     second kernel adds the splits in a fixed order (8 lanes of every 8th
-//     split, then the lanes in order; no float atomics), then adds the noise
-//     and requantizes exactly as the simt epilogue does.
+//     second kernel (analog_common.cuh splits_finish_kernel) adds the splits
+//     in a fixed order (8 lanes of every 8th split, then the lanes in order;
+//     no float atomics), then adds the noise and requantizes exactly as the
+//     simt epilogue does.
 // So every output's sum is taken in an order fixed by (K, N) alone: a
 // request's rows are the same bits alone or in any batch, and from launch
 // to launch: which block holds a row or a column never changes its sum.
@@ -192,31 +193,6 @@ __global__ void __launch_bounds__(D_THREADS)
   }
 }
 
-// grid (column groups of 32, B * M rows), 256 threads: warp l adds splits
-// l, l + 8, l + 16, ... in order, then lane order 0..7 adds the warps'
-// sums; thread (0, j) adds the noise and requantizes output (row, col j).
-constexpr int F_LANES = 8;
-__global__ void __launch_bounds__(F_LANES * 32)
-    decode_finish_kernel(const Params p, int splits, const float* __restrict__ ws) {
-  __shared__ float part[F_LANES][32];
-  const int lane = threadIdx.x & 31, l = threadIdx.x >> 5;
-  const int r = blockIdx.y, c = blockIdx.x * 32 + lane;
-  const size_t n_out = (size_t)p.B * p.M * p.N;
-  const size_t idx = (size_t)r * p.N + c;
-  float s = 0.0f;
-  if (c < p.N && l < splits) {
-    s = ws[(size_t)l * n_out + idx];
-#pragma unroll 4
-    for (int sp = l + F_LANES; sp < splits; sp += F_LANES) s = __fadd_rn(s, ws[(size_t)sp * n_out + idx]);
-  }
-  part[l][lane] = s;
-  __syncthreads();
-  if (l != 0 || c >= p.N) return;
-  float y = part[0][lane];
-  for (int i = 1; i < min(F_LANES, splits); ++i) y = __fadd_rn(y, part[i][lane]);
-  p.out[idx] = finish_output(p, r, c, y);
-}
-
 template <int RT, int CPT, bool QW>
 cudaError_t launch_partial(const Params& p, int kc, int splits, int row_groups, int col_tiles,
                            float* ws, cudaStream_t s) {
@@ -261,6 +237,6 @@ extern "C" int analog_decode_launch(const void* x, const void* w, const float* r
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
-  decode_finish_kernel<<<dim3((N + 31) / 32, B * M), F_LANES * 32, 0, s>>>(p, splits, ws);
+  splits_finish_kernel<<<dim3((N + 31) / 32, B * M), F_LANES * 32, 0, s>>>(p, splits, ws);
   return (int)cudaGetLastError();
 }

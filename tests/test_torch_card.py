@@ -7,23 +7,37 @@ Needs an NVIDIA card and no JAX (the machine with the card has none):
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
 Without a card every test here skips. Tolerance: the reference's rule
-(``tests/test_kernels.py``), ``atol = 3e-5 * max|y|``, ``rtol = 1e-4``.
+(``tests/test_kernels.py``), ``atol = 3e-5 * max|y|``, ``rtol = 1e-4``, or one output quantization step
+under requant.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.analog import AnalogConfig  # noqa: E402
+from repro_torch.core.analog import AnalogConfig, SiteQuant  # noqa: E402
 from repro_torch.kernels import analog_matmul as am  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.quant.affine import QuantParams  # noqa: E402
 
-#: (B, M, K, N) of a call each route takes
-ROUTE_CASES = {
-    "decode": (3, 1, 64, 40),
-    "tc": (3, 9, 64, 40),
-    "simt": (2, 9, 36, 20),
-}
+#: (route, (B, M, K, N), calibrated quantizers) of calls each route takes:
+#: weight at decode (M <= ``M_DECODE``, with and without quantizers) and
+#: at prefill, which run different kernels
+ROUTE_CASES = [
+    ("decode", (3, 1, 64, 40), False),
+    ("tc", (3, 9, 64, 40), False),
+    ("simt", (2, 9, 36, 20), False),
+    ("weight", (3, 1, 64, 40), False),
+    ("weight", (3, 2, 64, 40), True),
+    ("weight", (3, 9, 64, 40), False),
+]
+
+
+def _minmax(v, dim=None):
+    lo = torch.amin(v, dim=dim) if dim is not None else v.min()
+    hi = torch.amax(v, dim=dim) if dim is not None else v.max()
+    lo = torch.clamp_max(lo, 0.0)
+    return QuantParams(lo, torch.maximum(hi, lo + 1e-8))
 
 
 @pytest.fixture
@@ -34,30 +48,40 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", list(ROUTE_CASES))
-def test_route_kernel_matches_plain_on_card(route, cuda_device):
-    b, m, k, n = ROUTE_CASES[route]
+@pytest.mark.parametrize("route,shape,quant", ROUTE_CASES,
+                         ids=[f"{r}-{'x'.join(map(str, s))}{'-quant' * q}"
+                              for r, s, q in ROUTE_CASES])
+def test_route_kernel_matches_plain_on_card(route, shape, quant, cuda_device):
+    b, m, k, n = shape
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.standard_normal((b, m, k)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(np.float32))
-    cfg, e = (AnalogConfig.weight(0.1), 5.0) if route == "simt" else (AnalogConfig.shot(), 10.0)
+    weight = route in ("simt", "weight")
+    cfg, e = (AnalogConfig.weight(0.1), 5.0) if weight else (AnalogConfig.shot(), 10.0)
     seed = torch.from_numpy(np.arange(4 * b, dtype=np.int32).reshape(b, 4))
-    o = ops.prepare_operands(x.to(torch.bfloat16).to(cuda_device),
-                             w.to(torch.bfloat16).to(cuda_device),
-                             energy=torch.tensor(e), seed=seed, cfg=cfg)
+    xb, wb = x.to(torch.bfloat16).to(cuda_device), w.to(torch.bfloat16).to(cuda_device)
+    sq = None
+    if quant:  # per-column weight ranges, tensor ranges of x and of the output
+        sq = SiteQuant(wqp=_minmax(wb.float(), 0), xqp=_minmax(xb.float()),
+                       oqp=_minmax(torch.matmul(xb.float(), wb.float())))
+    o = ops.prepare_operands(xb, wb, energy=torch.tensor(e), seed=seed, cfg=cfg, sq=sq)
+    assert (o["quant_x"], o["quant_w"], o["quant_out"]) == (quant,) * 3
     args = [o[t] for t in ("x", "w", "row_scale", "col_scale", "wq", "scalars", "seed")]
+    kw = dict(noise_kind=o["noise_kind"], quant_x=o["quant_x"], quant_w=o["quant_w"],
+              quant_out=o["quant_out"], n_repeats=4)
     before = am.LAUNCHES[route]
-    got = am.analog_matmul_raw(*args, noise_kind=o["noise_kind"], n_repeats=4, route=route)
-    want = ops.analog_matmul_ref_raw(*args, noise_kind=o["noise_kind"], n_repeats=4)
+    got = am.analog_matmul_raw(*args, route=route, **kw)
+    want = ops.analog_matmul_ref_raw(*args, **kw)
     assert am.LAUNCHES[route] == before + 1
     atol = 3e-5 * (float(want.abs().max()) + 1e-6)
+    if quant:  # one output quantization step, as the reference's tests allow
+        atol = max(atol, float(sq.oqp.delta) * 1.01)
     torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
-    assert torch.equal(got, am.analog_matmul_raw(*args, noise_kind=o["noise_kind"], n_repeats=4,
-                                                 route=route))
+    assert torch.equal(got, am.analog_matmul_raw(*args, route=route, **kw))
     for i in range(b):
         solo = [args[0][i:i + 1], args[1], args[2][i:i + 1], args[3][:1], args[4], args[5],
                 args[6][i:i + 1]]
         if args[3].shape[0] == b:
             solo[3] = args[3][i:i + 1]
-        y = am.analog_matmul_raw(*solo, noise_kind=o["noise_kind"], n_repeats=4, route=route)
+        y = am.analog_matmul_raw(*solo, route=route, **kw)
         assert torch.equal(y[0], got[i])

@@ -1,4 +1,4 @@
-"""The analog matmul's three routes: which calls each takes, how its launch
+"""The analog matmul's four routes: which calls each takes, how its launch
 plan covers the problem, and that each route's call shapes compute the
 reference's function.
 
@@ -8,7 +8,9 @@ shapes, dtypes and flags each route takes on the card; ``chip_smoke.py``
 and ``tests/test_torch_card.py`` hold the route's kernel against the plain
 version there. Tolerance: the
 reference's rule (``tests/test_kernels.py``), ``atol = 3e-5 * max|y|``,
-widened to one output-quantizer bin under requant, ``rtol = 1e-4``.
+widened to one output-quantizer bin under requant, ``rtol = 1e-4``. The
+weight route's tensor-core form (noisy weights split into two bf16 parts)
+is held to the same rule in plain PyTorch here, before the card runs it.
 """
 import numpy as np
 import pytest
@@ -21,10 +23,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import AnalogConfig as JAnalogConfig  # noqa: E402
 from repro.core import SiteQuant as JSiteQuant  # noqa: E402
 from repro.kernels import analog_matmul_reference as jreference  # noqa: E402
+from repro.kernels.ref import analog_matmul_ref_raw as jref_raw  # noqa: E402
 from repro.quant import calibrate_minmax  # noqa: E402
 from repro_torch.core.analog import AnalogConfig, SiteQuant, key_seed  # noqa: E402
 from repro_torch.kernels import analog_matmul as am  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, prng  # noqa: E402
+from repro_torch.kernels.ref import analog_matmul_ref_raw, seed_words  # noqa: E402
 from repro_torch.quant.affine import QuantParams  # noqa: E402
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -41,8 +45,17 @@ ROUTE_TABLE = [
     ((40, 4000, 1000, BF16, "output", False, False, True), "tc"),
     ((64, 4096, 1024, BF16, "output", True, False, False), "simt"),
     ((64, 4096, 1024, BF16, "output", False, True, False), "simt"),
-    ((1, 4096, 12800, BF16, "weight", False, False, False), "simt"),
-    ((64, 4096, 12800, BF16, "weight", False, False, False), "simt"),
+    ((1, 4096, 12800, BF16, "weight", False, False, False), "weight"),
+    ((64, 4096, 12800, BF16, "weight", False, False, False), "weight"),
+    ((32, 4096, 1024, BF16, "weight", False, False, True), "weight"),
+    ((am.M_DECODE, 4096, 1024, BF16, "weight", True, True, True), "weight"),
+    ((512, 4000, 1000, BF16, "weight", False, False, False), "weight"),
+    ((am.M_DECODE + 1, 4096, 1024, BF16, "weight", True, False, False), "simt"),
+    ((64, 4096, 1024, BF16, "weight", False, True, True), "simt"),
+    ((1, 4096, 12800, F32, "weight", False, False, False), "simt"),
+    ((64, 4096, 1024, F32, "weight", False, False, True), "simt"),
+    ((1, 4001, 1000, BF16, "weight", False, False, False), "simt"),
+    ((64, 4096, 1001, BF16, "weight", False, False, False), "simt"),
     ((1, 4096, 12800, F32, "output", False, False, False), "simt"),
     ((64, 4096, 12800, F32, "none", False, False, False), "simt"),
     ((1, 4001, 1000, BF16, "output", False, False, False), "simt"),
@@ -76,6 +89,18 @@ def test_route_takes_refuses():
     assert not am.route_takes("decode", 1, 4096, 1020, BF16, "output", False, False)
     assert am.route_takes("decode", 64, 4096, 1024, BF16, "output", True, True)
     assert am.route_takes("simt", 1, 7, 5, F32, "weight", True, True)
+    # weight: weight noise on bf16 rows of 16-byte multiples, input
+    # quantizers only at up to M_DECODE rows a request
+    assert am.route_takes("weight", 1, 4096, 1024, BF16, "weight", True, True)
+    assert am.route_takes("weight", 512, 4096, 1024, BF16, "weight", False, False)
+    assert not am.route_takes("weight", 1, 4096, 1024, BF16, "output", False, False)
+    assert not am.route_takes("weight", 64, 4096, 1024, BF16, "none", False, False)
+    assert not am.route_takes("weight", 1, 4096, 1024, F32, "weight", False, False)
+    assert not am.route_takes("weight", 1, 4001, 1024, BF16, "weight", False, False)
+    assert not am.route_takes("weight", 1, 4096, 1020, BF16, "weight", False, False)
+    assert not am.route_takes("weight", am.M_DECODE + 1, 4096, 1024, BF16, "weight", True, False)
+    assert not am.route_takes("weight", 64, 4096, 1024, BF16, "weight", False, True)
+    assert not am.route_takes("decode", 1, 4096, 1024, BF16, "weight", False, False)
 
 
 KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096), (4000, 1000), (16, 8),
@@ -121,6 +146,45 @@ def test_decode_rows_cover(rows):
     assert (groups - 1) * rt < rows <= groups * rt
 
 
+@pytest.mark.parametrize("rows", [1, am.M_DECODE, am.M_DECODE + 1, 32, 64, 65, 100])
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_weight_plan_covers_k_and_n(k, n, rows):
+    plan = am.weight_plan(k, n, rows)
+    kc, splits, tiles = plan["kc"], plan["splits"], plan["col_tiles"]
+    assert kc % am.WEIGHT_STEP == 0 and 0 < kc <= am.WEIGHT_KC_MAX
+    assert (splits - 1) * kc < k <= splits * kc  # every split non-empty, K covered
+    assert (tiles - 1) * am.WEIGHT_BN < n <= tiles * am.WEIGHT_BN
+    if rows <= am.M_DECODE:
+        assert plan["row_tiles"] == 0  # the decode kernel: all of a request's rows a block
+    else:
+        assert (plan["row_tiles"] - 1) * am.WEIGHT_BM < rows <= plan["row_tiles"] * am.WEIGHT_BM
+    covered = np.zeros(k, np.int64)
+    for s in range(splits):
+        covered[s * kc: min(k, (s + 1) * kc)] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_weight_split_never_depends_on_rows(k, n):
+    """The order of every output's sum is fixed by the split of K and the
+    column tiles: the same for any row count, so for a request alone as in
+    any batch (the plan never sees B)."""
+    plans = {(p["kc"], p["splits"], p["col_tiles"])
+             for p in (am.weight_plan(k, n, r) for r in range(1, 200))}
+    assert len(plans) == 1
+
+
+def test_weight_plan_fills_two_waves_at_granite_sites():
+    """At least two waves (4 blocks of 128 threads on each of the H100's
+    132 SMs) for one request at every granite-3-8b site, decode and
+    prefill."""
+    assert am.WEIGHT_TARGET_BLOCKS == 2 * 4 * 132
+    for k, n in KN[:4]:
+        for rows in (1, 32, 64):
+            plan = am.weight_plan(k, n, rows)
+            assert plan["splits"] * plan["col_tiles"] >= 2 * am.WEIGHT_WAVE, (k, n, rows, plan)
+
+
 @pytest.mark.parametrize("rows,k,n", [(256, 4096, 12800), (120, 4000, 1000), (128, 8, 8),
                                       (129, 12800, 4096), (5, 40, 136)])
 def test_tc_plan_covers(rows, k, n):
@@ -140,6 +204,8 @@ def _raw(b, m, k, n, dtype=F32):
     ("tc", dict(noise_kind="weight")),
     ("tc", dict(quant_x=True)),
     ("decode", dict()),  # f32 operands
+    ("weight", dict(noise_kind="weight")),  # f32 operands
+    ("weight", dict()),  # output noise
     ("warp", dict()),
 ])
 def test_forced_route_refuses_what_it_does_not_compute(route, kw):
@@ -155,6 +221,7 @@ ROUTE_CASES = {
     "decode": (3, 1, 64, 40),
     "tc": (3, 9, 64, 40),
     "simt": (2, 9, 36, 20),
+    "weight": (3, 9, 64, 40),
 }
 
 
@@ -168,7 +235,7 @@ def _bf16_data(b, m, k, n, seed):
 
 
 def _configs(route, requant):
-    if route == "simt":
+    if route in ("simt", "weight"):
         return JAnalogConfig.weight(0.1), AnalogConfig.weight(0.1), 5.0
     if requant:
         kw = dict(weight_bits=None, act_bits=None)
@@ -195,6 +262,10 @@ def test_route_call_matches_reference(route, n_repeats, requant):
     dtype = F32 if route == "simt" else BF16  # simt: f32 operands, as the reference's
     xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
     o = ops.prepare_operands(xt, wt, energy=torch.tensor(e), seed=seed, cfg=cfg, sq=sq)
+    if route == "weight":  # bf16 operands, the col scale of the f32 ranges (ROADMAP C)
+        o["col_scale"] = ops.prepare_operands(
+            torch.from_numpy(x), torch.from_numpy(w), energy=torch.tensor(e), seed=seed,
+            cfg=cfg, sq=sq)["col_scale"]
     assert am.select_route(b, m, k, n, dtype, o["noise_kind"], o["quant_x"], o["quant_w"],
                            o["quant_out"]) == route
     got = am.analog_matmul_raw(
@@ -211,3 +282,58 @@ def test_route_call_matches_reference(route, n_repeats, requant):
         if requant:
             atol = max(atol, float(jsq.oqp.delta) * 1.01)
         np.testing.assert_allclose(got[i], want, atol=atol, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the weight route's tensor-core form, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _weight_split_product(x, w, col_scale, seed, n_repeats):
+    """What the weight route's prefill kernel computes, in plain PyTorch:
+    v = w + cs * xi in f32, as the reference forms it, split into hi =
+    bf16(v) and lo = bf16(v - hi) (round to nearest even, as the kernel's
+    conversion), and x @ hi + x @ lo in f32 (bf16 x bf16 products are exact
+    in f32; the kernel adds both into one accumulator, in its own order)."""
+    k, n = w.shape
+    k0, k1, _, col0 = seed_words(seed)
+    xi = prng.repeat_averaged_gaussian_tile(
+        k0 ^ prng.WEIGHT_STREAM_SALT, k1, 0, col0, (k, n), n_repeats)
+    v = w.float() + col_scale * xi
+    hi = v.to(BF16).float()
+    lo = (v - hi).to(BF16).float()
+    return torch.matmul(x.float(), hi) + torch.matmul(x.float(), lo)
+
+
+@pytest.mark.parametrize("per_request_cs", [False, True], ids=["shared-cs", "per-request-cs"])
+@pytest.mark.parametrize("n_repeats", [1, 4])
+@pytest.mark.parametrize("shape", [(2, 8, 12800, 64), (3, 9, 520, 40)], ids=str)
+def test_weight_split_keeps_the_function(shape, n_repeats, per_request_cs):
+    """Two bf16 parts keep each noisy weight to about 2^-17 of itself: the
+    split product stays within the reference's rule (``3e-5 * max|y|``,
+    ``rtol = 1e-4``) of the plain version and of the JAX reference's raw
+    function, request by request, at K = 12800 (granite-3-8b's down)."""
+    b, m, k, n = shape
+    x, w = _bf16_data(b, m, k, n, seed=11)
+    keys = [jax.random.fold_in(jax.random.PRNGKey(4), u) for u in range(b)]
+    seed = key_seed(np.asarray(jnp.stack(keys)), "cpu")
+    o = ops.prepare_operands(torch.from_numpy(x), torch.from_numpy(w), energy=torch.tensor(5.0),
+                             seed=seed, cfg=AnalogConfig.weight(0.1))
+    cs = o["col_scale"]
+    if per_request_cs:
+        cs = cs * (1.0 + torch.arange(b, dtype=F32).reshape(b, 1, 1) / 4)
+    xb, wb = torch.from_numpy(x).to(BF16), torch.from_numpy(w).to(BF16)
+    got = _weight_split_product(xb, wb, cs, o["seed"], n_repeats).numpy()
+    plain = analog_matmul_ref_raw(xb, wb, o["row_scale"], cs, o["wq"], o["scalars"], o["seed"],
+                                  noise_kind="weight", n_repeats=n_repeats).numpy()
+    seeds = o["seed"].numpy().view(np.uint32)
+    for i in range(b):
+        want = np.asarray(jref_raw(
+            jnp.asarray(x[i]), jnp.asarray(w), jnp.ones((m, 1), jnp.float32),
+            jnp.asarray(cs[i if per_request_cs else 0].numpy()), jnp.ones((3, n), jnp.float32),
+            jnp.asarray(o["scalars"].numpy()), jnp.asarray(seeds[i:i + 1]),
+            noise_kind="weight", n_repeats=n_repeats,
+        ))
+        for ref in (want, plain[i]):
+            atol = 3e-5 * (float(np.abs(ref).max()) + 1e-6)
+            np.testing.assert_allclose(got[i], ref, atol=atol, rtol=1e-4)
