@@ -32,8 +32,20 @@ launches by K and its prefill logits against the plain path
 (``profile``), and serves 24 requests of mixed budgets over K=1, K=4 and
 ``edge4`` through continuous batching (per-tier 4-slot decode pools) and
 batch-synchronous batches, holding every request's tokens equal bit for
-bit across the two, and alone (``continuous``). Every phase that fails
-raises; each prints its seconds. The last line is ``{"ok": true,
+bit across the two, and alone (``continuous``). Then it frees granite's
+weights and serves recurrentgemma-2b (griffin: RG-LRU and local
+attention, 26 layers, 200 analog sites a forward) at full width and depth
+(``serve_griffin``): eight requests through ``ServingEngine`` with every
+decode-step site on the decode route and every prefill site on tc, a
+request alone against its batch, prefill logits against the plain path;
+a 3,000-token prompt whose 2,048-slot rings wrap (``griffin_long``:
+prefill against the plain path, and each digital decode step against a
+cache-free prefill of the sequence so far); an ``edge`` profile over the
+groups and the two tail layers (``griffin_profile``); and the eight
+prompts through 4-slot pools against batch-synchronous batches
+(``griffin_continuous``). The kernel checks hold every route at
+recurrentgemma's site shapes too. Every phase that fails raises; each
+prints its seconds. The last line is ``{"ok": true,
 "device": {...}}``; without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -82,6 +94,14 @@ GAUSS_ATOL = 4e-6
 #: The run also prints what faulty paths give (other seeds, other K, no
 #: noise), so a reader sees whether this bound lies below them.
 LOGIT_REL_TOL = 5e-2
+#: the same bound for recurrentgemma-2b (26 layers, bf16): its plain path
+#: disagrees with itself by 3.2-3.8e-2 when only the float order changes
+#: (a request alone against the same request in its batch), its digital
+#: path by 3.5-4.1e-2, and simt against tc by 4.5e-2 (H100 80GB HBM3, 700 W), so
+#: 5e-2 does not part float order from a fault there; 1e-1 does (faulty
+#: controls read 0.88-1.14). ``phase_whole_path`` prints that float-order
+#: reading beside every check.
+GRIFFIN_LOGIT_REL_TOL = 1e-1
 SERVE_MAX_GEN = 16
 WEIGHT_SERVE_GEN = 4
 #: rows a request of the weight-noise serve's prefill (its prompts fit the
@@ -92,10 +112,18 @@ WEIGHT_PREFILL_ROWS = 32
 EDGE4 = (4,) * 4 + (1,) * 32 + (4,) * 4
 PROFILE_SERVE_GEN = 8
 POOL_SLOTS = 4
+#: the griffin serve (recurrentgemma-2b): its edge profile, K=4 at layers
+#: 0-2 and 23-25 (both tail layers), K=1 between; the long prompt's length,
+#: seq bucket and new tokens
+EDGE_GRIFFIN = (4,) * 3 + (1,) * 20 + (4,) * 3
+LONG_PROMPT, LONG_BUCKET, LONG_GEN = 3000, 4096, 8
 PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
-          "serve_weight", "profile", "continuous")
+          "serve_weight", "profile", "continuous", "serve_griffin", "griffin_long",
+          "griffin_profile", "griffin_continuous")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous")
+#: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
+GRIFFIN_FOLLOWERS = ("griffin_long", "griffin_profile", "griffin_continuous")
 SOURCE = {
     "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
     "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
@@ -107,7 +135,8 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: counts: the serves for decode, tc and weight; simt serves no path since
 #: the weight route, so its count is 0 there. ``check_launches`` counts each
 #: route's launches in the phases that hold it against the plain version.
-MAIN_PATHS = {"decode": ("serve",), "tc": ("serve",), "simt": (), "weight": ("serve_weight",)}
+MAIN_PATHS = {"decode": ("serve", "serve_griffin"), "tc": ("serve", "serve_griffin"), "simt": (),
+              "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "site_time")
 
 
@@ -410,6 +439,18 @@ def _cases():
         ("weight+requant K=4 prefill ragged", (3, 40, 4000, 1000), weight_rq, 5.0, True, 4, None),
         ("weight K=1 prefill 2 row tiles", (2, 100, 4000, 1000), weight, 5.0, False, 1, None),
     ]
+    # recurrentgemma-2b's site shapes: k/v 2560 -> 256 (two column tiles of
+    # tc), q/o and the recurrent matrices 2560 -> 2560, gate/up, down; the
+    # long prompt's prefill (one request of 4,096 rows)
+    for stage, m in (("decode", 1), ("prefill", 64)):
+        for site, k, n in GRIFFIN_SITES:
+            for reps in (1, 4) if site != "down" else (1,):
+                cases.append((f"griffin shot K={reps} {stage} {site}", (4, m, k, n), shot, 20.0,
+                              False, reps, None))
+        cases.append((f"griffin requant K=4 {stage} k/v", (4, m, 2560, 256), requant, 4.0, True,
+                      4, None))
+    cases.append(("griffin shot K=1 long prefill k/v", (1, LONG_BUCKET, 2560, 256), shot, 20.0,
+                  False, 1, None))
     per_request = [
         ("weight K=4 decode gate/up, cs per request", (2, 1, *gate), weight, 5.0, False, 4, None),
         ("weight K=1 prefill k/v, cs per request", (2, 32, *kv), weight, 5.0, False, 1, None),
@@ -491,6 +532,8 @@ def phase_routes() -> None:
         ("weight", (2, 32, 4096, 1024), weight, 5.0, False, 4, False),
         ("weight", (3, 40, 4000, 1000), weight_rq, 5.0, True, 1, False),
         ("weight", (3, 32, 12800, 4096), weight, 5.0, False, 1, True),
+        ("decode", (4, 1, 2560, 256), shot, 20.0, False, 4, False),
+        ("tc", (4, 64, 2560, 256), shot, 20.0, False, 1, False),
     ]
     for route, (b, m, k, n), cfg, energy, quant, reps, cs_req in cases:
         o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77, cs_per_request=cs_req)
@@ -515,11 +558,16 @@ def phase_routes() -> None:
 
 
 SITES = [("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 12800), ("down", 12800, 4096)]
+#: recurrentgemma-2b's site shapes; "2560x2560" is q/o and the recurrent
+#: block's gate, in, a, i and out
+GRIFFIN_SITES = [("2560x2560", 2560, 2560), ("k/v", 2560, 256), ("gate/up", 2560, 7680),
+                 ("down", 7680, 2560)]
 
 
 def phase_site_time(draw_ps=None) -> list:
     """The chosen route and the simt route, in turns, at every analog site
-    shape of granite-3-8b: 4 requests, shot noise, K = 1, beside the bound,
+    shape of granite-3-8b and of recurrentgemma-2b: 4 requests, shot noise,
+    K = 1, beside the bound,
     the plain version, the bare product and the route without its noise
     (what the output noise costs inside the kernel); then the weight route
     at the weight-noise serve's shapes (2 requests, M = 1 and 32), K = 1
@@ -543,26 +591,31 @@ def phase_site_time(draw_ps=None) -> list:
              cuda_ms(run("simt"), 10, flush), cuda_ms(run(route), 10, flush)]
         return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
-    for stage, m in (("prefill", 64), ("decode", 1)):
-        for site, k, n in SITES:
-            o, _ = _site_operands(4, m, k, n, shot, 20.0)
-            route = _route_of(o)
-            bound, by, detail = _bound(o, 1)
-            ms, simt_ms, t = turns(o, 1, route)
-            quiet = dict(o, noise_kind="none")
-            row = dict(
-                site=site, stage=stage, shape=[4, m, k, n], noise="output", n_repeats=1,
-                route=route, ms=ms, simt_ms=simt_ms, turns_ms=t, share_of_bound=bound / ms,
-                no_noise_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1, route=route),
-                                    10, flush),
-                plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
-                matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
-                bound_ms=bound, bound_by=by, f32_simt_bound_ms=detail["f32_simt"],
-            )
-            rows.append(row)
-            log("site_time", **row, card=card())
-            if ms > simt_ms:
-                raise AssertionError(f"{stage} {site}: route {route} {ms} ms > simt {simt_ms} ms")
+    for model, sites in (("granite-3-8b", SITES), ("recurrentgemma-2b", GRIFFIN_SITES)):
+        for stage, m in (("prefill", 64), ("decode", 1)):
+            for site, k, n in sites:
+                o, _ = _site_operands(4, m, k, n, shot, 20.0)
+                route = _route_of(o)
+                bound, by, detail = _bound(o, 1)
+                ms, simt_ms, t = turns(o, 1, route)
+                quiet = dict(o, noise_kind="none")
+                row = dict(
+                    model=model, site=site, stage=stage, shape=[4, m, k, n], noise="output",
+                    n_repeats=1, route=route, ms=ms, simt_ms=simt_ms, turns_ms=t,
+                    share_of_bound=bound / ms,
+                    no_noise_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1, route=route),
+                                        10, flush),
+                    plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
+                    matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
+                    bound_ms=bound, bound_by=by, f32_simt_bound_ms=detail["f32_simt"],
+                )
+                rows.append(row)
+                log("site_time", **row, card=card())
+                # granite's sites hold the route choice; recurrentgemma's are
+                # logged (a slower route there is a finding, not hidden)
+                if ms > simt_ms and model == "granite-3-8b":
+                    raise AssertionError(
+                        f"{stage} {site}: route {route} {ms} ms > simt {simt_ms} ms")
     weight = AnalogConfig.weight(0.1)
     for stage, m in (("prefill", WEIGHT_PREFILL_ROWS), ("decode", 1)):
         for site, k, n in SITES:
@@ -630,6 +683,7 @@ def _zero_launches():
     for r in am.ROUTES:
         am.LAUNCHES[r] = 0
     am.LAUNCHES_BY_K.clear()
+    am.LAUNCHES_BY_SHAPE.clear()
 
 
 def _drain(engine):
@@ -646,16 +700,18 @@ def _drain(engine):
     return results, time.perf_counter() - t, dict(am.LAUNCHES)
 
 
-def phase_weights():
-    """granite-3-8b's random weights and energies on the card; returns
+def phase_weights(CONFIG=None):
+    """A configuration's random weights (seed 0) and energies on the card
+    (granite-3-8b unless ``CONFIG`` says otherwise); returns
     ``make_engine(backend, analog=None, **engine_kw)`` over them."""
     import torch
 
-    from repro_torch.configs.granite_3_8b import CONFIG
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine
 
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
     t0 = time.perf_counter()
     params = lm.init_params(CONFIG, seed=0, device="cuda")
     energies = lm.init_energy_tree(CONFIG, 20.0, device="cuda")
@@ -678,12 +734,33 @@ def phase_weights():
     return make_engine
 
 
-def phase_serve(make_engine, prompts, tiers):
-    import torch
-
-    from repro_torch.configs.granite_3_8b import CONFIG
+def forward_sites(cfg) -> int:
+    """Analog sites of one forward: every group's and every tail layer's."""
     from repro_torch.models import lm
 
+    return (len(lm.group_sites(cfg)) * lm.group_structure(cfg)[0]
+            + len(lm.TAIL_SITES) * lm.n_tail(cfg))
+
+
+def layer_sites(cfg) -> list:
+    """Analog sites of each model layer, in layer order."""
+    from repro_torch.models import lm
+
+    g, per = lm.group_structure(cfg)
+    subs = list(lm.group_site_subs(cfg).values())
+    return [subs.count(i) for i in range(per)] * g + [len(lm.TAIL_SITES)] * lm.n_tail(cfg)
+
+
+def phase_serve(make_engine, prompts, tiers, CONFIG=None):
+    """Eight requests through ``ServingEngine`` (granite-3-8b unless
+    ``CONFIG`` says otherwise): every decode-step site launches the decode
+    route, every prefill site the tc route."""
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
     engine = make_engine("auto")
     for p, k in zip(prompts, tiers):
         engine.submit(p, n_repeats=k, max_new_tokens=SERVE_MAX_GEN)
@@ -691,9 +768,10 @@ def phase_serve(make_engine, prompts, tiers):
     # one window around the whole drain: the engine's own steps, no added syncs
     results, flush_s, launches = _drain(engine)
 
+    by_shape = {f"{r}:{k}x{n}": c for (r, k, n), c in sorted(am.LAUNCHES_BY_SHAPE.items())}
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
-    sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
+    sites = forward_sites(CONFIG)
     for uid in sorted(results):
         toks = results[uid]
         if len(toks) != SERVE_MAX_GEN or toks.min() < 0 or toks.max() >= CONFIG.vocab_size:
@@ -709,7 +787,8 @@ def phase_serve(make_engine, prompts, tiers):
     prompt_tokens = sum(len(p) for p in prompts)
     log("serve", config=CONFIG.name, layers=CONFIG.n_layers, requests=len(results),
         batches=st["batches"], decode_steps=st["decode_steps"], launches=launches,
-        expected_launches=expected, flush_ms=flush_s * 1e3,
+        expected_launches=expected, sites_a_forward=sites, launches_by_shape=by_shape,
+        flush_ms=flush_s * 1e3,
         ms_per_forward=flush_s * 1e3 / forwards, prompt_tokens=prompt_tokens,
         generated_tokens=st["tokens_generated"],
         generated_tokens_per_s=st["tokens_generated"] / flush_s,
@@ -931,7 +1010,8 @@ def phase_steps(engine, prompts, tiers):
         ("prefill", prefill_ms, prefill_prof, prompt_tokens / prefill_ms * 1e3),
         ("decode", step_ms, decode_prof, n_real / step_ms * 1e3),
     ):
-        log("step", step=name, requests=fb["first"], tier=fb["k"], bucket=[fb["bb"], fb["sb"]],
+        log("step", config=engine.model_cfg.name, step=name, requests=fb["first"], tier=fb["k"],
+            bucket=[fb["bb"], fb["sb"]],
             wall_ms=wall, tokens_per_s=rate, steps_timed=1 if name == "prefill" else n_steps,
             idle_share=max(0.0, 1.0 - prof["device_ms"] / wall),
             profiler_overhead_ms=prof["profiled_wall_ms"] - wall, **prof, card=card())
@@ -942,10 +1022,18 @@ def _rel(a, b, n):
     return float((a[:n] - b[:n]).abs().max()) / float(b[:n].abs().max())
 
 
+def _logit_tol(cfg) -> float:
+    """The whole-path bound of a model: ``LOGIT_REL_TOL``, or
+    ``GRIFFIN_LOGIT_REL_TOL`` for the griffin family."""
+    return GRIFFIN_LOGIT_REL_TOL if cfg.family == "griffin" else LOGIT_REL_TOL
+
+
 def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     """The first batch again on the plain ("tile") backend, on the card:
     prefill logits and greedy tokens against the kernels', beside what
-    faulty paths give against the same plain logits."""
+    faulty paths give against the same plain logits and what the plain
+    path gives against itself when only the float order changes (each
+    request alone against its row of the batch)."""
     import torch
 
     from repro_torch.kernels import analog_matmul as am
@@ -966,9 +1054,13 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
         tile.submit(prompts[i], n_repeats=k, max_new_tokens=SERVE_MAX_GEN, key=key)
     tile_results = tile.flush()
     tile_s = time.perf_counter() - t
+    float_order = [_rel(tile.tiers.get(k).prefill(fb["tok"][i:i + 1], fb["lengths"][i:i + 1],
+                                                  fb["table"][i:i + 1], cache_len)[1],
+                        lt[i:i + 1], 1) for i in range(n)]
     if am.LAUNCHES != launches:
         raise AssertionError("the tile backend launched a CUDA kernel")
     rel = _rel(lk, lt, n)
+    tol = _logit_tol(engine.model_cfg)
 
     # the same check on paths with a known fault: seeds of other requests,
     # the other precision tier, noise dropped
@@ -979,11 +1071,12 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
         "no_noise": _rel(prefill(make_engine(None), 1, fb["table"]), lt, n),
     }
     agree = [int((tile_results[j] == results[i]).sum()) for j, i in enumerate(first)]
-    if not (rel <= LOGIT_REL_TOL and bool(torch.isfinite(lk).all())):
-        raise AssertionError(f"prefill logits kernel vs plain: {rel} > {LOGIT_REL_TOL}")
-    log("whole_path", requests=first, tier=k, bucket=[fb["bb"], fb["sb"]], logit_rel_err=rel,
-        logit_rel_tol=LOGIT_REL_TOL, controls=controls,
-        tol_below_controls=LOGIT_REL_TOL < min(controls.values()),
+    if not (rel <= tol and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"prefill logits kernel vs plain: {rel} > {tol}")
+    log("whole_path", config=engine.model_cfg.name, requests=first, tier=k,
+        bucket=[fb["bb"], fb["sb"]], logit_rel_err=rel, logit_rel_tol=tol,
+        plain_float_order=float_order, controls=controls,
+        tol_below_controls=tol < min(controls.values()),
         first_token_equal=[bool(tile_results[j][0] == results[i][0]) for j, i in enumerate(first)],
         tokens_agree=agree, tokens_per_request=SERVE_MAX_GEN, tile_serve_s=tile_s, card=card())
 
@@ -994,89 +1087,96 @@ def _edge4():
     return PrecisionProfile(EDGE4, name="edge4")
 
 
-def phase_profile(make_engine, prompts, tiers):
-    """The edge4 profile as a tier: its modelled energy per token between
-    K=1's and K=4's (each equal to ``profile_token_energy`` of its
-    schedule), a serve whose every site launched at its layer's K, and its
-    prefill logits, kernels against the plain path, within the whole-path
-    bound, beside the uniform K=1 logits as a control."""
+def phase_profile(make_engine, prompts, tiers, CONFIG=None, profile=None):
+    """A hand-written profile as a tier (granite-3-8b's edge4 unless
+    ``CONFIG`` and ``profile`` say otherwise): its modelled energy per
+    token between K=1's and K=4's (each equal to ``profile_token_energy``
+    of its schedule), a serve whose every site launched at its layer's K,
+    and its prefill logits, kernels against the plain path, within the
+    whole-path bound, beside the uniform K=1 logits as a control."""
     import torch
 
-    from repro_torch.configs.granite_3_8b import CONFIG
     from repro_torch.core.profile import PrecisionProfile
     from repro_torch.kernels import analog_matmul as am
     from repro_torch.models import lm
 
-    edge4 = _edge4()
-    engine = make_engine("auto", profiles=[edge4])
-    energy = {str(t): engine.tier_energy_per_token(t) for t in (1, 4, "edge4")}
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    profile = profile or _edge4()
+    name = profile.name
+    engine = make_engine("auto", profiles=[profile])
+    energy = {str(t): engine.tier_energy_per_token(t) for t in (1, 4, name)}
     schedules = {"1": PrecisionProfile.uniform(1, CONFIG.n_layers),
-                 "4": PrecisionProfile.uniform(4, CONFIG.n_layers), "edge4": edge4}
+                 "4": PrecisionProfile.uniform(4, CONFIG.n_layers), name: profile}
     direct = {t: lm.profile_token_energy(CONFIG, engine.energies, p)
               for t, p in schedules.items()}
-    if not (energy["1"] < energy["edge4"] < energy["4"]) or energy != direct:
+    if not (energy["1"] < energy[name] < energy["4"]) or energy != direct:
         raise AssertionError(f"tier energies {energy} (profile_token_energy: {direct})")
 
     serve = [p for p in prompts if len(p) <= 64][:4]
     for p in serve:
-        engine.submit(p, profile="edge4", max_new_tokens=PROFILE_SERVE_GEN)
+        engine.submit(p, profile=name, max_new_tokens=PROFILE_SERVE_GEN)
     results, flush_s, launches = _drain(engine)
     by_k = dict(am.LAUNCHES_BY_K)
     st = engine.stats
     forwards = st["batches"] + st["decode_steps"]
-    n_sites = len(lm.group_sites(CONFIG))
-    want_k = {k: n_sites * EDGE4.count(k) * forwards for k in sorted(set(EDGE4))}
-    sites = n_sites * CONFIG.n_layers
+    per_layer = layer_sites(CONFIG)
+    want_k = {k: forwards * sum(n for n, kl in zip(per_layer, profile.repeats) if kl == k)
+              for k in sorted(set(profile.repeats))}
+    sites = forward_sites(CONFIG)
     want_route = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
                   "weight": 0}
     if by_k != want_k or launches != want_route:
-        raise AssertionError(f"edge4 launches by K {by_k} != {want_k}, by route {launches} "
+        raise AssertionError(f"{name} launches by K {by_k} != {want_k}, by route {launches} "
                              f"!= {want_route}")
     for uid, toks in results.items():
         if len(toks) != PROFILE_SERVE_GEN or toks.min() < 0 or toks.max() >= CONFIG.vocab_size:
-            raise AssertionError(f"edge4 request {uid}: bad tokens {toks}")
+            raise AssertionError(f"{name} request {uid}: bad tokens {toks}")
 
     fb = _first_batch(engine, prompts, tiers)
     cache_len = fb["sb"] + SERVE_MAX_GEN
     prefill = lambda eng, tier: eng.tiers.get(tier).prefill(
         fb["tok"], fb["lengths"], fb["table"], cache_len)[1]
     n = len(fb["first"])
-    lk = prefill(engine, "edge4")
-    lt = prefill(make_engine("tile", profiles=[edge4]), "edge4")
+    lk = prefill(engine, name)
+    lt = prefill(make_engine("tile", profiles=[profile]), name)
     rel = _rel(lk, lt, n)
     control = _rel(prefill(engine, 1), lt, n)
-    if not (rel <= LOGIT_REL_TOL and bool(torch.isfinite(lk).all())):
-        raise AssertionError(f"edge4 prefill logits kernel vs plain: {rel} > {LOGIT_REL_TOL}")
-    log("profile", profile=list(EDGE4), energy_aj_per_token=energy,
+    tol = _logit_tol(CONFIG)
+    if not (rel <= tol and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"{name} prefill logits kernel vs plain: {rel} > {tol}")
+    log("profile", config=CONFIG.name, name=name, profile=list(profile.repeats),
+        energy_aj_per_token=energy,
         lm_head_aj=float(lm.energy_macs(CONFIG, 1)["lm_head"] * engine.energies["lm_head"].cpu()),
         requests=len(results), batches=st["batches"], decode_steps=st["decode_steps"],
         launches_by_k=by_k, expected_by_k=want_k, launches=launches,
         flush_ms=flush_s * 1e3, ms_per_forward=flush_s * 1e3 / forwards,
         tokens={int(u): r.tolist() for u, r in results.items()},
-        prefill_requests=fb["first"], logit_rel_err=rel, logit_rel_tol=LOGIT_REL_TOL,
-        control_uniform_k1=control, tol_below_control=LOGIT_REL_TOL < control, card=card())
+        prefill_requests=fb["first"], logit_rel_err=rel, logit_rel_tol=tol,
+        control_uniform_k1=control, tol_below_control=tol < control, card=card())
     return launches
 
 
-def phase_continuous(make_engine, prompts):
-    """The 8 prompts at each of K=1, K=4 and edge4 (24 requests, budgets
-    from ``default_rng(1)`` in [2, 16]) through 4-slot continuous pools and
-    through batch-synchronous batches, one seq bucket (64) so both decode
-    over caches of one length: every request's tokens equal across the
-    two and alone through its pool, bit for bit; fewer decode row-slots
-    for the pools; kernel launches per pool step and per admission."""
+def phase_continuous(make_engine, prompts, CONFIG=None, tiers=None):
+    """The 8 prompts at each tier of ``tiers`` (granite-3-8b at K=1, K=4
+    and edge4 unless told otherwise; budgets from ``default_rng(1)`` in
+    [2, 16]) through 4-slot continuous pools and through batch-synchronous
+    batches, one seq bucket (64) so both decode over caches of one length:
+    every request's tokens equal across the two and alone through its
+    pool, bit for bit; fewer decode row-slots for the pools; kernel
+    launches per pool step and per admission."""
     import numpy as np
 
-    from repro_torch.configs.granite_3_8b import CONFIG
-    from repro_torch.models import lm
-
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
     budgets = [int(b) for b in np.random.default_rng(1).integers(2, 17, size=len(prompts))]
-    edge4 = _edge4()
-    kw = dict(profiles=[edge4], seq_buckets=(64,), max_wait=0.0)
+    if tiers is None:
+        tiers = ({"n_repeats": 1}, {"n_repeats": 4}, {"profile": "edge4"})
+    kw = dict(profiles=[_edge4()] if {"profile": "edge4"} in tiers else [], seq_buckets=(64,),
+              max_wait=0.0)
     engines = {"continuous": make_engine("auto", continuous=True, pool_slots=POOL_SLOTS, **kw),
                "sync": make_engine("auto", **kw)}
-    tiers = ({"n_repeats": 1}, {"n_repeats": 4}, {"profile": "edge4"})
-    sites = len(lm.group_sites(CONFIG)) * CONFIG.n_layers
+    sites = forward_sites(CONFIG)
     useful = len(tiers) * sum(b - 1 for b in budgets)  # row-steps the requests need
     out, rows = {}, {}
     for name, engine in engines.items():
@@ -1100,7 +1200,7 @@ def phase_continuous(make_engine, prompts):
             generated_tokens_per_s=st["tokens_generated"] / flush_s,
             read_ms_per_step=st["pool_read_s"] * 1e3 / max(1, st["decode_steps"]),
         )
-        log("continuous_drain", discipline=name, **rows[name], card=card())
+        log("continuous_drain", config=CONFIG.name, discipline=name, **rows[name], card=card())
     cont, sync = engines["continuous"], engines["sync"]
     n = len(prompts) * len(tiers)
     if sorted(out["continuous"]) != list(range(n)) or sorted(out["sync"]) != list(range(n)):
@@ -1114,13 +1214,13 @@ def phase_continuous(make_engine, prompts):
     if not rows["continuous"]["decode_slot_steps"] < rows["sync"]["decode_slot_steps"]:
         raise AssertionError(f"decode slot steps: continuous {rows['continuous']} >= sync")
 
-    # one request admitted mid-flight in the drain (edge4, index 5), alone
-    # through its pool; pump_step by pump_step: the steps after the
+    # one request admitted mid-flight in the drain (the last tier, index 5),
+    # alone through its pool; pump_step by pump_step: the steps after the
     # admission round are pure pool steps (B = 4, one active row)
     from repro_torch.kernels.prng import PRNGKey, fold_in
 
-    uid = 2 * len(prompts) + 5
-    cont.submit(prompts[5], profile="edge4", max_new_tokens=budgets[5], key=fold_in(PRNGKey(0), uid))
+    uid = (len(tiers) - 1) * len(prompts) + 5
+    cont.submit(prompts[5], max_new_tokens=budgets[5], key=fold_in(PRNGKey(0), uid), **tiers[-1])
     solo, step_ms = {}, []
     while cont.n_in_flight:
         t = time.perf_counter()
@@ -1130,7 +1230,8 @@ def phase_continuous(make_engine, prompts):
     if not np.array_equal(solo_tokens, out["continuous"][uid]):
         raise AssertionError(f"request {uid} alone {solo_tokens} != in the pool {out['continuous'][uid]}")
     pure = sorted(step_ms[1:])
-    log("continuous", pools=[str(t) for t in cont.pools], pool_slots=POOL_SLOTS,
+    log("continuous", config=CONFIG.name, pools=[str(t) for t in cont.pools],
+        pool_slots=POOL_SLOTS,
         budgets=budgets, pooled_equals_sync=True, solo_uid=uid, solo_equals_pooled=True,
         solo_step_ms=step_ms, ms_per_pool_step=pure[len(pure) // 2],
         slot_steps={k: r["decode_slot_steps"] for k, r in rows.items()},
@@ -1138,12 +1239,124 @@ def phase_continuous(make_engine, prompts):
     return rows["continuous"]["launches"]
 
 
+def phase_solo(engine, results, prompts, tiers):
+    """One request of the first batch of several, served again alone
+    through the same engine under its own key: the same tokens, bit for
+    bit, on the card."""
+    import numpy as np
+
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+
+    fb = _first_batch(engine, prompts, tiers)
+    if len(fb["first"]) < 2:
+        raise AssertionError(f"the first batch {fb['first']} holds one request")
+    uid = fb["first"][-1]
+    solo_uid = engine.submit(prompts[uid], n_repeats=tiers[uid], max_new_tokens=SERVE_MAX_GEN,
+                             key=fold_in(PRNGKey(0), uid))
+    solo = engine.flush()[solo_uid]
+    equal = bool(np.array_equal(solo, results[uid]))
+    log("solo", config=engine.model_cfg.name, uid=uid, batch=fb["first"],
+        bucket=[fb["bb"], fb["sb"]], solo_equals_batched=equal, tokens=solo.tolist(), card=card())
+    if not equal:
+        raise AssertionError(f"request {uid} alone {solo} != in its batch {results[uid]}")
+
+
+def phase_griffin_long(make_engine, CONFIG):
+    """One request with a 3,000-token prompt in a 4,096 seq bucket, K=1, 8
+    new tokens: prefill takes local attention's aligned branch (4096 %
+    2048 = 0) and the 2,048-slot rings wrap during decode. Its kernel-path
+    prefill logits against the plain path's (with faulty controls); then,
+    digitally, each decode step's logits against a cache-free prefill of
+    the sequence so far, beside a control that decodes from another
+    prompt's cache. Both within ``GRIFFIN_LOGIT_REL_TOL``: the decode step
+    and the prefill differ in float order alone (GEMMs of M = 1 against M
+    = T, another attention order, the step update against the scan)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import batch_keys
+
+    rng = np.random.default_rng(2)
+    prompt, other = (rng.integers(0, CONFIG.vocab_size, LONG_PROMPT).astype(np.int32)
+                     for _ in range(2))
+    kw = dict(max_gen=LONG_GEN, batch_buckets=(1,), seq_buckets=(LONG_BUCKET,))
+    engine = make_engine("auto", **kw)
+    uid = engine.submit(prompt, n_repeats=1, max_new_tokens=LONG_GEN)
+    results, flush_s, launches = _drain(engine)
+    st = engine.stats
+    sites = forward_sites(CONFIG)
+    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                "weight": 0}
+    if launches != expected or len(results[uid]) != LONG_GEN:
+        raise AssertionError(f"long prompt: launches {launches} != {expected}, tokens {results}")
+
+    def padded(p):
+        tok = np.zeros((1, LONG_BUCKET), np.int64)
+        tok[0, :len(p)] = p
+        return torch.from_numpy(tok).cuda()
+
+    lengths = torch.tensor([LONG_PROMPT], device="cuda")
+    table = batch_keys([fold_in(PRNGKey(0), uid)], 1)
+    cache_len = LONG_BUCKET + LONG_GEN
+    prefill = lambda eng, tbl, toks=padded(prompt): eng.tiers.get(eng.tiers.base_id).prefill(
+        toks, lengths, tbl, cache_len)
+    (cache, lk), kernel_ms = _wall_ms(lambda: prefill(engine, table))
+    ring = tuple(cache["groups"]["k2"].shape)  # (G, B, slots, KH, hd)
+    if ring[2] != CONFIG.local_window:
+        raise AssertionError(f"ring {ring} != window {CONFIG.local_window}")
+    before = dict(am.LAUNCHES)
+    (_, lt), plain_ms = _wall_ms(lambda: prefill(make_engine("tile", **kw), table))
+    if am.LAUNCHES != before:
+        raise AssertionError("the tile backend launched a CUDA kernel")
+    rel = _rel(lk, lt, 1)
+    controls = {"other_seeds": _rel(prefill(engine, batch_keys([fold_in(PRNGKey(1), 0)], 1))[1],
+                                    lt, 1),
+                "no_noise": _rel(prefill(make_engine(None, **kw), table)[1], lt, 1)}
+    tol = GRIFFIN_LOGIT_REL_TOL
+    if not (rel <= tol and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"long prefill logits kernel vs plain: {rel} > {tol}")
+
+    digital = make_engine(None, **kw)
+    cache, logits = prefill(digital, table)
+    ocache, _ = prefill(digital, table, padded(other))
+    tier = digital.tiers.get(digital.tiers.base_id)
+    seq, tok = list(prompt), torch.argmax(logits, dim=-1)
+    errs, ctrl, slots = [], [], []
+    for step in range(LONG_GEN - 1):
+        pos = np.asarray([LONG_PROMPT + step])
+        seq.append(int(tok[0]))
+        lg, cache = tier.decode(cache, tok, pos, table)
+        lo, ocache = tier.decode(ocache, tok, pos, table)
+        _, h = lm.prefill(digital.params, torch.tensor([seq], device="cuda"), CONFIG)
+        want = lm.logits_last(digital.params, h, CONFIG)[:, 0, 0].float()
+        errs.append(_rel(lg, want, 1))
+        ctrl.append(_rel(lo, want, 1))
+        slots.append(int(pos[0] % CONFIG.local_window))
+        tok = torch.argmax(lg, dim=-1)
+    ok = max(errs) <= tol and bool(torch.isfinite(lg).all())
+    log("griffin_long", config=CONFIG.name, prompt_len=LONG_PROMPT, bucket=LONG_BUCKET,
+        new_tokens=LONG_GEN, tokens=results[uid].tolist(), launches=launches,
+        expected_launches=expected, flush_ms=flush_s * 1e3, prefill_ms=kernel_ms,
+        plain_prefill_ms=plain_ms, attention_branch="aligned" if LONG_BUCKET % CONFIG.local_window
+        == 0 else "masked", ring_shape=list(ring), decode_slots=slots, logit_rel_err=rel,
+        logit_rel_tol=tol, controls=controls, tol_below_controls=tol < min(controls.values()),
+        decode_vs_prefill_rel_err=errs, control_other_cache=ctrl,
+        decode_tol_below_control=tol < min(ctrl),
+        card=card())
+    if not ok:
+        raise AssertionError(f"long decode vs cache-free prefill: {errs} > {tol}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} "
                          "(serve includes the step, whole-path, serve_weight, profile and "
-                         "continuous phases); default all")
+                         "continuous phases; serve_griffin its step, solo, whole-path and the "
+                         "griffin_* phases); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -1160,6 +1373,7 @@ def main() -> int:
     log("start", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, card=card(), phases=only)
     run = set(only) | (set(SERVE_FOLLOWERS) if "serve" in only else set())
+    run |= set(GRIFFIN_FOLLOWERS) if "serve_griffin" in only else set()
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -1203,6 +1417,34 @@ def main() -> int:
         by_path["profile"] = timed("profile", phase_profile, make_engine, prompts, tiers)
     if "continuous" in run:
         by_path["continuous"] = timed("continuous", phase_continuous, make_engine, prompts)
+    if run & {"serve_griffin", *GRIFFIN_FOLLOWERS}:
+        import gc
+
+        from repro_torch.configs.recurrentgemma_2b import CONFIG as GRIFFIN
+        from repro_torch.core.profile import PrecisionProfile
+
+        make_engine = engine = results = fb = None  # granite's weights go
+        gc.collect()
+        torch.cuda.empty_cache()
+        make_griffin = timed("griffin_weights", phase_weights, GRIFFIN)
+        gprompts, gtiers = _traffic(GRIFFIN)
+    if "serve_griffin" in run:
+        engine, results, by_path["serve_griffin"] = timed(
+            "serve_griffin", phase_serve, make_griffin, gprompts, gtiers, GRIFFIN)
+        fb = timed("griffin_step", phase_steps, engine, gprompts, gtiers)
+        timed("griffin_solo", phase_solo, engine, results, gprompts, gtiers)
+        timed("griffin_whole_path", phase_whole_path, make_griffin, engine, results, gprompts,
+              gtiers, fb)
+    if "griffin_long" in run:
+        timed("griffin_long", phase_griffin_long, make_griffin, GRIFFIN)
+    if "griffin_profile" in run:
+        by_path["griffin_profile"] = timed(
+            "griffin_profile", phase_profile, make_griffin, gprompts, gtiers, GRIFFIN,
+            PrecisionProfile(EDGE_GRIFFIN, name="edge"))
+    if "griffin_continuous" in run:
+        by_path["griffin_continuous"] = timed(
+            "griffin_continuous", phase_continuous, make_griffin, gprompts, GRIFFIN,
+            ({"n_repeats": 1},))
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))

@@ -10,7 +10,7 @@ counterpart:
   core/     - noise models and ``analog_dot`` (the per-site choke point),
               energy accounting, noise bits, per-layer precision profiles
   quant/    - affine fake-quant
-  models/   - the dense transformer LM with analog matmul hooks
+  models/   - the dense and griffin LMs with analog matmul hooks
   configs/  - model configurations
   serving/  - bucket-batched ``ServingEngine``: batch-synchronous or
               continuous (per-tier decode slot pools), uniform-K and

@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes a parameter tree in the reference layout
 (``repro.models.lm.param_leaves`` structure, layer-stacked leaves) as numpy
 arrays and returns the port's tree on ``device``; ``energies_from_numpy``
-does the same for an ``init_energy_tree`` tree. Both packages then compute
+does the same for an ``init_energy_tree`` tree (with griffin's ``tail``
+subtrees where the model has tail layers). Both packages then compute
 from identical weights. Shapes are checked against ``lm.param_leaves``;
 dtypes are kept (numpy bfloat16 arrays become ``torch.bfloat16``).
 """
@@ -36,11 +37,17 @@ def params_from_numpy(tree, cfg, device="cuda"):
 
 
 def energies_from_numpy(tree, cfg, device="cuda"):
+    """An energy tree on ``device`` in float32; its group sites (and the
+    griffin tail's, where the model has a tail) must be the model's."""
     dev = resolve_device(device)
-    sites = lm.group_sites(cfg)
-    if set(tree["groups"]) != set(sites):
-        raise ValueError(f"energy sites {sorted(tree['groups'])} != {sorted(sites)}")
-    return {
-        "groups": {s: _to_torch(tree["groups"][s], dev).to(torch.float32) for s in sites},
-        "lm_head": _to_torch(tree["lm_head"], dev).to(torch.float32),
-    }
+    want = {"groups": lm.group_sites(cfg)}
+    if lm.n_tail(cfg):
+        want["tail"] = lm.TAIL_SITES
+    if set(tree) - {"lm_head"} != set(want):
+        raise ValueError(f"energy subtrees {sorted(tree)} != {sorted(want) + ['lm_head']}")
+    out = {"lm_head": _to_torch(tree["lm_head"], dev).to(torch.float32)}
+    for sub, sites in want.items():
+        if set(tree[sub]) != set(sites):
+            raise ValueError(f"{sub} energy sites {sorted(tree[sub])} != {sorted(sites)}")
+        out[sub] = {s: _to_torch(tree[sub][s], dev).to(torch.float32) for s in sites}
+    return out

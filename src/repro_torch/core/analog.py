@@ -138,17 +138,20 @@ def key_seed(key, device) -> torch.Tensor:
     return torch.from_numpy(words.view(np.int32)).to(device, non_blocking=True)
 
 
-def site_seed_table(key, n_layers: int, sites: Sequence[str], device) -> torch.Tensor:
+def site_seed_table(key, layers, sites: Sequence[str], device) -> torch.Tensor:
     """Seeds of every analog site of one forward, copied to ``device`` once.
 
-    Row ``[l, s]`` is ``key_seed(site_key(fold_key(key, l), sites[s]))`` —
-    the reference's per-site chain (``hook_for_layer`` then
-    ``AnalogHook``). Shape (L, S, 4), or (L, S, B, 4) for stacked keys.
+    ``layers``: the layer (or layer-group) indices the key is folded with,
+    a sequence of ints, or an int ``n`` for ``range(n)``. Row ``[l, s]`` is
+    ``key_seed(site_key(fold_key(key, layers[l]), sites[s]))`` — the
+    reference's per-site chain (``hook_for_layer`` then ``AnalogHook``).
+    Shape (L, S, 4), or (L, S, B, 4) for stacked keys.
     """
     key = raw_key(key)
     lead = key.shape[:-1]
-    layers = np.arange(n_layers, dtype=np.int64).reshape((n_layers,) + (1,) * len(lead))
-    lk = fold_key(key[None], layers)  # (L, [B,] 2)
+    idx = np.arange(layers) if isinstance(layers, (int, np.integer)) else np.asarray(layers)
+    idx = idx.astype(np.int64).reshape((-1,) + (1,) * len(lead))
+    lk = fold_key(key[None], idx)  # (L, [B,] 2)
     hashes = np.asarray([site_hash(s) for s in sites], np.int64)
     sk = fold_key(lk[:, None], hashes.reshape((1, -1) + (1,) * len(lead)))  # (L, S, [B,] 2)
     return key_seed(sk, device)

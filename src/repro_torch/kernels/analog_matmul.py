@@ -95,6 +95,9 @@ LAUNCHES = {r: 0 for r in ROUTES}
 #: the same launches by their K-repeat count ``n_repeats`` (every route):
 #: a run shows which K each layer of a precision profile ran at.
 LAUNCHES_BY_K: dict = {}
+#: the same launches by (route, K, N): a run shows which site shapes each
+#: route took.
+LAUNCHES_BY_SHAPE: dict = {}
 #: seconds the last build took (0.0 when the libraries were already built),
 #: and what nvcc/ptxas printed for each route (registers, shared memory,
 #: spills).
@@ -406,6 +409,7 @@ def analog_matmul_raw(
     _check(err, f"analog_matmul ({route})")
     LAUNCHES[route] += 1
     LAUNCHES_BY_K[int(n_repeats)] = LAUNCHES_BY_K.get(int(n_repeats), 0) + 1
+    LAUNCHES_BY_SHAPE[(route, k, n)] = LAUNCHES_BY_SHAPE.get((route, k, n), 0) + 1
     return out
 
 

@@ -1,1 +1,1 @@
-"""Dense transformer LM with analog matmul hooks (port of ``repro/models``)."""
+"""The dense and griffin LMs with analog matmul hooks (port of ``repro/models``)."""

@@ -1,9 +1,11 @@
 """Matmul hooks: where analog execution plugs into the model.
 
-Port of ``repro/models/hooks.py`` (the dense sites; expert-batched sites
-wait for MoE). ``MatmulHook`` runs plain matmuls; ``AnalogHook`` runs each
-named site through ``analog_dot`` with that site's energy and noise stream
-and casts the float32 result back to the activation dtype.
+Port of ``repro/models/hooks.py`` (the dense and griffin sites;
+expert-batched sites wait for MoE). ``MatmulHook`` runs plain matmuls;
+``AnalogHook`` runs each named site through ``analog_dot`` with that
+site's energy and noise stream and casts the float32 result back to the
+activation dtype; ``PrefixHook`` namespaces the sites of a repeated
+sublayer (griffin's ``rec_*`` sites become ``rec{i}_rec_*``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,17 @@ class AnalogHook(MatmulHook):
             seed=self.seeds[site], n_repeats=self.n_repeats,
         )
         return y.to(x.dtype)
+
+
+@dataclasses.dataclass
+class PrefixHook(MatmulHook):
+    """Namespaces an inner hook's site names (repeated sublayers per group)."""
+
+    inner: MatmulHook
+    prefix: str
+
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return self.inner(f"{self.prefix}{site}", x, w)
 
 
 def hook_for_layer(

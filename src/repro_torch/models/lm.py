@@ -1,21 +1,34 @@
-"""Dense transformer LM; port of the dense branch of ``repro/models/lm.py``.
+"""Language model; port of the dense and griffin branches of ``repro/models/lm.py``.
+
+Families:
+
+  dense    - pre-norm transformer, GQA/MQA, SwiGLU MLP; with
+             ``sliding_window`` its attention is windowed over a ring cache
+  griffin  - RecurrentGemma: groups of (rec, rec, local-attention) layers,
+             plus the tail layers that do not fill a group (recurrent)
 
 Parameters are a nested dict of tensors with the reference's structure and
-layer-stacked leaves (``params["blocks"]["attn0"]["wq"]`` is (L, d, H*hd)),
-so a reference tree carries over leaf by leaf (``repro_torch.bridge``).
-The layer stack is a Python loop that passes the global layer index to
-every hook, as the reference's scan does with ``arange(L)``.
+group-stacked leaves (``params["blocks"]["attn0"]["wq"]`` is (G, d, H*hd);
+griffin's tail layers stack under ``params["tail"]``), so a reference tree
+carries over leaf by leaf (``repro_torch.bridge``). The layer stack is a
+Python loop over the groups and then the tail that passes the global
+index to every hook, as the reference's scan does with ``arange(G)``: a
+group's sublayers share the group's key ``fold_key(key, g)``, tail layer
+j runs at ``fold_key(key, G*per + j)``.
 
-Every attention and MLP matmul routes through a hook: digital by default,
-or an ``AnalogHook`` carrying the layer's energies and its row of the
-forward's seed table (``core.analog.site_seed_table``: the whole
-(layers, sites, requests) key chain is folded on the host and copied to
-the card once per forward). The ``lm_head`` stays a digital matmul.
-Under a ``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
+Every attention, recurrence and MLP matmul routes through a hook: digital
+by default, or an ``AnalogHook`` carrying the group's energies and its row
+of the forward's seed table (``core.analog.site_seed_table``: the whole
+(groups, sites, requests) key chain is folded on the host and copied to
+the card once per forward). The ``lm_head`` stays a digital matmul (the
+transposed embedding under ``tie_embeddings``). Under a
+``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
 ``energy_macs`` and ``profile_token_energy`` price that schedule.
 
-Decode updates the KV cache in place (one slot per row) and returns it;
-``scatter_cache_rows`` copies prefilled rows into a decode pool's cache.
+Prefill writes every cache leaf; decode updates the cache in place (one
+KV slot per row, griffin's recurrent and conv states whole) and returns
+it; ``scatter_cache_rows`` copies prefilled rows into a decode pool's
+cache along each leaf's own batch dim.
 """
 from __future__ import annotations
 
@@ -29,12 +42,14 @@ from repro_torch.core.analog import AnalogConfig, site_seed_table
 from repro_torch.core.energy import apply_repeats, total_energy
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.device import resolve_device
+from repro_torch.models import griffin as griffin_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.hooks import MatmulHook, hook_for_layer
+from repro_torch.models.hooks import MatmulHook, PrefixHook, hook_for_layer
 from repro_torch.models.layers import (
     apply_rope,
     causal_attention,
     decode_attention,
+    local_attention,
     mlp,
     rms_norm,
     rope_tables,
@@ -42,6 +57,9 @@ from repro_torch.models.layers import (
 from repro_torch.tree import map_leaves
 
 F32 = torch.float32
+#: analog sites of a griffin tail layer (one recurrent layer, sublayer 0)
+TAIL_SITES = ("rec0_rec_gate", "rec0_rec_in", "rec0_rec_a", "rec0_rec_i", "rec0_rec_out",
+              "mlp0_gate", "mlp0_up", "mlp0_out")
 
 
 @dataclasses.dataclass
@@ -81,31 +99,86 @@ class Leaf:
     scale: float = 1.0
 
 
-def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and init scales of every parameter (``lm.py`` reference)."""
-    d, v, ff, hd = cfg.d_model, cfg.padded_vocab, cfg.d_ff, cfg.head_dim
-    qh, kh, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+def group_structure(cfg: ModelConfig):
+    """(n_groups, layers_per_group) of the layer loop: one layer a group in
+    the dense family, ``griffin_pattern`` in griffin."""
+    if cfg.family == "griffin":
+        return cfg.n_layers // len(cfg.griffin_pattern), len(cfg.griffin_pattern)
+    return cfg.n_layers, 1
+
+
+def n_tail(cfg: ModelConfig) -> int:
+    """Griffin layers after the last whole group (0 in the dense family)."""
+    g, per = group_structure(cfg)
+    return cfg.n_layers - g * per
+
+
+def _attn_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+    d, hd, qh, kh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     s = d**-0.5
     return {
-        "final_ln": Leaf((d,), 0.0),
-        "lm_head": Leaf((d, v), s),
-        "embed": Leaf((v, d), 0.02),
-        "blocks": {
-            "ln1_0": Leaf((n, d), 0.0),
-            "ln2_0": Leaf((n, d), 0.0),
-            "attn0": {
-                "wq": Leaf((n, d, qh * hd), s),
-                "wk": Leaf((n, d, kh * hd), s),
-                "wv": Leaf((n, d, kh * hd), s),
-                "wo": Leaf((n, qh * hd, d), (qh * hd) ** -0.5),
-            },
-            "mlp0": {
-                "w_gate": Leaf((n, d, ff), s),
-                "w_up": Leaf((n, d, ff), s),
-                "w_down": Leaf((n, ff, d), ff**-0.5),
-            },
-        },
+        "wq": Leaf(lead + (d, qh * hd), s),
+        "wk": Leaf(lead + (d, kh * hd), s),
+        "wv": Leaf(lead + (d, kh * hd), s),
+        "wo": Leaf(lead + (qh * hd, d), (qh * hd) ** -0.5),
     }
+
+
+def _mlp_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+    d, ff = cfg.d_model, cfg.d_ff
+    s = d**-0.5
+    return {
+        "w_gate": Leaf(lead + (d, ff), s),
+        "w_up": Leaf(lead + (d, ff), s),
+        "w_down": Leaf(lead + (ff, d), ff**-0.5),
+    }
+
+
+def _rec_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+    d, r, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
+    return {
+        "w_gate": Leaf(lead + (d, r), d**-0.5),
+        "w_x": Leaf(lead + (d, r), d**-0.5),
+        "w_a": Leaf(lead + (r, r), r**-0.5),
+        "b_a": Leaf(lead + (r,), 0.0),
+        "w_i": Leaf(lead + (r, r), r**-0.5),
+        "b_i": Leaf(lead + (r,), 0.0),
+        "lambda": Leaf(lead + (r,), 1.0),
+        "conv_w": Leaf(lead + (cw, r), cw**-0.5),
+        "conv_b": Leaf(lead + (r,), 0.0),
+        "w_out": Leaf(lead + (r, d), r**-0.5),
+    }
+
+
+def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
+    """Shapes and init scales of every parameter (``lm.py`` reference)."""
+    d, v = cfg.d_model, cfg.padded_vocab
+    g, per = group_structure(cfg)
+    lead = (g,)
+    tree: Dict[str, Any] = {"final_ln": Leaf((d,), 0.0)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = Leaf((d, v), d**-0.5)
+    tree["embed"] = Leaf((v, d), 0.02)
+    blocks: Dict[str, Any] = {}
+    kinds = ("attn",) if cfg.family == "dense" else cfg.griffin_pattern
+    for i, kind in enumerate(kinds):
+        blocks[f"ln1_{i}"] = Leaf(lead + (d,), 0.0)
+        blocks[f"ln2_{i}"] = Leaf(lead + (d,), 0.0)
+        if kind == "rec":
+            blocks[f"rec{i}"] = _rec_leaves(cfg, lead)
+        else:
+            blocks[f"attn{i}"] = _attn_leaves(cfg, lead)
+        blocks[f"mlp{i}"] = _mlp_leaves(cfg, lead)
+    tail = n_tail(cfg)
+    if tail:
+        tree["tail"] = {
+            "ln1": Leaf((tail, d), 0.0),
+            "ln2": Leaf((tail, d), 0.0),
+            "rec": _rec_leaves(cfg, (tail,)),
+            "mlp": _mlp_leaves(cfg, (tail,)),
+        }
+    tree["blocks"] = blocks
+    return tree
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
@@ -120,7 +193,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
         out = torch.zeros(leaf.shape, dtype=dtype, device=dev)
         if leaf.scale == 0.0:
             return out
-        parts = out if path[0] == "blocks" else out[None]
+        parts = out if path[0] in ("blocks", "tail") else out[None]
         for part in parts:
             part.copy_(torch.randn(part.shape, generator=gen, device=dev, dtype=F32) * leaf.scale)
         return out
@@ -129,37 +202,75 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
 
 
 def group_sites(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Analog matmul sites of one layer -> energy leaf suffix."""
-    return {
-        "attn0_q": (), "attn0_k": (), "attn0_v": (), "attn0_o": (),
-        "mlp0_gate": (), "mlp0_up": (), "mlp0_out": (),
-    }
+    """Analog matmul sites of one layer group -> energy leaf suffix."""
+    sites: Dict[str, tuple] = {}
+    kinds = ("attn",) if cfg.family == "dense" else cfg.griffin_pattern
+    for i, kind in enumerate(kinds):
+        if kind == "rec":
+            for s in ("rec_gate", "rec_in", "rec_a", "rec_i", "rec_out"):
+                sites[f"rec{i}_{s}"] = ()
+        else:
+            for s in ("q", "k", "v", "o"):
+                sites[f"attn{i}_{s}"] = ()
+        for s in (f"mlp{i}_gate", f"mlp{i}_up", f"mlp{i}_out"):
+            sites[s] = ()
+    return sites
 
 
 def init_energy_tree(cfg: ModelConfig, e0: float, device="cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
-    return {
+    g, _ = group_structure(cfg)
+    tree = {
         "groups": {
-            s: torch.full((cfg.n_layers,) + suf, float(e0), dtype=F32, device=dev)
+            s: torch.full((g,) + suf, float(e0), dtype=F32, device=dev)
             for s, suf in group_sites(cfg).items()
         },
         "lm_head": torch.tensor(float(e0), dtype=F32, device=dev),
     }
+    tail = n_tail(cfg)
+    if tail:
+        tree["tail"] = {s: torch.full((tail,), float(e0), dtype=F32, device=dev)
+                        for s in TAIL_SITES}
+    return tree
+
+
+def _site_macs(cfg: ModelConfig, site: str, t: int) -> int:
+    """Per-example MACs of one site over ``t`` tokens (the reference's
+    name rules)."""
+    d, ff, hd, r = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.rnn_width or cfg.d_model
+    base = None
+    if "_q" in site or site.endswith("_o"):
+        base = t * d * cfg.n_heads * hd
+    if "_k" in site or "_v" in site:
+        base = t * d * cfg.n_kv_heads * hd
+    if "mlp" in site:
+        base = t * d * ff
+    if "rec_gate" in site or "rec_in" in site:
+        base = t * d * r
+    if "rec_a" in site or "rec_i" in site:
+        base = t * r * r
+    if "rec_out" in site:
+        base = t * r * d
+    assert base is not None, site
+    return base
 
 
 def energy_macs(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
     """Per-example MAC counts in ``init_energy_tree``'s structure (float32,
     on the CPU): ``seq_len`` tokens through every analog site of every
     layer, and the lm_head. ``E_tot = sum E * macs`` (``core.energy``)."""
-    d, ff, hd, t = cfg.d_model, cfg.d_ff, cfg.head_dim, seq_len
-    qo, kv, mlp_macs = t * d * cfg.n_heads * hd, t * d * cfg.n_kv_heads * hd, t * d * ff
-    per_site = {"attn0_q": qo, "attn0_k": kv, "attn0_v": kv, "attn0_o": qo,
-                "mlp0_gate": mlp_macs, "mlp0_up": mlp_macs, "mlp0_out": mlp_macs}
-    return {
-        "groups": {s: torch.full((cfg.n_layers,) + suf, float(per_site[s]), dtype=F32)
+    g, _ = group_structure(cfg)
+    t = seq_len
+    tree = {
+        "groups": {s: torch.full((g,) + suf, float(_site_macs(cfg, s, t)), dtype=F32)
                    for s, suf in group_sites(cfg).items()},
-        "lm_head": torch.tensor(float(t * d * cfg.vocab_size), dtype=F32),
+        "lm_head": torch.tensor(float(t * cfg.d_model * cfg.vocab_size), dtype=F32),
     }
+    tail = n_tail(cfg)
+    if tail:
+        tree["tail"] = {s: torch.full((tail,), float(_site_macs(cfg, s, t)), dtype=F32)
+                        for s in TAIL_SITES}
+    return tree
 
 
 # ===========================================================================
@@ -168,35 +279,43 @@ def energy_macs(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
 
 
 def group_site_subs(cfg: ModelConfig) -> Dict[str, int]:
-    """Analog site -> its sublayer within one layer group. The dense family
-    has one layer a group, so every site belongs to sublayer 0."""
-    return dict.fromkeys(group_sites(cfg), 0)
+    """Analog site -> its sublayer within one layer group: the index in the
+    site's prefix (``attn{i}_*``, ``mlp{i}_*``, ``rec{i}_*``)."""
+    return {s: int("".join(c for c in s.split("_")[0] if c.isdigit())) for s in group_sites(cfg)}
 
 
 def profile_rows(cfg: ModelConfig, profile: PrecisionProfile):
     """Validate a profile against the model and split it onto the layer
-    groups: ``(rows, tail_ks)``, ``rows[l]`` the K-tuple of group ``l``
-    (one layer each in the dense family), ``tail_ks`` empty."""
+    groups: ``(rows, tail_ks)``, ``rows[g]`` the K-tuple of group ``g``'s
+    sublayers, ``tail_ks`` the Ks of griffin's tail layers (empty
+    otherwise). ``profile.repeats[l]`` belongs to model layer ``l``."""
     if profile.n_layers != cfg.n_layers:
         raise ValueError(
             f"profile {profile.name!r} has {profile.n_layers} layers but "
             f"model {cfg.name!r} has {cfg.n_layers}"
         )
-    return [(k,) for k in profile.repeats], []
+    g, per = group_structure(cfg)
+    reps = profile.repeats
+    return [tuple(reps[i * per:(i + 1) * per]) for i in range(g)], list(reps[g * per:])
 
 
 def profile_repeat_tree(cfg: ModelConfig, profile: PrecisionProfile) -> Dict[str, Any]:
     """Per-site repeat factors in ``init_energy_tree``'s structure: each
-    site's leaf carries K_l along the layer dim; the lm_head (a digital
-    matmul) stays at 1. With ``core.energy.apply_repeats`` it gives the
-    served energy ``sum_l K_l * E_l * MACs_l``."""
-    rows, _ = profile_rows(cfg, profile)
-    ks = torch.tensor([r[0] for r in rows], dtype=F32)
-    return {
-        "groups": {s: ks.reshape((cfg.n_layers,) + (1,) * len(suf))
+    site's leaf carries its sublayer's K along the group dim; the lm_head
+    (a digital matmul) stays at 1. With ``core.energy.apply_repeats`` it
+    gives the served energy ``sum_l K_l * E_l * MACs_l``."""
+    rows, tail_ks = profile_rows(cfg, profile)
+    g, per = group_structure(cfg)
+    ks = torch.tensor(rows, dtype=F32).reshape(g, per)
+    subs = group_site_subs(cfg)
+    tree = {
+        "groups": {s: ks[:, subs[s]].reshape((g,) + (1,) * len(suf))
                    for s, suf in group_sites(cfg).items()},
         "lm_head": torch.tensor(1.0, dtype=F32),
     }
+    if tail_ks:
+        tree["tail"] = {s: torch.tensor(tail_ks, dtype=F32) for s in TAIL_SITES}
+    return tree
 
 
 def profile_token_energy(cfg: ModelConfig, energies, profile: PrecisionProfile) -> float:
@@ -207,17 +326,77 @@ def profile_token_energy(cfg: ModelConfig, energies, profile: PrecisionProfile) 
 
 
 # ===========================================================================
-# forward
+# caches
 # ===========================================================================
 
 
+def _window(cfg: ModelConfig) -> Optional[int]:
+    """The attention window of the family (None: global attention)."""
+    return cfg.local_window if cfg.family == "griffin" else cfg.sliding_window
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda", dtype=None):
-    """KV cache {"groups": {"k", "v"}}, each (L, 1, B, S, KH, hd)."""
+    """The decode state of ``batch`` rows at ``cache_len`` positions.
+
+    dense: ``{"groups": {"k", "v"}}``, each (G, 1, B, S, KH, hd) with S =
+    ``min(cache_len, sliding_window)``. griffin: per sublayer ``i`` of a
+    group ``h{i}`` (G, B, R) f32 and ``conv{i}`` (G, B, cw-1, R) for a
+    recurrent one, ``k{i}``/``v{i}`` (G, B, S, KH, hd), S =
+    ``min(cache_len, local_window)``, for attention; the tail's ``h0`` and
+    ``conv0`` under ``"tail"`` with the tail layers leading.
+    """
     dev = resolve_device(device)
-    shape = (cfg.n_layers, 1, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.compute_dtype
-    return {"groups": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    g, per = group_structure(cfg)
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    w = _window(cfg)
+    s = cache_len if w is None else min(cache_len, w)
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family == "dense":
+        shape = (g, per, batch, s, kh, hd)
+        return {"groups": {"k": zeros(shape), "v": zeros(shape)}}
+    r, cw = cfg.rnn_width, cfg.conv_width
+    groups = {}
+    for i, kind in enumerate(cfg.griffin_pattern):
+        if kind == "rec":
+            groups[f"h{i}"] = zeros((g, batch, r), F32)
+            groups[f"conv{i}"] = zeros((g, batch, cw - 1, r))
+        else:
+            groups[f"k{i}"] = zeros((g, batch, s, kh, hd))
+            groups[f"v{i}"] = zeros((g, batch, s, kh, hd))
+    cache = {"groups": groups}
+    tail = n_tail(cfg)
+    if tail:
+        cache["tail"] = {"h0": zeros((tail, batch, r), F32),
+                         "conv0": zeros((tail, batch, cw - 1, r))}
+    return cache
+
+
+def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The batch dim of every leaf of ``init_cache``'s tree (the "batch"
+    entry of the reference's ``cache_axes``)."""
+    return map_leaves(lambda _p, _l: 2 if cfg.family == "dense" else 1,
+                      init_cache(cfg, 1, 1, device="meta"))
+
+
+def scatter_cache_rows(cfg: ModelConfig, dst, src, slot_ids) -> Dict[str, Any]:
+    """Copy the rows of a freshly prefilled cache ``src`` (batch b) into
+    the decode pool's cache ``dst`` (batch ``slots``) at ``slot_ids`` (b,),
+    in place along each leaf's batch dim (``cache_batch_axes``). Both share
+    the pool's cache length. Ids >= ``slots`` are dropped, as the
+    reference's ``mode="drop"`` drops them: the engine aims prefill
+    batch-padding rows at ``slots``. Returns ``dst``."""
+    ids = np.asarray(slot_ids, np.int64).reshape(-1)
+
+    def scatter(_path, d, s, axis):
+        keep = np.flatnonzero((ids >= 0) & (ids < d.shape[axis]))
+        if keep.size:
+            rows = torch.from_numpy(keep).to(s.device)
+            d.index_copy_(axis, torch.from_numpy(ids[keep]).to(d.device),
+                          s.index_select(axis, rows).to(d.dtype))
+
+    map_leaves(scatter, dst, src, cache_batch_axes(cfg))
+    return dst
 
 
 def _cache_store(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
@@ -226,8 +405,41 @@ def _cache_store(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> 
     cache[rows, slot] = new[:, 0].to(cache.dtype)
 
 
+def _ring_fill(dst: torch.Tensor, kv: torch.Tensor, window: int, lengths) -> None:
+    """Write a prompt's keys or values (B, T, KH, hd) into a ring cache
+    ``dst`` (B, ring, KH, hd) in place: slot s holds the row's latest real
+    position p with ``p % window == s`` (a ring shorter than the window is
+    linear, slot == position). Slots whose position is negative (a row
+    shorter than the window) are zero and stay masked at decode."""
+    b, t = kv.shape[:2]
+    ring = dst.shape[1]
+    dev = kv.device
+    if lengths is not None:
+        lens = lengths.to(dev).long()[:, None]
+        slots = torch.arange(ring, device=dev)[None, :]
+        if ring == window:
+            start = lens - window
+            p_abs = start + torch.remainder(slots - start, window)  # (B, ring)
+        else:  # ring == cache_len > t: linear layout, slot == pos
+            p_abs = slots.expand(b, ring)
+        p_abs = torch.where(p_abs < lens, p_abs, torch.full_like(p_abs, -1))
+        idx = torch.clamp(p_abs, 0, t - 1)[..., None, None].expand(b, ring, *kv.shape[2:])
+        got = torch.gather(kv, 1, idx)
+        dst.copy_(torch.where((p_abs >= 0)[..., None, None], got, torch.zeros_like(got)))
+    elif t >= ring:
+        dst.copy_(torch.roll(kv[:, -ring:], t % ring, dims=1))
+    else:
+        dst.zero_()
+        dst[:, :t] = kv.to(dst.dtype)
+
+
+# ===========================================================================
+# forward
+# ===========================================================================
+
+
 def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rope, mode,
-                   cache=None, pos=None):
+                   cache, pos=None, window=None, lengths=None):
     b, t, _ = x.shape
     hd, qh, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cos, sin = rope
@@ -238,90 +450,141 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
     k = apply_rope(k, cos, sin)
     k_cache, v_cache = cache
     if mode == "decode":
-        _cache_store(k_cache, k, pos)
-        _cache_store(v_cache, v, pos)
-        out = decode_attention(q, k_cache, v_cache, pos)
+        if window is None:
+            _cache_store(k_cache, k, pos)
+            _cache_store(v_cache, v, pos)
+            out = decode_attention(q, k_cache, v_cache, pos)
+        else:
+            s_len = k_cache.shape[1]
+            slot = pos % window
+            _cache_store(k_cache, k, slot)
+            _cache_store(v_cache, v, slot)
+            base = torch.arange(s_len, device=x.device)[None, :]
+            off = (pos - slot)[:, None]
+            slot_pos = torch.where(base <= slot[:, None], off + base, off - s_len + base)
+            out = decode_attention(q, k_cache, v_cache, pos, slot_pos=slot_pos, window=window)
     else:
-        k_cache[:, :t] = k.to(k_cache.dtype)
-        v_cache[:, :t] = v.to(v_cache.dtype)
         g = qh // kh
-        out = causal_attention(q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2))
+        ke, ve = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+        if window is None:
+            out = causal_attention(q, ke, ve)
+            k_cache[:, :t] = k.to(k_cache.dtype)
+            v_cache[:, :t] = v.to(v_cache.dtype)
+        else:
+            out = local_attention(q, ke, ve, window=window)
+            _ring_fill(k_cache, k.to(k_cache.dtype), window, lengths)
+            _ring_fill(v_cache, v.to(v_cache.dtype), window, lengths)
     return hook(f"{prefix}_o", out.reshape(b, t, qh * hd), p["wo"])
 
 
-def _transformer_layer(x, lp, cfg: ModelConfig, hook, *, rope, mode, cache, pos):
-    h = rms_norm(x, lp["ln1_0"], cfg.norm_eps)
-    x = x + _attn_sublayer(h, lp["attn0"], cfg, hook, "attn0", rope=rope, mode=mode,
-                           cache=cache, pos=pos)
-    h = rms_norm(x, lp["ln2_0"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp0"], hook, prefix="mlp0")
+def _sublayer(x, cfg: ModelConfig, hook, i: int, kind: str, ln1, ln2, mix_p, mlp_p, *, rope,
+              mode, cache, pos, pad_mask, lengths):
+    """One layer: norm, temporal mix (attention or the recurrent block),
+    residual, norm, MLP, residual. ``cache``: the layer's (k, v) views, or
+    its (h, conv) state views for a recurrent layer, updated in place."""
+    h = rms_norm(x, ln1, cfg.norm_eps)
+    if kind == "rec":
+        rec_hook = PrefixHook(hook, f"rec{i}_")
+        h_state, conv_state = cache
+        if mode == "decode":
+            y, h_new, cs_new = griffin_lib.recurrent_decode(h, mix_p, rec_hook, h_state, conv_state)
+        else:
+            y, h_new, cs_new = griffin_lib.recurrent_mix(h, mix_p, rec_hook, pad_mask=pad_mask,
+                                                         lengths=lengths)
+        h_state.copy_(h_new)
+        conv_state.copy_(cs_new)
+    else:
+        y = _attn_sublayer(h, mix_p, cfg, hook, f"attn{i}", rope=rope, mode=mode, cache=cache,
+                           pos=pos, window=_window(cfg), lengths=lengths)
+    x = x + y
+    h = rms_norm(x, ln2, cfg.norm_eps)
+    return x + mlp(h, mlp_p, hook, prefix=f"mlp{i}")
+
+
+def _layer_ks(cfg: ModelConfig, analog: AnalogSpec):
+    """(rows, tail_ks): each group's per-sublayer K and the tail's."""
+    if analog.profile is not None:
+        return profile_rows(cfg, analog.profile)
+    g, per = group_structure(cfg)
+    return [(analog.n_repeats,) * per] * g, [analog.n_repeats] * n_tail(cfg)
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
-               analog: Optional[AnalogSpec]):
+               analog: Optional[AnalogSpec], lengths=None):
+    g, per = group_structure(cfg)
+    tail = n_tail(cfg)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    blocks = params["blocks"]
+    pad_mask = None
+    if mode == "prefill" and lengths is not None:
+        lengths = lengths.to(h.device).long()
+        pad_mask = torch.arange(h.shape[1], device=h.device)[None, :] >= lengths[:, None]
     sites = list(group_sites(cfg))
-    table = None
+    table = tail_table = None
+    rows, tail_ks = [(1,) * per] * g, [1] * tail
     if analog is not None:
-        table = site_seed_table(analog.key, cfg.n_layers, sites, h.device)
-        energies = analog.energies["groups"]
-        if analog.profile is None:
-            ks = [analog.n_repeats] * cfg.n_layers
-        else:
-            ks = [row[0] for row in profile_rows(cfg, analog.profile)[0]]
-    for l in range(cfg.n_layers):
-        lp = map_leaves(lambda _p, a: a[l], blocks)
-        hook = MatmulHook()
-        if analog is not None:
-            # the global layer index keys the noise: a profile's layer l
-            # draws the stream of the uniform path's layer l
-            hook = hook_for_layer(
-                analog.cfg, {s: energies[s][l] for s in sites},
-                {s: table[l, i] for i, s in enumerate(sites)}, n_repeats=ks[l],
-            )
-        layer_cache = (cache["groups"]["k"][l, 0], cache["groups"]["v"][l, 0])
-        h = _transformer_layer(h, lp, cfg, hook, rope=rope, mode=mode, cache=layer_cache, pos=pos)
+        # the global group index keys the noise: a profile's layer l draws
+        # the stream of the uniform path's layer l
+        table = site_seed_table(analog.key, g, sites, h.device)
+        tail_table = (site_seed_table(analog.key, [g * per + j for j in range(tail)], TAIL_SITES,
+                                      h.device) if tail else None)
+        rows, tail_ks = _layer_ks(cfg, analog)
+
+    def hooks(sub, idx, names, seeds, ks):
+        """One hook per layer of a group (``sub`` "groups") or a tail layer."""
+        if analog is None:
+            return [MatmulHook()] * len(ks)
+        energies = {s: analog.energies[sub][s][idx] for s in names}
+        row = {s: seeds[idx, i] for i, s in enumerate(names)}
+        return [hook_for_layer(analog.cfg, energies, row, n_repeats=k) for k in ks]
+
+    kinds = ("attn",) if cfg.family == "dense" else cfg.griffin_pattern
+    gcache = cache["groups"]
+    for gi in range(g):
+        gp = map_leaves(lambda _p, a: a[gi], params["blocks"])
+        layer_hooks = hooks("groups", gi, sites, table, rows[gi])
+        for i, kind in enumerate(kinds):
+            if cfg.family == "dense":
+                lc = (gcache["k"][gi, i], gcache["v"][gi, i])
+            elif kind == "rec":
+                lc = (gcache[f"h{i}"][gi], gcache[f"conv{i}"][gi])
+            else:
+                lc = (gcache[f"k{i}"][gi], gcache[f"v{i}"][gi])
+            mix = gp[f"rec{i}"] if kind == "rec" else gp[f"attn{i}"]
+            h = _sublayer(h, cfg, layer_hooks[i], i, kind, gp[f"ln1_{i}"], gp[f"ln2_{i}"], mix,
+                          gp[f"mlp{i}"], rope=rope, mode=mode, cache=lc, pos=pos,
+                          pad_mask=pad_mask, lengths=lengths)
+    for j in range(tail):
+        tp = map_leaves(lambda _p, a: a[j], params["tail"])
+        (hook,) = hooks("tail", j, TAIL_SITES, tail_table, (tail_ks[j],))
+        lc = (cache["tail"]["h0"][j], cache["tail"]["conv0"][j])
+        h = _sublayer(h, cfg, hook, 0, "rec", tp["ln1"], tp["ln2"], tp["rec"], tp["mlp"],
+                      rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
+                      lengths=lengths)
     return h
-
-
-def scatter_cache_rows(cfg: ModelConfig, dst, src, slot_ids) -> Dict[str, Any]:
-    """Copy the rows of a freshly prefilled cache ``src`` (batch b) into
-    the decode pool's cache ``dst`` (batch ``slots``) at ``slot_ids`` (b,),
-    in place along the batch dim (dim 2 of (L, 1, B, S, KH, hd)). Both
-    share the pool's cache length. Ids >= ``slots`` are dropped, as the
-    reference's ``mode="drop"`` drops them: the engine aims prefill
-    batch-padding rows at ``slots``. Returns ``dst``."""
-    del cfg  # one cache layout in the dense family
-    ids = np.asarray(slot_ids, np.int64).reshape(-1)
-    for name, d in dst["groups"].items():
-        s = src["groups"][name]
-        keep = np.flatnonzero((ids >= 0) & (ids < d.shape[2]))
-        if keep.size == 0:
-            continue
-        rows = torch.from_numpy(keep).to(s.device)
-        d.index_copy_(2, torch.from_numpy(ids[keep]).to(d.device), s.index_select(2, rows).to(d.dtype))
-    return dst
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"][tokens].to(cfg.compute_dtype)
 
 
-def forward_hidden(params, tokens, cfg: ModelConfig, *, cache, analog=None):
-    """Prefill trunk: (B, T) tokens -> normed hidden (B, T, d); fills the
-    first T slots of ``cache``."""
+def forward_hidden(params, tokens, cfg: ModelConfig, *, cache, analog=None, lengths=None):
+    """Prefill trunk: (B, T) tokens -> normed hidden (B, T, d); writes every
+    leaf of ``cache``."""
     h = _embed(params, tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stack(params, h, cfg, mode="prefill", cache=cache, pos=None,
-                   positions=positions, analog=analog)
+                   positions=positions, analog=analog, lengths=lengths)
     return rms_norm(h, params["final_ln"], cfg.norm_eps)
+
+
+def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(B, 1, d) -> (B, 1, 1, V): a digital matmul, vocab padding sliced off."""
     b = h_last.shape[0]
-    logits = torch.matmul(h_last, params["lm_head"].to(h_last.dtype))
+    logits = torch.matmul(h_last, _lm_head(params, cfg).to(h_last.dtype))
     return logits.reshape(b, 1, 1, cfg.padded_vocab)[..., : cfg.vocab_size]
 
 
@@ -330,13 +593,19 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, analog=None, cache_l
     """Run the prompt; returns (cache, last hidden (B, 1, d)).
 
     ``lengths`` (B,): per-row true prompt lengths of a right-padded bucket
-    batch; the last hidden is gathered at each row's final real token
-    (causal attention keeps pad positions out of real rows). Length 0 marks
-    a batch-padding row.
+    batch; the last hidden is gathered at each row's final real token, and
+    pad positions are inert in every state: causal attention keeps them
+    out of real rows, ring caches gather each row's last real tokens, and
+    the recurrence treats pad steps as the identity. Length 0 marks a
+    batch-padding row. Without ``cache_len`` the cache holds the prompt
+    (a ring cache: the whole window, as the reference sizes it).
     """
     b, t = tokens.shape
-    cache = init_cache(cfg, b, cache_len or t, device=tokens.device)
-    h = forward_hidden(params, tokens, cfg, cache=cache, analog=analog)
+    if cache_len is None:
+        w = _window(cfg)
+        cache_len = t if w is None else max(t, w)
+    cache = init_cache(cfg, b, cache_len, device=tokens.device)
+    h = forward_hidden(params, tokens, cfg, cache=cache, analog=analog, lengths=lengths)
     if lengths is None:
         return cache, h[:, -1:]
     idx = torch.clamp(lengths.to(h.device).long() - 1, 0, t - 1)
