@@ -43,11 +43,21 @@ prefill against the plain path, and each digital decode step against a
 cache-free prefill of the sequence so far); an ``edge`` profile over the
 groups and the two tail layers (``griffin_profile``); and the eight
 prompts through 4-slot pools against batch-synchronous batches
-(``griffin_continuous``). The kernel checks hold every route at
-recurrentgemma's site shapes too. Every phase that fails raises; each
-prints its seconds. The last line is ``{"ok": true,
-"device": {...}}``; without a CUDA device it exits non-zero and prints no
-result.
+(``griffin_continuous``). Then the rest of the dense family, one
+configuration's weights at a time: granite-20b (GELU with biases, MQA;
+``serve_granite20``) and qwen2.5-14b (QKV bias; ``serve_qwen14``) through
+the same serve, solo and whole-path checks, launches by route and by site
+shape asserted; granite-20b's 12,000-token prompt in a 16,384 bucket
+through chunked prefill attention, with its peak memory (``granite20_long``);
+qwen2.5-32b at the deepest depth its weights fit beside the reckoned
+transients (``qwen32_fit``: a prefill and four decode steps); bert-base's
+serve and its energy a token with the GELU sites (``serve_bert``); and
+musicgen-large (frames, 4 codebook heads) and internvl2-2b (patch) through
+``lm.prefill`` and ``lm.decode_step`` (``frontends``). The kernel checks
+hold every route at every site shape of these models too. Every phase
+that fails raises; each prints its seconds. The last line is ``{"ok":
+true, "device": {...}}``; without a CUDA device it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -117,13 +127,26 @@ POOL_SLOTS = 4
 #: seq bucket and new tokens
 EDGE_GRIFFIN = (4,) * 3 + (1,) * 20 + (4,) * 3
 LONG_PROMPT, LONG_BUCKET, LONG_GEN = 3000, 4096, 8
+#: granite-20b's long prompt: 12,000 tokens in a 16,384 bucket, 4 new tokens
+#: (global attention: one (B, H, T, T) f32 score tensor would be 51.5 GB)
+DENSE_LONG_PROMPT, DENSE_LONG_BUCKET, DENSE_LONG_GEN = 12000, 16384, 4
+#: qwen2.5-32b's fit: decode steps after the 4 x 64 prefill, and what the
+#: reckoning holds back besides the weights: init_params' f32 scratch for the
+#: largest leaf drawn whole (the 5120 x 152,064 lm_head, 3.1 GB) and 4 GB for
+#: activations, caches and the allocator
+FIT_STEPS, FIT_RESERVE_BYTES = 4, 4 * 2**30
+#: the frontends phase: rows, and text tokens (frames: frames) after the prefix
+FRONTEND_B, FRONTEND_T = 2, 64
 PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
           "serve_weight", "profile", "continuous", "serve_griffin", "griffin_long",
-          "griffin_profile", "griffin_continuous")
+          "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
+          "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
 GRIFFIN_FOLLOWERS = ("griffin_long", "griffin_profile", "griffin_continuous")
+#: phases that ``serve_granite20`` runs after its own (granite-20b's weights)
+GRANITE20_FOLLOWERS = ("granite20_long",)
 SOURCE = {
     "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
     "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
@@ -135,7 +158,9 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: counts: the serves for decode, tc and weight; simt serves no path since
 #: the weight route, so its count is 0 there. ``check_launches`` counts each
 #: route's launches in the phases that hold it against the plain version.
-MAIN_PATHS = {"decode": ("serve", "serve_griffin"), "tc": ("serve", "serve_griffin"), "simt": (),
+DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
+MAIN_PATHS = {"decode": ("serve", "serve_griffin") + DENSE_PATHS,
+              "tc": ("serve", "serve_griffin") + DENSE_PATHS, "simt": (),
               "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "site_time")
 
@@ -451,6 +476,20 @@ def _cases():
                       4, None))
     cases.append(("griffin shot K=1 long prefill k/v", (1, LONG_BUCKET, 2560, 256), shot, 20.0,
                   False, 1, None))
+    # the rest of the dense family's site shapes (DENSE_SITES), decode and a
+    # 64-row prefill, K = 1 and 4; granite-20b's MQA k/v (N = 128, one tc
+    # column tile) under requant too, and at its long prompt's 16,384 rows
+    for model, sites in DENSE_SITES.items():
+        for stage, m in (("decode", 1), ("prefill", 64)):
+            for site, k, n in sites:
+                for reps in (1, 4):
+                    cases.append((f"{model} shot K={reps} {stage} {site}", (4, m, k, n), shot,
+                                  20.0, False, reps, None))
+    for stage, m in (("decode", 1), ("prefill", 64)):
+        cases.append((f"granite-20b requant K=4 {stage} k/v", (4, m, 6144, 128), requant, 4.0,
+                      True, 4, None))
+    cases.append(("granite-20b shot K=1 long prefill k/v", (1, DENSE_LONG_BUCKET, 6144, 128),
+                  shot, 20.0, False, 1, None))
     per_request = [
         ("weight K=4 decode gate/up, cs per request", (2, 1, *gate), weight, 5.0, False, 4, None),
         ("weight K=1 prefill k/v, cs per request", (2, 32, *kv), weight, 5.0, False, 1, None),
@@ -534,6 +573,10 @@ def phase_routes() -> None:
         ("weight", (3, 32, 12800, 4096), weight, 5.0, False, 1, True),
         ("decode", (4, 1, 2560, 256), shot, 20.0, False, 4, False),
         ("tc", (4, 64, 2560, 256), shot, 20.0, False, 1, False),
+        ("decode", (4, 1, 6144, 128), shot, 20.0, False, 4, False),
+        ("tc", (4, 64, 6144, 128), shot, 20.0, False, 1, False),
+        ("decode", (4, 1, 768, 3072), shot, 20.0, False, 1, False),
+        ("tc", (4, 64, 3072, 768), shot, 20.0, False, 4, False),
     ]
     for route, (b, m, k, n), cfg, energy, quant, reps, cs_req in cases:
         o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77, cs_per_request=cs_req)
@@ -562,12 +605,27 @@ SITES = [("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 12800), ("d
 #: block's gate, in, a, i and out
 GRIFFIN_SITES = [("2560x2560", 2560, 2560), ("k/v", 2560, 256), ("gate/up", 2560, 7680),
                  ("down", 7680, 2560)]
+#: the site shapes of the rest of the dense family: granite-20b (GELU in/out,
+#: MQA k/v of one 128-wide head), qwen2.5-14b (GQA 40/8), qwen2.5-32b's MLP,
+#: bert-base, musicgen-large (q/k/v/o, in, out) and internvl2-2b's k/v (its
+#: other shapes are musicgen's)
+DENSE_SITES = {
+    "granite-20b": [("q/o", 6144, 6144), ("k/v", 6144, 128), ("in", 6144, 24576),
+                    ("out", 24576, 6144)],
+    "qwen2.5-14b": [("q/o", 5120, 5120), ("k/v", 5120, 1024), ("gate/up", 5120, 13824),
+                    ("down", 13824, 5120)],
+    "qwen2.5-32b": [("gate/up", 5120, 27648), ("down", 27648, 5120)],
+    "bert-base": [("q/k/v/o", 768, 768), ("in", 768, 3072), ("out", 3072, 768)],
+    "musicgen-large": [("q/k/v/o", 2048, 2048), ("in", 2048, 8192), ("out", 8192, 2048)],
+    "internvl2-2b": [("k/v", 2048, 1024)],
+}
 
 
 def phase_site_time(draw_ps=None) -> list:
     """The chosen route and the simt route, in turns, at every analog site
-    shape of granite-3-8b and of recurrentgemma-2b: 4 requests, shot noise,
-    K = 1, beside the bound,
+    shape of granite-3-8b, recurrentgemma-2b and the rest of the dense
+    family (``DENSE_SITES``): 4 requests, shot noise, K = 1, beside the
+    bound,
     the plain version, the bare product and the route without its noise
     (what the output noise costs inside the kernel); then the weight route
     at the weight-noise serve's shapes (2 requests, M = 1 and 32), K = 1
@@ -591,7 +649,8 @@ def phase_site_time(draw_ps=None) -> list:
              cuda_ms(run("simt"), 10, flush), cuda_ms(run(route), 10, flush)]
         return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
-    for model, sites in (("granite-3-8b", SITES), ("recurrentgemma-2b", GRIFFIN_SITES)):
+    for model, sites in (("granite-3-8b", SITES), ("recurrentgemma-2b", GRIFFIN_SITES),
+                         *DENSE_SITES.items()):
         for stage, m in (("prefill", 64), ("decode", 1)):
             for site, k, n in sites:
                 o, _ = _site_operands(4, m, k, n, shot, 20.0)
@@ -751,10 +810,39 @@ def layer_sites(cfg) -> list:
     return [subs.count(i) for i in range(per)] * g + [len(lm.TAIL_SITES)] * lm.n_tail(cfg)
 
 
+#: an analog site's suffix -> its weight leaf
+_LEAF_OF = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "w_gate", "up": "w_up",
+            "in": "w_in", "out": "w_down", "rec_gate": "w_gate", "rec_in": "w_x", "rec_a": "w_a",
+            "rec_i": "w_i", "rec_out": "w_out"}
+
+
+def forward_shapes(cfg) -> dict:
+    """(K, N) of every analog site of one forward -> its count, from the
+    weight leaves the sites read."""
+    from repro_torch.models import lm
+
+    leaves = lm.param_leaves(cfg)
+    count = {}
+
+    def add(leaf, times):
+        kn = tuple(leaf.shape[-2:])
+        count[kn] = count.get(kn, 0) + times
+
+    for site in lm.group_sites(cfg):
+        sub, kind = site.split("_", 1)
+        add(leaves["blocks"][sub][_LEAF_OF[kind]], lm.group_structure(cfg)[0])
+    for site in lm.TAIL_SITES if lm.n_tail(cfg) else ():
+        sub, kind = site.split("_", 1)
+        add(leaves["tail"]["rec" if sub.startswith("rec") else "mlp"][_LEAF_OF[kind]],
+            lm.n_tail(cfg))
+    return count
+
+
 def phase_serve(make_engine, prompts, tiers, CONFIG=None):
     """Eight requests through ``ServingEngine`` (granite-3-8b unless
     ``CONFIG`` says otherwise): every decode-step site launches the decode
-    route, every prefill site the tc route."""
+    route, every prefill site the tc route, each site shape as often as
+    the forwards run it."""
     import torch
 
     from repro_torch.kernels import analog_matmul as am
@@ -784,6 +872,12 @@ def phase_serve(make_engine, prompts, tiers, CONFIG=None):
     if launches != expected:
         raise AssertionError(f"launches by route {launches} != {expected} "
                              f"({sites} sites x decode steps / prefill batches)")
+    want_shape = {}
+    for (k, n), c in forward_shapes(CONFIG).items():
+        want_shape[f"decode:{k}x{n}"] = c * st["decode_steps"]
+        want_shape[f"tc:{k}x{n}"] = c * st["batches"]
+    if by_shape != {k: v for k, v in sorted(want_shape.items()) if v}:
+        raise AssertionError(f"launches by shape {by_shape} != {want_shape}")
     prompt_tokens = sum(len(p) for p in prompts)
     log("serve", config=CONFIG.name, layers=CONFIG.n_layers, requests=len(results),
         batches=st["batches"], decode_steps=st["decode_steps"], launches=launches,
@@ -1350,13 +1444,334 @@ def phase_griffin_long(make_engine, CONFIG):
         raise AssertionError(f"long decode vs cache-free prefill: {errs} > {tol}")
 
 
+def _free():
+    """Drop what the last configuration left on the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_dense_long(make_engine, CONFIG):
+    """One request with a 12,000-token prompt in a 16,384 seq bucket, K=1,
+    4 new tokens, on global attention: prefill in (1,024 x 1,024) blocks
+    with grouped KV. Prints the peak memory (``max_memory_allocated``) and
+    the weights' share of it, and the prefill's wall time; holds the
+    kernel-path prefill logits against the plain path's (with faulty
+    controls) and each digital decode step against a cache-free prefill of
+    the sequence so far (padded to the bucket), beside a control that
+    decodes from another prompt's cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import batch_keys
+
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(2)
+    prompt, other = (rng.integers(0, CONFIG.vocab_size, DENSE_LONG_PROMPT).astype(np.int32)
+                     for _ in range(2))
+    kw = dict(max_gen=DENSE_LONG_GEN, batch_buckets=(1,), seq_buckets=(DENSE_LONG_BUCKET,))
+    engine = make_engine("auto", **kw)
+    uid = engine.submit(prompt, n_repeats=1, max_new_tokens=DENSE_LONG_GEN)
+    results, flush_s, launches = _drain(engine)
+    serve_peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    sites = forward_sites(CONFIG)
+    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                "weight": 0}
+    if launches != expected or len(results[uid]) != DENSE_LONG_GEN:
+        raise AssertionError(f"long prompt: launches {launches} != {expected}, tokens {results}")
+
+    def padded(seq):
+        tok = np.zeros((1, DENSE_LONG_BUCKET), np.int64)
+        tok[0, :len(seq)] = seq
+        return torch.from_numpy(tok).cuda()
+
+    table = batch_keys([fold_in(PRNGKey(0), uid)], 1)
+    cache_len = DENSE_LONG_BUCKET + DENSE_LONG_GEN
+
+    def prefill(eng, tbl, seq=prompt):
+        lengths = torch.tensor([len(seq)], device="cuda")
+        return eng.tiers.get(eng.tiers.base_id).prefill(padded(seq), lengths, tbl, cache_len)
+
+    (_, lk), kernel_ms = _wall_ms(lambda: prefill(engine, table))
+    before = dict(am.LAUNCHES)
+    (_, lt), plain_ms = _wall_ms(lambda: prefill(make_engine("tile", **kw), table))
+    if am.LAUNCHES != before:
+        raise AssertionError("the tile backend launched a CUDA kernel")
+    rel = _rel(lk, lt, 1)
+    controls = {"other_seeds": _rel(prefill(engine, batch_keys([fold_in(PRNGKey(1), 0)], 1))[1],
+                                    lt, 1),
+                "no_noise": _rel(prefill(make_engine(None, **kw), table)[1], lt, 1)}
+    tol = _logit_tol(CONFIG)
+    if not (rel <= tol and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"long prefill logits kernel vs plain: {rel} > {tol}")
+
+    digital = make_engine(None, **kw)
+    cache, logits = prefill(digital, table)
+    ocache, _ = prefill(digital, table, other)
+    tier = digital.tiers.get(digital.tiers.base_id)
+    seq, tok = list(prompt), torch.argmax(logits, dim=-1)
+    errs, ctrl = [], []
+    for step in range(DENSE_LONG_GEN - 1):
+        pos = np.asarray([DENSE_LONG_PROMPT + step])
+        seq.append(int(tok[0]))
+        lg, cache = tier.decode(cache, tok, pos, table)
+        lo, ocache = tier.decode(ocache, tok, pos, table)
+        want = prefill(digital, table, seq)[1]
+        errs.append(_rel(lg, want, 1))
+        ctrl.append(_rel(lo, want, 1))
+        tok = torch.argmax(lg, dim=-1)
+    peak = torch.cuda.max_memory_allocated()
+    log("granite20_long", config=CONFIG.name, prompt_len=DENSE_LONG_PROMPT,
+        bucket=DENSE_LONG_BUCKET, new_tokens=DENSE_LONG_GEN, tokens=results[uid].tolist(),
+        attn_chunks=[CONFIG.attn_q_chunk, CONFIG.attn_kv_chunk], launches=launches,
+        expected_launches=expected, flush_ms=flush_s * 1e3, prefill_ms=kernel_ms,
+        plain_prefill_ms=plain_ms, weights_gib=weights / 2**30,
+        serve_peak_gib=serve_peak / 2**30, weights_share_of_serve_peak=weights / serve_peak,
+        peak_gib=peak / 2**30, weights_share_of_peak=weights / peak,
+        one_score_tensor_gib=CONFIG.n_heads * DENSE_LONG_BUCKET**2 * 4 / 2**30,
+        logit_rel_err=rel, logit_rel_tol=tol, controls=controls,
+        tol_below_controls=tol < min(controls.values()), decode_vs_prefill_rel_err=errs,
+        control_other_cache=ctrl, decode_tol_below_control=tol < min(ctrl), card=card())
+    if not (max(errs) <= tol and bool(torch.isfinite(lg).all())):
+        raise AssertionError(f"long decode vs cache-free prefill: {errs} > {tol}")
+
+
+def fit_depth(CONFIG) -> int:
+    """The deepest depth of ``CONFIG`` (at most its own) whose bf16 weights
+    fit the card's free memory beside ``init_params``' largest f32 scratch
+    (one leaf drawn whole, or one layer of a stacked one) and
+    ``FIT_RESERVE_BYTES``; reckoned from the parameter count, before any
+    weight is made."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import reduced_depth
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    free, _ = torch.cuda.mem_get_info()
+    one, two = (reduced_depth(CONFIG, n_layers=n, name=CONFIG.name) for n in (1, 2))
+    per_layer = (two.param_count() - one.param_count()) * 2
+    fixed = one.param_count() * 2 - per_layer
+    parts = lm.map_leaves(lambda path, leaf: math.prod(
+        leaf.shape[1:] if path[0] in ("blocks", "tail") else leaf.shape), lm.param_leaves(one))
+    scratch = max(leaves(parts)) * 4
+    return int(max(1, min(CONFIG.n_layers,
+                          (free - fixed - scratch - FIT_RESERVE_BYTES) // per_layer)))
+
+
+def phase_qwen32_fit():
+    """qwen2.5-32b (61.0 GiB in bf16) on one card: at full depth if the
+    reckoning (``fit_depth``) says it fits, else at the deepest
+    ``reduced_depth`` that does, printed. One prefill of a 4 x 64 bucket
+    (the first four prompts of the serve's traffic) at K=1 through the
+    kernels, then ``FIT_STEPS`` decode steps; launches by route, finite
+    logits, tokens in the vocabulary; the peak memory and the weights'
+    share of it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_depth
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving.bucketing import pad_to_bucket
+    from repro_torch.serving.engine import batch_keys
+
+    full = get_config("qwen2.5-32b")
+    depth = fit_depth(full)
+    free_before = torch.cuda.mem_get_info()[0]
+    cfg = full if depth >= full.n_layers else reduced_depth(full, n_layers=depth)
+    make_engine = phase_weights(cfg)
+    weights = torch.cuda.memory_allocated()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine("auto")
+    prompts, _ = _traffic(cfg)
+    tok_np, lengths_np = pad_to_bucket(prompts[:4], (4, 64))
+    table = batch_keys([fold_in(PRNGKey(0), i) for i in range(4)], 4)
+    tier = engine.tiers.get(1)
+    torch.cuda.synchronize()
+    _zero_launches()
+    tok, lengths = torch.from_numpy(tok_np).cuda(), torch.from_numpy(lengths_np).cuda()
+    (cache, logits), prefill_ms = _wall_ms(
+        lambda: tier.prefill(tok, lengths, table, 64 + FIT_STEPS))
+    tokens, step_ms = [torch.argmax(logits, dim=-1)], []
+    for step in range(FIT_STEPS):
+        (logits, cache), ms = _wall_ms(
+            lambda: tier.decode(cache, tokens[-1], lengths_np + step, table))
+        step_ms.append(ms)
+        tokens.append(torch.argmax(logits, dim=-1))
+    launches = dict(am.LAUNCHES)
+    sites = forward_sites(cfg)
+    expected = {"decode": sites * FIT_STEPS, "tc": sites, "simt": 0, "weight": 0}
+    toks = torch.stack(tokens, dim=1).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    log("qwen32_fit", config=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+        fits_at_full_depth=cfg is full, params=cfg.param_count(), weights_gib=weights / 2**30,
+        free_gib_before=free_before / 2**30, init_peak_gib=init_peak / 2**30,
+        peak_gib=peak / 2**30, weights_share_of_peak=weights / peak, bucket=[4, 64],
+        prompt_lens=[len(p) for p in prompts[:4]], prefill_ms=prefill_ms, decode_ms=step_ms,
+        launches=launches, expected_launches=expected, tokens=toks.tolist(), card=card())
+    if (launches != expected or not bool(torch.isfinite(logits).all())
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"qwen2.5-32b: launches {launches} != {expected} or bad tokens {toks}")
+    return launches
+
+
+def phase_bert_energy(engine):
+    """bert-base's modelled energy a token at K=1 and K=4 with its GELU
+    sites (``mlp{i}_in``, ``mlp{i}_out``) counted: each tier's
+    ``tier_energy_per_token`` equal to ``profile_token_energy`` of its
+    schedule, K=4's above K=1's, and the MLP's share of the analog MACs."""
+    from repro_torch.core.profile import PrecisionProfile
+    from repro_torch.models import lm
+
+    cfg = engine.model_cfg
+    sites = list(lm.group_sites(cfg))
+    if [s for s in sites if s.startswith("mlp")] != ["mlp0_in", "mlp0_out"]:
+        raise AssertionError(f"bert-base sites {sites}")
+    energy = {k: engine.tier_energy_per_token(k) for k in (1, 4)}
+    direct = {k: lm.profile_token_energy(cfg, engine.energies, PrecisionProfile.uniform(
+        k, cfg.n_layers)) for k in (1, 4)}
+    macs = lm.energy_macs(cfg, 1)["groups"]
+    mlp_share = float(sum(macs[s].sum() for s in sites if s.startswith("mlp"))
+                      / sum(macs[s].sum() for s in sites))
+    log("bert_energy", config=cfg.name, sites=sites, energy_aj_per_token=energy,
+        profile_token_energy=direct, mlp_share_of_analog_macs=mlp_share,
+        lm_head_aj=float(lm.energy_macs(cfg, 1)["lm_head"] * engine.energies["lm_head"].cpu()),
+        card=card())
+    if energy != direct or not energy[1] < energy[4]:
+        raise AssertionError(f"bert-base tier energies {energy} (profile_token_energy {direct})")
+
+
+def _frontend_inputs(cfg, t, seed):
+    """Seeded inputs on the card: ``t`` frame embeddings (frames), or the
+    patch prefix and ``t`` text tokens (patch); embeddings at the token
+    table's scale (0.02)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    emb = lambda n: (torch.randn((FRONTEND_B, n, cfg.d_model), generator=gen, device="cuda")  # noqa: E731
+                     * 0.02).to(cfg.compute_dtype)
+    if cfg.frontend == "frames":
+        return {"embeds": emb(t)}
+    toks = torch.randint(0, cfg.vocab_size, (FRONTEND_B, t), generator=gen, device="cuda")
+    return {"tokens": toks, "patch_embeds": emb(cfg.n_frontend_tokens)}
+
+
+def phase_frontends():
+    """musicgen-large (frames, 4 codebook heads) and internvl2-2b (patch,
+    256 prefix tokens) at full size through ``lm.prefill`` and
+    ``lm.decode_step`` (the engine serves token prompts only). For each:
+    shot-noise prefill logits of shape (B, 1, n_codebooks, V) on the
+    kernels (every site on tc) against the plain path, beside faulty
+    controls; one analog decode step on the kernels (every site on
+    decode) against the plain path; and, digitally, a decode step against
+    the full forward of the inputs plus that step (``tests/test_decode.py``),
+    beside a decode from another input's cache."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.analog import AnalogConfig, fold_key
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+
+    total = {r: 0 for r in am.ROUTES}
+    for name in ("musicgen-large", "internvl2-2b"):
+        _free()
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        energies = lm.init_energy_tree(cfg, 20.0, device="cuda")
+        weights = torch.cuda.memory_allocated()
+        pre = _frontend_inputs(cfg, FRONTEND_T, seed=1)
+        other = _frontend_inputs(cfg, FRONTEND_T, seed=2)
+        step_in = ({"embeds": _frontend_inputs(cfg, 1, seed=3)["embeds"]}
+                   if cfg.frontend == "frames"
+                   else {"tokens": _frontend_inputs(cfg, 1, seed=3)["tokens"]})
+        full = {k: torch.cat([pre[k], step_in[k]], dim=1) if k in step_in else v
+                for k, v in pre.items()}
+        t = FRONTEND_T + (cfg.n_frontend_tokens if cfg.frontend == "patch" else 0)
+        keys = np.stack([fold_in(PRNGKey(0), i) for i in range(FRONTEND_B)])
+        spec = lambda backend, k=keys: lm.AnalogSpec(  # noqa: E731
+            cfg=AnalogConfig.shot(backend=backend), energies=energies, key=k)
+        pos = torch.full((FRONTEND_B,), t, device="cuda")
+        step_keys = fold_key(keys, np.full(FRONTEND_B, t))
+
+        def analog(backend, inputs=pre, k=keys):
+            cache, h = lm.prefill(params, inputs, cfg, analog=spec(backend, k), cache_len=t + 1)
+            logits = lm.logits_last(params, h, cfg)
+            step = dataclasses.replace(spec(backend, k), key=fold_key(k, np.full(FRONTEND_B, t)))
+            dlogits, _ = lm.decode_step(params, cache, step_in, pos, cfg, analog=step)
+            return logits, dlogits
+
+        torch.cuda.synchronize()
+        _zero_launches()
+        (lk, dk), kernel_ms = _wall_ms(lambda: analog("auto"))
+        launches = dict(am.LAUNCHES)
+        for r in am.ROUTES:
+            total[r] += launches[r]
+        sites = forward_sites(cfg)
+        expected = {"decode": sites, "tc": sites, "simt": 0, "weight": 0}
+        lt, dt = analog("tile")
+        shape = (FRONTEND_B, 1, cfg.n_codebooks, cfg.vocab_size)
+        flat = lambda a: a.reshape(FRONTEND_B, -1).float()  # noqa: E731
+        rel, drel = _rel(flat(lk), flat(lt), FRONTEND_B), _rel(flat(dk), flat(dt), FRONTEND_B)
+        other_keys = np.stack([fold_in(PRNGKey(1), i) for i in range(FRONTEND_B)])
+        controls = {"other_seeds": _rel(flat(analog("auto", k=other_keys)[0]), flat(lt),
+                                        FRONTEND_B),
+                    "other_inputs": _rel(flat(analog("auto", inputs=other)[0]), flat(lt),
+                                         FRONTEND_B)}
+
+        cache, _ = lm.prefill(params, pre, cfg, cache_len=t + 1)
+        ocache, _ = lm.prefill(params, other, cfg, cache_len=t + 1)
+        dec, _ = lm.decode_step(params, cache, step_in, pos, cfg)
+        odec, _ = lm.decode_step(params, ocache, step_in, pos, cfg)
+        _, h_full = lm.prefill(params, full, cfg)
+        want = lm.logits_last(params, h_full, cfg)
+        dec_rel = _rel(flat(dec), flat(want), FRONTEND_B)
+        dec_ctrl = _rel(flat(odec), flat(want), FRONTEND_B)
+        tol = _logit_tol(cfg)
+        log("frontends", config=name, frontend=cfg.frontend, n_codebooks=cfg.n_codebooks,
+            layers=cfg.n_layers, weights_gib=weights / 2**30, positions=t,
+            logits_shape=list(lk.shape), launches=launches, expected_launches=expected,
+            kernel_prefill_and_step_ms=kernel_ms, logit_rel_err=rel, step_logit_rel_err=drel,
+            logit_rel_tol=tol, controls=controls, tol_below_controls=tol < min(controls.values()),
+            decode_vs_full_rel_err=dec_rel, decode_control_other_cache=dec_ctrl,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            seconds=round(time.perf_counter() - t0, 3), card=card())
+        if (tuple(lk.shape) != shape or tuple(dk.shape) != shape or launches != expected
+                or not (rel <= tol and drel <= tol and dec_rel <= tol)
+                or not bool(torch.isfinite(lk).all() and torch.isfinite(dk).all())):
+            raise AssertionError(f"{name}: shape {tuple(lk.shape)} != {shape}, launches "
+                                 f"{launches} != {expected}, rel {rel} / {drel} / {dec_rel} > {tol}")
+        params = energies = cache = ocache = None
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} "
                          "(serve includes the step, whole-path, serve_weight, profile and "
                          "continuous phases; serve_griffin its step, solo, whole-path and the "
-                         "griffin_* phases); default all")
+                         "griffin_* phases; serve_granite20, serve_qwen14 and serve_bert their "
+                         "step, solo and whole-path phases, serve_granite20 granite20_long too); "
+                         "default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -1374,6 +1789,7 @@ def main() -> int:
         cuda=torch.version.cuda, card=card(), phases=only)
     run = set(only) | (set(SERVE_FOLLOWERS) if "serve" in only else set())
     run |= set(GRIFFIN_FOLLOWERS) if "serve_griffin" in only else set()
+    run |= set(GRANITE20_FOLLOWERS) if "serve_granite20" in only else set()
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -1445,6 +1861,40 @@ def main() -> int:
         by_path["griffin_continuous"] = timed(
             "griffin_continuous", phase_continuous, make_griffin, gprompts, GRIFFIN,
             ({"n_repeats": 1},))
+    make_engine = make_griffin = engine = results = fb = None  # the earlier weights go
+
+    def serve_dense(arch, phase, tag):
+        """Weights of ``arch`` (after the last model's are freed), then its
+        serve, steps, solo and whole-path phases; returns make_engine."""
+        from repro_torch.configs import get_config
+
+        _free()
+        cfg = get_config(arch)
+        make = timed(f"{tag}_weights", phase_weights, cfg)
+        if phase in run:
+            p, t = _traffic(cfg)
+            eng, res, by_path[phase] = timed(phase, phase_serve, make, p, t, cfg)
+            fb_ = timed(f"{tag}_step", phase_steps, eng, p, t)
+            timed(f"{tag}_solo", phase_solo, eng, res, p, t)
+            timed(f"{tag}_whole_path", phase_whole_path, make, eng, res, p, t, fb_)
+            if arch == "bert-base":
+                timed("bert_energy", phase_bert_energy, eng)
+        return make, cfg
+
+    if run & {"serve_granite20", *GRANITE20_FOLLOWERS}:
+        make, cfg = serve_dense("granite-20b", "serve_granite20", "granite20")
+        if "granite20_long" in run:
+            timed("granite20_long", phase_dense_long, make, cfg)
+        make = None
+    if "serve_qwen14" in run:
+        serve_dense("qwen2.5-14b", "serve_qwen14", "qwen14")
+    if "qwen32_fit" in run:
+        _free()
+        by_path["qwen32_fit"] = timed("qwen32_fit", phase_qwen32_fit)
+    if "serve_bert" in run:
+        serve_dense("bert-base", "serve_bert", "bert")
+    if "frontends" in run:
+        by_path["frontends"] = timed("frontends", phase_frontends)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))

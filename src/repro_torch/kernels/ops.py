@@ -20,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.analog_matmul import analog_matmul_raw
 from repro_torch.kernels.ref import analog_matmul_ref_raw
 from repro_torch.quant.affine import ste_snap_levels
+from repro_torch.reduce import row_norm
 
 F32 = torch.float32
 
@@ -63,7 +64,7 @@ def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq
         w_col = torch.linalg.vector_norm(w.to(F32), dim=0).reshape(1, 1, -1)
         photons = e_col / cfg.noise.photon_energy_aj
         col = w_col / torch.sqrt(photons * float(k))  # float32(k) * photons, as the reference
-        row = torch.linalg.vector_norm(x3.to(F32), dim=-1, keepdim=True)
+        row = row_norm(x3, keepdim=True)  # the same bits alone as in a batch
         noise_kind = "output"
     elif kind == noise_lib.WEIGHT:
         w_rng, _ = _ranges(sq, w, x3)

@@ -108,6 +108,12 @@ def repeat_key(k1, r: int):
     return k1 ^ ((r * REPEAT_STREAM_MULT) & MASK)
 
 
+#: counters a plain tile draws at once: a larger tile is drawn in blocks of
+#: rows, which bounds the int64 temporaries (16 M words of 8 bytes each);
+#: every value depends on its own counter alone, so the blocks change none
+TILE_ELEMS = 1 << 24
+
+
 def repeat_averaged_gaussian_tile(
     k0, k1, row0, col0, shape, n_repeats: int, device=None
 ) -> torch.Tensor:
@@ -116,6 +122,15 @@ def repeat_averaged_gaussian_tile(
     The order (r = 0..K-1) and the final ``float32(1/K)`` scale are part of
     the contract shared with the CUDA kernel and the reference.
     """
+    m, n = shape
+    lead = max([v.numel() for v in (k0, k1, row0, col0) if torch.is_tensor(v)] + [1])
+    rows = max(1, TILE_ELEMS // max(1, n * lead))
+    if m > rows:
+        return torch.cat([
+            repeat_averaged_gaussian_tile(k0, k1, row0 + lo, col0, (min(rows, m - lo), n),
+                                          n_repeats, device)
+            for lo in range(0, m, rows)
+        ], dim=-2)
     xi = gaussian_tile(k0, k1, row0, col0, shape, device)
     for r in range(1, n_repeats):
         xi = xi + gaussian_tile(k0, repeat_key(k1, r), row0, col0, shape, device)

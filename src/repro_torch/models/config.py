@@ -10,6 +10,7 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 #: families the port serves; moe and xlstm are not ported yet
 FAMILIES = ("dense", "griffin")
+FRONTENDS = ("none", "patch", "frames")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +24,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
-    mlp_type: str = "swiglu"
+    mlp_type: str = "swiglu"  # "swiglu" | "gelu" (dense only)
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -36,6 +38,19 @@ class ModelConfig:
     #: layers per group: (recurrent, recurrent, attention)
     griffin_pattern: Tuple[str, ...] = ("rec", "rec", "attn")
 
+    # --- frontends (dense only) ---------------------------------------------
+    frontend: str = "none"  # "none" | "patch" (image prefix) | "frames" (audio)
+    n_frontend_tokens: int = 256  # prefix length for "patch"
+    n_codebooks: int = 1  # output heads (musicgen: 4)
+
+    # --- attention ------------------------------------------------------------
+    #: prefill attention's block sizes (the largest divisors of T and S not
+    #: above them are taken)
+    attn_q_chunk: int = 1024
+    attn_kv_chunk: int = 1024
+    #: the reference's triangular block scan; the port always skips the
+    #: blocks the masks empty, which leaves the numbers unchanged
+    causal_skip: bool = False
     #: window of the dense family's attention (a ring cache of this many
     #: slots); None is global causal attention
     sliding_window: Optional[int] = None
@@ -45,11 +60,18 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.family == "griffin" and self.rnn_width is None:
             object.__setattr__(self, "rnn_width", self.d_model)
-        if self.family not in FAMILIES or self.mlp_type != "swiglu":
+        mlps = ("swiglu", "gelu") if self.family == "dense" else ("swiglu",)
+        if self.family not in FAMILIES or self.mlp_type not in mlps:
             raise ValueError(
-                f"{self.name}: only the dense and griffin families with a SwiGLU MLP "
-                f"are ported (got family={self.family!r}, mlp_type={self.mlp_type!r})"
+                f"{self.name}: only the dense family (SwiGLU or GELU MLP) and griffin "
+                f"(SwiGLU) are ported (got family={self.family!r}, mlp_type={self.mlp_type!r})"
             )
+        if self.frontend not in FRONTENDS:
+            raise ValueError(f"{self.name}: bad frontend {self.frontend!r}")
+        if self.family != "dense" and (self.qkv_bias or self.frontend != "none"
+                                       or self.n_codebooks != 1):
+            raise ValueError(f"{self.name}: QKV bias, frontends and codebook heads are ported "
+                             "for the dense family only")
         if self.family == "griffin" and set(self.griffin_pattern) - {"rec", "attn"}:
             raise ValueError(f"{self.name}: bad griffin_pattern {self.griffin_pattern!r}")
 
@@ -70,11 +92,14 @@ class ModelConfig:
         qh, kh = self.n_heads, self.n_kv_heads
         n = self.vocab_size * d  # embed
         if not self.tie_embeddings:
-            n += d * self.vocab_size  # lm head
+            n += d * self.vocab_size * self.n_codebooks  # lm head(s)
         attn = d * qh * hd + 2 * d * kh * hd + qh * hd * d
-        mlp = 3 * d * ff
         if self.family == "dense":
-            return int(n + self.n_layers * (attn + mlp + 2 * d))
+            if self.qkv_bias:
+                attn += (qh + 2 * kh) * hd
+            mlp_mats = 3 if self.mlp_type == "swiglu" else 2
+            return int(n + self.n_layers * (attn + mlp_mats * d * ff + 2 * d))
+        mlp = 3 * d * ff
         rw = self.rnn_width
         # branch projections + RG-LRU gate matrices + conv + out proj
         rec = 2 * d * rw + 2 * rw * rw + rw * d + 3 * rw + self.conv_width * rw + rw

@@ -1,10 +1,13 @@
-"""Model layers: RMS norm, RoPE, attention and the SwiGLU MLP.
+"""Model layers: RMS norm, RoPE, attention and the SwiGLU and GELU MLPs.
 
 Port of the dense and windowed functions of ``repro/models/layers.py``.
 Attention is plain tensor code in float32, computed the way the reference
-computes it (one online-softmax block for prefill, the (previous,
-current) chunk pairs of local attention, a masked softmax for decode), so
+computes it (an online softmax over (q-chunk x kv-chunk) blocks for
+prefill, the (previous, current) chunk pairs of local attention, a masked
+softmax for decode), with the KV heads grouped rather than expanded, so
 the numbers follow the reference rather than a fused library kernel.
+Attention runs one request at a time and norms sum in fixed stages
+(``repro_torch.reduce``), so a request's bits do not depend on its batch.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.hooks import MatmulHook
+from repro_torch.reduce import row_norm, row_sum
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -20,7 +24,8 @@ NEG_INF = -1e30
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.to(F32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    nrm = row_norm(x32, keepdim=True)
+    var = nrm * nrm / x.shape[-1]
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
 
@@ -47,54 +52,129 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """Causal prefill attention; q/k/v: (B, T, H, D) (KV already expanded
-    to the query heads). The reference's online softmax over a single
-    (T x T) block: scores in f32, max-shifted exp, normalised after P @ V.
-    ``window``: a query sees only the ``window`` latest positions, itself
-    included (the reference's ``chunked_attention(window=...)``)."""
+def _per_request(fn, q, k, v, **kw) -> torch.Tensor:
+    """``fn`` on each request (leading row) alone, concatenated. A batched
+    GEMM or a long reduction may split its sums another way for another
+    batch size, so a request's attention runs alone, in a batch too: its
+    bits do not depend on its batch."""
+    return torch.cat([fn(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw) for i in range(q.shape[0])])
+
+
+def _divisor_chunk(n: int, chunk: int) -> int:
+    """The largest divisor of ``n`` not above ``chunk`` (the reference's rule)."""
+    c = min(chunk, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _chunk(n: int, chunk: int) -> int:
+    """Rows of a block: the reference's rule, unless it leaves blocks under
+    an eighth of the chunk (a length with no useful divisor, such as a
+    prime); then the chunk itself, the last block short. The reference's
+    scan runs one-row blocks at no cost a block, a Python loop cannot; the
+    online softmax gives the same result either way, summed in another
+    order."""
+    c = _divisor_chunk(n, chunk)
+    return c if c >= min(chunk, n) // 8 else min(chunk, n)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_chunk: int,
+                      kv_chunk: int, window: Optional[int] = None) -> torch.Tensor:
+    """Causal prefill attention in (q-chunk x kv-chunk) blocks with an
+    online softmax: the forward of the reference's ``chunked_attention``.
+
+    q: (B, T, H, D); k/v: (B, S, KH, D), grouped (not expanded to the query
+    heads): queries run as (B, T, KH, G, D). The chunks are the largest
+    divisors of T (of S) not above ``q_chunk`` (``kv_chunk``), as in the
+    reference (``_chunk``). Each query chunk keeps a running max, sum and
+    P @ V accumulator in f32 over its KV blocks and normalises once at the
+    end; the causal and ``window`` masks apply per block. A block the masks
+    empty for every query of the chunk is skipped: the reference's scan
+    leaves the running state unchanged there (p = 0, correction 1) or
+    resets it at the first visible block (correction 0), so the numbers are
+    the same. No tensor larger than one (B, KH, G, q-chunk, kv-chunk) block
+    of scores is built.
+    """
     b, t, h, d = q.shape
+    if b > 1:
+        return _per_request(chunked_attention, q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                            window=window)
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qc, kc = _chunk(t, q_chunk), _chunk(s, kv_chunk)
     scale = 1.0 / (d**0.5)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), k.to(F32)) * scale
-    pos = torch.arange(t, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
-    m = torch.clamp_min(torch.amax(s, dim=-1), NEG_INF)
-    p = torch.exp(s - m[..., None])
-    l = torch.sum(p, dim=-1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p, v.to(F32))
-    out = acc / torch.clamp_min(l, 1e-30).permute(0, 2, 1)[..., None]
-    return out.to(q.dtype)
+    # (B, KH, G, T, D) and (B, KH, S, D): the block products are batched matmuls
+    q5 = q.reshape(b, t, kh, g, d).permute(0, 2, 3, 1, 4).to(F32)
+    kt, vt = k.permute(0, 2, 1, 3).to(F32), v.permute(0, 2, 1, 3).to(F32)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    for q_lo in range(0, t, qc):
+        qn = min(qc, t - q_lo)
+        q_hi = q_lo + qn - 1
+        qp = torch.arange(q_lo, q_lo + qn, device=q.device)[:, None]
+        m = torch.full((b, kh, g, qn), NEG_INF, dtype=F32, device=q.device)
+        l = torch.zeros((b, kh, g, qn), dtype=F32, device=q.device)
+        acc = torch.zeros((b, kh, g, qn, d), dtype=F32, device=q.device)
+        qblk = q5[:, :, :, q_lo:q_lo + qn].reshape(b, kh, g * qn, d)
+        for k_lo in range(0, s, kc):
+            kn = min(kc, s - k_lo)
+            k_hi = k_lo + kn - 1
+            if k_lo > q_hi:
+                break  # this block and every later one are after every query
+            if window is not None and q_lo - k_hi >= window:
+                continue  # every key is a window or more behind every query
+            sc = torch.matmul(qblk, kt[:, :, k_lo:k_lo + kn].transpose(-1, -2))
+            sc = sc.view(b, kh, g, qn, kn).mul_(scale)
+            if k_hi > q_lo or (window is not None and q_hi - k_lo >= window):
+                kp = torch.arange(k_lo, k_lo + kn, device=q.device)[None, :]
+                mask = qp >= kp
+                if window is not None:
+                    mask &= (qp - kp) < window
+                sc.masked_fill_(~mask, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = sc.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.matmul(p.view(b, kh, g * qn, kn), vt[:, :, k_lo:k_lo + kn])
+            acc = acc * corr[..., None] + pv.view(b, kh, g, qn, d)
+            m = m_new
+        blk = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B, KH, G, qn, D)
+        out[:, q_lo:q_lo + qn] = blk.permute(0, 3, 1, 2, 4).reshape(b, qn, h, d).to(q.dtype)
+    return out
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int) -> torch.Tensor:
-    """Sliding-window causal attention; q/k/v: (B, T, H, D), KV expanded to
-    the query heads. Short or unaligned sequences (``t <= window`` or
-    ``t % window``) take the masked path; otherwise each query chunk of
-    ``window`` rows attends to its (previous, current) key chunks only, so
-    the cost is linear in T."""
+    """Sliding-window causal attention; q: (B, T, H, D), k/v: (B, T, KH, D)
+    grouped. Short or unaligned sequences (``t <= window`` or ``t %
+    window``) take the chunked path with ``q_chunk = min(t, window)``, as
+    the reference does; otherwise each query chunk of ``window`` rows
+    attends to its (previous, current) key chunks only, so the cost is
+    linear in T."""
     b, t, h, d = q.shape
+    if b > 1:
+        return _per_request(local_attention, q, k, v, window=window)
+    kh = k.shape[2]
+    g = h // kh
     if t <= window or t % window:
-        return causal_attention(q, k, v, window=window)
+        return chunked_attention(q, k, v, q_chunk=min(t, window),
+                                 kv_chunk=min(k.shape[1], window), window=window)
     scale = 1.0 / (d**0.5)
+    q5 = q.reshape(b, t, kh, g, d)
     outs = []
     for q_lo in range(0, t, window):
         k_lo = max(0, q_lo - window)
-        qc = q[:, q_lo:q_lo + window]
+        qc = q5[:, q_lo:q_lo + window]
         kc = k[:, k_lo:q_lo + window]
         vc = v[:, k_lo:q_lo + window]
-        s = torch.einsum("bqhd,bkhd->bhqk", qc.to(F32), kc.to(F32)) * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc.to(F32), kc.to(F32)) * scale
         qp = torch.arange(window, device=q.device) + q_lo
         kp = torch.arange(kc.shape[1], device=q.device) + k_lo
         mask = (qp[:, None] >= kp[None, :]) & ((qp[:, None] - kp[None, :]) < window)
         s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, vc.to(F32)))
-    return torch.cat(outs, dim=1).to(q.dtype)
+        outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vc.to(F32)))
+    return torch.cat(outs, dim=1).reshape(b, t, h, d).to(q.dtype)
 
 
 def decode_attention(
@@ -111,7 +191,9 @@ def decode_attention(
     token. ``slot_pos`` (S,) or (B, S): the absolute position each cache
     slot holds (a ring cache), default ``arange(S)``; slots holding a
     position beyond the row's, a negative one, or one ``window`` or more
-    behind it are masked.
+    behind it are masked. The products are taken elementwise and summed
+    with ``row_sum`` (over D for the scores, over S for softmax and P @ V),
+    not by a batched GEMM, whose split of the sums may change with B.
     """
     b, _, h, d = q.shape
     _, s, kh, _ = k_cache.shape
@@ -122,23 +204,35 @@ def decode_attention(
     if slot_pos.dim() == 1:
         slot_pos = slot_pos[None, :]
     pos_b = pos.reshape(-1, 1).expand(b, 1)
-    q5 = q.reshape(b, kh, g, d)
-    scores = torch.einsum("bhgd,bshd->bhgs", q5.to(F32), k_cache.to(F32)) * scale
+    q5 = q.reshape(b, kh, g, 1, d).to(F32)
+    kt = k_cache.permute(0, 2, 1, 3).to(F32)[:, :, None]  # (B, KH, 1, S, D)
+    scores = row_sum(q5 * kt) * scale  # (B, KH, G, S)
     valid = (slot_pos <= pos_b) & (slot_pos >= 0)
     if window is not None:
         valid &= (pos_b - slot_pos) < window
-    scores = torch.where(
-        valid[:, None, None, :], scores, torch.tensor(NEG_INF, dtype=F32, device=q.device)
-    )
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     e = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
-    p = e / torch.sum(e, dim=-1, keepdim=True)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(F32))
+    p = e / row_sum(e, keepdim=True)
+    vt = v_cache.permute(0, 2, 3, 1).to(F32)[:, :, None]  # (B, KH, 1, D, S)
+    out = row_sum(p[:, :, :, None, :] * vt)  # (B, KH, G, D)
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp") -> torch.Tensor:
-    """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
-    gate = hook(f"{prefix}_gate", x, p["w_gate"])
-    up = hook(f"{prefix}_up", x, p["w_up"])
-    h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
-    return hook(f"{prefix}_out", h, p["w_down"])
+def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
+        mlp_type: str = "swiglu") -> torch.Tensor:
+    """SwiGLU, ``down(silu(gate(x)) * up(x))``, or GELU,
+    ``out(gelu(in(x) + b_in)) + b_out`` with the tanh form of GELU (the
+    reference's ``jax.nn.gelu``) in f32; the biases are optional leaves."""
+    if mlp_type == "swiglu":
+        gate = hook(f"{prefix}_gate", x, p["w_gate"])
+        up = hook(f"{prefix}_up", x, p["w_up"])
+        h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
+    else:
+        h = hook(f"{prefix}_in", x, p["w_in"])
+        if "b_in" in p:
+            h = h + p["b_in"].to(h.dtype)
+        h = torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
+    y = hook(f"{prefix}_out", h, p["w_down"])
+    if "b_out" in p:
+        y = y + p["b_out"].to(y.dtype)
+    return y

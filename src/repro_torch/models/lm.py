@@ -2,8 +2,13 @@
 
 Families:
 
-  dense    - pre-norm transformer, GQA/MQA, SwiGLU MLP; with
-             ``sliding_window`` its attention is windowed over a ring cache
+  dense    - pre-norm transformer, GQA/MQA, SwiGLU or GELU MLP (with
+             biases), optional QKV bias; with ``sliding_window`` its
+             attention is windowed over a ring cache. Inputs are a batch
+             dict: ``{"tokens"}``, ``{"embeds"}`` (the ``frames``
+             frontend: precomputed frame embeddings, no embedding table)
+             or ``{"tokens", "patch_embeds"}`` (``patch``: image patch
+             embeddings ahead of the text); ``n_codebooks`` LM heads
   griffin  - RecurrentGemma: groups of (rec, rec, local-attention) layers,
              plus the tail layers that do not fill a group (recurrent)
 
@@ -47,7 +52,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.hooks import MatmulHook, PrefixHook, hook_for_layer
 from repro_torch.models.layers import (
     apply_rope,
-    causal_attention,
+    chunked_attention,
     decode_attention,
     local_attention,
     mlp,
@@ -116,21 +121,33 @@ def n_tail(cfg: ModelConfig) -> int:
 def _attn_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
     d, hd, qh, kh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     s = d**-0.5
-    return {
+    leaves = {
         "wq": Leaf(lead + (d, qh * hd), s),
         "wk": Leaf(lead + (d, kh * hd), s),
         "wv": Leaf(lead + (d, kh * hd), s),
         "wo": Leaf(lead + (qh * hd, d), (qh * hd) ** -0.5),
     }
+    if cfg.qkv_bias:
+        leaves["bq"] = Leaf(lead + (qh * hd,), 0.0)
+        leaves["bk"] = Leaf(lead + (kh * hd,), 0.0)
+        leaves["bv"] = Leaf(lead + (kh * hd,), 0.0)
+    return leaves
 
 
 def _mlp_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
     d, ff = cfg.d_model, cfg.d_ff
     s = d**-0.5
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": Leaf(lead + (d, ff), s),
+            "w_up": Leaf(lead + (d, ff), s),
+            "w_down": Leaf(lead + (ff, d), ff**-0.5),
+        }
     return {
-        "w_gate": Leaf(lead + (d, ff), s),
-        "w_up": Leaf(lead + (d, ff), s),
+        "w_in": Leaf(lead + (d, ff), s),
+        "b_in": Leaf(lead + (ff,), 0.0),
         "w_down": Leaf(lead + (ff, d), ff**-0.5),
+        "b_out": Leaf(lead + (d,), 0.0),
     }
 
 
@@ -157,8 +174,9 @@ def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
     lead = (g,)
     tree: Dict[str, Any] = {"final_ln": Leaf((d,), 0.0)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = Leaf((d, v), d**-0.5)
-    tree["embed"] = Leaf((v, d), 0.02)
+        tree["lm_head"] = Leaf((d, v * cfg.n_codebooks), d**-0.5)
+    if cfg.frontend != "frames":
+        tree["embed"] = Leaf((v, d), 0.02)
     blocks: Dict[str, Any] = {}
     kinds = ("attn",) if cfg.family == "dense" else cfg.griffin_pattern
     for i, kind in enumerate(kinds):
@@ -201,6 +219,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
     return map_leaves(make, param_leaves(cfg))
 
 
+def _mlp_sites(cfg: ModelConfig) -> tuple:
+    """Site suffixes of one MLP: its names are hashed into the noise streams."""
+    return ("gate", "up", "out") if cfg.mlp_type == "swiglu" else ("in", "out")
+
+
 def group_sites(cfg: ModelConfig) -> Dict[str, tuple]:
     """Analog matmul sites of one layer group -> energy leaf suffix."""
     sites: Dict[str, tuple] = {}
@@ -212,8 +235,8 @@ def group_sites(cfg: ModelConfig) -> Dict[str, tuple]:
         else:
             for s in ("q", "k", "v", "o"):
                 sites[f"attn{i}_{s}"] = ()
-        for s in (f"mlp{i}_gate", f"mlp{i}_up", f"mlp{i}_out"):
-            sites[s] = ()
+        for s in _mlp_sites(cfg):
+            sites[f"mlp{i}_{s}"] = ()
     return sites
 
 
@@ -264,7 +287,8 @@ def energy_macs(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
     tree = {
         "groups": {s: torch.full((g,) + suf, float(_site_macs(cfg, s, t)), dtype=F32)
                    for s, suf in group_sites(cfg).items()},
-        "lm_head": torch.tensor(float(t * cfg.d_model * cfg.vocab_size), dtype=F32),
+        "lm_head": torch.tensor(float(t * cfg.d_model * cfg.vocab_size * cfg.n_codebooks),
+                                dtype=F32),
     }
     tail = n_tail(cfg)
     if tail:
@@ -443,9 +467,14 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
     b, t, _ = x.shape
     hd, qh, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cos, sin = rope
-    q = hook(f"{prefix}_q", x, p["wq"]).reshape(b, t, qh, hd)
-    k = hook(f"{prefix}_k", x, p["wk"]).reshape(b, t, kh, hd)
-    v = hook(f"{prefix}_v", x, p["wv"]).reshape(b, t, kh, hd)
+    q = hook(f"{prefix}_q", x, p["wq"])
+    k = hook(f"{prefix}_k", x, p["wk"])
+    v = hook(f"{prefix}_v", x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q, k, v = q.reshape(b, t, qh, hd), k.reshape(b, t, kh, hd), v.reshape(b, t, kh, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     k_cache, v_cache = cache
@@ -464,14 +493,12 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
             slot_pos = torch.where(base <= slot[:, None], off + base, off - s_len + base)
             out = decode_attention(q, k_cache, v_cache, pos, slot_pos=slot_pos, window=window)
     else:
-        g = qh // kh
-        ke, ve = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
         if window is None:
-            out = causal_attention(q, ke, ve)
+            out = chunked_attention(q, k, v, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
             k_cache[:, :t] = k.to(k_cache.dtype)
             v_cache[:, :t] = v.to(v_cache.dtype)
         else:
-            out = local_attention(q, ke, ve, window=window)
+            out = local_attention(q, k, v, window=window)
             _ring_fill(k_cache, k.to(k_cache.dtype), window, lengths)
             _ring_fill(v_cache, v.to(v_cache.dtype), window, lengths)
     return hook(f"{prefix}_o", out.reshape(b, t, qh * hd), p["wo"])
@@ -498,7 +525,7 @@ def _sublayer(x, cfg: ModelConfig, hook, i: int, kind: str, ln1, ln2, mix_p, mlp
                            pos=pos, window=_window(cfg), lengths=lengths)
     x = x + y
     h = rms_norm(x, ln2, cfg.norm_eps)
-    return x + mlp(h, mlp_p, hook, prefix=f"mlp{i}")
+    return x + mlp(h, mlp_p, hook, prefix=f"mlp{i}", mlp_type=cfg.mlp_type)
 
 
 def _layer_ks(cfg: ModelConfig, analog: AnalogSpec):
@@ -563,14 +590,27 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     return h
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.compute_dtype)
+def _as_batch(batch) -> Dict[str, torch.Tensor]:
+    """A batch dict; a bare (B, T) tensor is ``{"tokens": tensor}``."""
+    return batch if isinstance(batch, dict) else {"tokens": batch}
 
 
-def forward_hidden(params, tokens, cfg: ModelConfig, *, cache, analog=None, lengths=None):
-    """Prefill trunk: (B, T) tokens -> normed hidden (B, T, d); writes every
-    leaf of ``cache``."""
-    h = _embed(params, tokens, cfg)
+def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Token or frontend embedding -> h (B, T, d): ``frames`` takes
+    ``embeds`` as they are, ``patch`` puts ``patch_embeds`` ahead of the
+    embedded ``tokens``."""
+    batch = _as_batch(batch)
+    if cfg.frontend == "frames":
+        return batch["embeds"].to(cfg.compute_dtype)
+    h = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    if cfg.frontend == "patch":
+        h = torch.cat([batch["patch_embeds"].to(cfg.compute_dtype), h], dim=1)
+    return h
+
+
+def forward_hidden(params, h, cfg: ModelConfig, *, cache, analog=None, lengths=None):
+    """Prefill trunk: embedded inputs h (B, T, d) (``_embed_inputs``) ->
+    normed hidden (B, T, d); writes every leaf of ``cache``."""
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stack(params, h, cfg, mode="prefill", cache=cache, pos=None,
                    positions=positions, analog=analog, lengths=lengths)
@@ -582,15 +622,24 @@ def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, 1, d) -> (B, 1, 1, V): a digital matmul, vocab padding sliced off."""
+    """(B, 1, d) -> (B, 1, n_codebooks, V): a digital matmul, one request at
+    a time (a GEMM of B rows may sum in another order than one of 1, and a
+    request's tokens must not depend on its batch), vocab padding sliced
+    off."""
     b = h_last.shape[0]
-    logits = torch.matmul(h_last, _lm_head(params, cfg).to(h_last.dtype))
-    return logits.reshape(b, 1, 1, cfg.padded_vocab)[..., : cfg.vocab_size]
+    head = _lm_head(params, cfg).to(h_last.dtype)
+    logits = torch.cat([torch.matmul(h_last[i:i + 1], head) for i in range(b)])
+    return logits.reshape(b, 1, cfg.n_codebooks, cfg.padded_vocab)[..., : cfg.vocab_size]
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, analog=None, cache_len=None,
+def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
             lengths: Optional[torch.Tensor] = None):
     """Run the prompt; returns (cache, last hidden (B, 1, d)).
+
+    ``batch``: ``{"tokens"}``, ``{"embeds"}`` or ``{"tokens",
+    "patch_embeds"}`` as the config's frontend reads it; a bare (B, T)
+    tensor is tokens. Under ``patch`` the positions (and ``lengths``)
+    count the image prefix.
 
     ``lengths`` (B,): per-row true prompt lengths of a right-padded bucket
     batch; the last hidden is gathered at each row's final real token, and
@@ -600,23 +649,30 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, analog=None, cache_l
     batch-padding row. Without ``cache_len`` the cache holds the prompt
     (a ring cache: the whole window, as the reference sizes it).
     """
-    b, t = tokens.shape
+    h = _embed_inputs(params, batch, cfg)
+    b, t = h.shape[:2]
     if cache_len is None:
         w = _window(cfg)
         cache_len = t if w is None else max(t, w)
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    h = forward_hidden(params, tokens, cfg, cache=cache, analog=analog, lengths=lengths)
+    cache = init_cache(cfg, b, cache_len, device=h.device)
+    h = forward_hidden(params, h, cfg, cache=cache, analog=analog, lengths=lengths)
     if lengths is None:
         return cache, h[:, -1:]
     idx = torch.clamp(lengths.to(h.device).long() - 1, 0, t - 1)
     return cache, h[torch.arange(b, device=h.device), idx][:, None]
 
 
-def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
-                analog=None):
-    """One token step: tokens (B, 1) at per-row positions ``pos`` (B,).
-    Returns (logits (B, 1, 1, V), cache), the cache updated in place."""
-    h = _embed(params, tokens, cfg)
+def decode_step(params, cache, batch, pos: torch.Tensor, cfg: ModelConfig, analog=None):
+    """One step: ``{"tokens": (B, 1)}`` (or the bare tensor) or, under
+    ``frames``, ``{"embeds": (B, 1, d)}``, at per-row positions ``pos``
+    (B,). Under ``patch`` a step reads plain tokens (the image prefix is
+    prefill's). Returns (logits (B, 1, n_codebooks, V), cache), the cache
+    updated in place."""
+    batch = _as_batch(batch)
+    if cfg.frontend == "patch" and "patch_embeds" not in batch:
+        h = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    else:
+        h = _embed_inputs(params, batch, cfg)
     pos = pos.to(h.device).long().reshape(-1).expand(h.shape[0])
     h = _run_stack(params, h, cfg, mode="decode", cache=cache, pos=pos,
                    positions=pos[:, None], analog=analog)

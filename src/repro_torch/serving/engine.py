@@ -87,6 +87,11 @@ class ServingEngine:
     length of ``max(seq_buckets) + max_gen`` unless ``pool_cache_len``
     says otherwise; a request whose seq bucket plus budget does not fit a
     slot is rejected at submit.
+
+    The engine serves token prompts: a config with a ``frames`` or
+    ``patch`` frontend is refused (its inputs are embeddings, which the
+    reference's engine does not take either; ``lm.prefill`` and
+    ``lm.decode_step`` run such a model directly).
     """
 
     def __init__(
@@ -110,6 +115,9 @@ class ServingEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        if model_cfg.frontend != "none":
+            raise ValueError(f"{model_cfg.name}: the engine serves token prompts, not the "
+                             f"{model_cfg.frontend!r} frontend's embeddings")
         if analog_cfg is not None and energies is None:
             raise ValueError("analog serving requires an energy tree")
         self.params = params

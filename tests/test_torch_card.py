@@ -85,3 +85,45 @@ def test_route_kernel_matches_plain_on_card(route, shape, quant, cuda_device):
             solo[3] = args[3][i:i + 1]
         y = am.analog_matmul_raw(*solo, route=route, **kw)
         assert torch.equal(y[0], got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 4])
+def test_model_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_device):
+    """The model's own sums on the card: a request's row gives the same bits
+    alone (B = 1) as in a batch of ``b`` — decode attention at granite-20b's
+    MQA (48 query heads on one KV head), prefill attention, RMS norm and
+    the shot-noise row norms over K = 12,800 and 24,576, and the lm_head.
+    A batched GEMM or a CUDA reduction over a long row may otherwise sum in
+    another order for another batch size."""
+    from repro_torch.models import layers, lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.reduce import row_norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    bf16 = torch.bfloat16
+    randn = lambda *s: torch.randn(s, generator=gen, device=cuda_device).to(bf16)  # noqa: E731
+    q, k, v = randn(b, 1, 48, 128), randn(b, 80, 1, 128), randn(b, 80, 1, 128)
+    pos = torch.full((b,), 70, device=cuda_device)
+    full = layers.decode_attention(q, k, v, pos)
+    qp, kp = randn(b, 64, 48, 128), randn(b, 64, 1, 128)
+    prefill = layers.chunked_attention(qp, kp, kp, q_chunk=1024, kv_chunk=1024)
+    scale = randn(6144)
+    for kk in (12800, 24576):
+        x = randn(b, 1, kk)
+        norms = row_norm(x, keepdim=True)
+        for i in range(b):
+            assert torch.equal(row_norm(x[i:i + 1], keepdim=True), norms[i:i + 1])
+    h = randn(b, 1, 6144)
+    normed = layers.rms_norm(h, scale)
+    cfg = ModelConfig(name="head", family="dense", n_layers=1, d_model=6144, n_heads=48,
+                      n_kv_heads=1, d_ff=64, vocab_size=49152)
+    params = {"lm_head": randn(6144, cfg.padded_vocab)}
+    logits = lm.logits_last(params, h, cfg)
+    for i in range(b):
+        one = slice(i, i + 1)
+        assert torch.equal(layers.decode_attention(q[one], k[one], v[one], pos[one]), full[one])
+        assert torch.equal(layers.chunked_attention(qp[one], kp[one], kp[one], q_chunk=1024,
+                                                    kv_chunk=1024), prefill[one])
+        assert torch.equal(layers.rms_norm(h[one], scale), normed[one])
+        assert torch.equal(lm.logits_last(params, h[one], cfg), logits[one])

@@ -439,7 +439,8 @@ def test_recurrentgemma_config_is_the_reference_config():
     assert "tail" in lm.param_leaves(RGEMMA) and "lm_head" not in lm.param_leaves(RGEMMA)
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="xlstm"), dict(mlp_type="gelu"),
+@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="xlstm"),
+                                dict(family="griffin", mlp_type="gelu"),
                                 dict(family="griffin", griffin_pattern=("rec", "mlstm"))])
 def test_config_raises_for_unported_families(kw):
     base = dict(name="x", family="dense", n_layers=2, d_model=32, d_ff=64, **_TINY)
