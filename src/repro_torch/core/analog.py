@@ -3,13 +3,19 @@
 ``analog_dot`` is the choke point every model matmul runs through. In
 ``digital`` mode it is an (optionally fake-quantized) plain matmul; in
 ``analog`` mode it simulates the noisy accelerator through the fused
-kernel or its plain version (``kernels/dispatch.py``).
+kernel or its plain version (``kernels/dispatch.py``), or through the
+``"torch"`` backend, the reference's ``"jnp"`` branch: differentiable
+plain ops with ``torch.Generator`` noise, where the Eq.-14 calibration
+takes its gradient.
 
 Keys are raw uint32 numpy arrays, as the reference's raw JAX keys: (2,)
 for one stream, (B, 2) for stacked per-request streams. They are folded on
 the host (``fold_key``, ``site_key``); what reaches the device is a seed
 table of int32 words (k0, k1, row0, col0) per request (``key_seed``), made
-for a whole forward at once by ``site_seed_table``.
+for a whole forward at once by ``site_seed_table``. The ``"torch"``
+backend seeds one generator per request from its words on the host: the
+model builds its seed table on the CPU for that backend, so no site waits
+for a device-to-host copy.
 """
 from __future__ import annotations
 
@@ -23,8 +29,15 @@ import torch
 from repro_torch.core import noise as noise_lib
 from repro_torch.core.noise import NoiseSpec
 from repro_torch.kernels import prng
-from repro_torch.kernels.dispatch import BACKENDS, fused_dot, resolve_backend, tile_dot
-from repro_torch.quant.affine import QuantParams, fake_quant
+from repro_torch.kernels.dispatch import (
+    BACKENDS,
+    CUDA,
+    TORCH,
+    fused_dot,
+    resolve_backend,
+    tile_dot,
+)
+from repro_torch.quant.affine import QuantParams, fake_quant, ste_snap_levels
 
 PER_LAYER = "per_layer"
 PER_CHANNEL = "per_channel"
@@ -43,7 +56,8 @@ class AnalogConfig:
     #: snap energies to integer multiples of a quantum (photons / K repeats).
     discrete_energy: bool = False
     energy_quantum: float = noise_lib.PHOTON_ENERGY_AJ
-    #: "auto" (kernel for CUDA tensors, plain for CPU tensors), "cuda", "tile".
+    #: "auto" (kernel for CUDA tensors, plain for CPU tensors), "cuda",
+    #: "tile", or "torch" (the reference's "jnp": generator noise, autograd)
     backend: str = "auto"
 
     def __post_init__(self):
@@ -162,6 +176,72 @@ def site_seed_table(key, layers, sites: Sequence[str], device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _generator(words: np.ndarray, device) -> torch.Generator:
+    """A generator on ``device`` seeded from one request's words (k0, k1):
+    the 64-bit seed ``k0 * 2^32 + k1``."""
+    k0, k1 = (int(v) & 0xFFFFFFFF for v in words[:2])
+    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)
+
+
+def _w_range(sq: Optional[SiteQuant], w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel weight range (1, N), calibrated or from the data."""
+    if sq is not None and sq.wqp is not None:
+        return (sq.wqp.x_max - sq.wqp.x_min).to(torch.float32).reshape(1, -1)
+    return (torch.amax(w, dim=0, keepdim=True) - torch.amin(w, dim=0, keepdim=True)).to(
+        torch.float32)
+
+
+def _x_range(sq: Optional[SiteQuant], x: torch.Tensor) -> torch.Tensor:
+    if sq is not None and sq.xqp is not None:
+        return (sq.xqp.x_max - sq.xqp.x_min).to(torch.float32)
+    return (torch.amax(x) - torch.amin(x)).to(torch.float32)
+
+
+def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_repeats: int):
+    """One request on the ``"torch"`` backend (the reference's ``"jnp"``
+    branch, ``repro/core/analog.py``): float32 operands, straight-through
+    energy snapping and fake-quant, K repeats as one draw at K·E, and
+    weight, thermal or shot noise drawn from ``gen``."""
+    k_dim = w.shape[0]
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    energy = energy.to(x.device, torch.float32) if torch.is_tensor(energy) else torch.tensor(
+        float(energy), dtype=torch.float32, device=x.device)
+    if cfg.discrete_energy:
+        energy = ste_snap_levels(energy, cfg.energy_quantum)
+    if n_repeats > 1:
+        # K repeats at E averaged == one draw at K*E (noise in quadrature);
+        # core/redundant.py holds the explicit-K oracles
+        energy = energy * n_repeats
+    w_q = fake_quant(w, sq.wqp) if cfg.weight_bits is not None and sq is not None and \
+        sq.wqp is not None else w
+    x_q = fake_quant(x, sq.xqp) if cfg.act_bits is not None and sq is not None and \
+        sq.xqp is not None else x
+
+    kind = cfg.noise.kind
+    if kind == noise_lib.WEIGHT:
+        w_noisy = noise_lib.perturb_weights(gen, w_q, _w_range(sq, w_q), cfg.noise.sigma, energy)
+        y = torch.matmul(x_q, w_noisy)
+    elif kind == noise_lib.THERMAL:
+        y = torch.matmul(x_q, w_q)
+        std = noise_lib.thermal_noise_std(k_dim, _w_range(sq, w_q), _x_range(sq, x_q),
+                                          cfg.noise.sigma, energy)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std)
+    elif kind == noise_lib.SHOT:
+        y = torch.matmul(x_q, w_q)
+        # eps-safe norms: a norm's gradient is NaN at exactly zero
+        w_col = torch.sqrt(torch.sum(w_q * w_q, dim=0, keepdim=True) + 1e-20)
+        x_row = torch.sqrt(torch.sum(x_q * x_q, dim=-1, keepdim=True) + 1e-20)
+        std = noise_lib.shot_noise_std(w_col, x_row, k_dim, energy, cfg.noise.photon_energy_aj)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std)
+    else:
+        y = torch.matmul(x_q, w_q)
+
+    if cfg.out_bits is not None and sq is not None and sq.oqp is not None:
+        y = fake_quant(y, sq.oqp)
+    return y
+
+
 def analog_dot(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -181,6 +261,11 @@ def analog_dot(
     (its own noise, its own thermal input range, its own row norms).
     ``n_repeats``: K-repeat redundancy averaged in the kernel. Analog
     outputs are float32.
+
+    Backward: ``"tile"`` and ``"torch"`` are plain differentiable ops; the
+    kernel (``"cuda"``) has none, so a ``"cuda"`` call whose x or energy
+    requires grad while grad mode is on raises rather than return a
+    result that would train nothing.
     """
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"contract mismatch {tuple(x.shape)} @ {tuple(w.shape)}")
@@ -201,6 +286,24 @@ def analog_dot(
         raise ValueError(
             f"stacked seed batch {seed.shape[0]} does not match x leading dim {tuple(x.shape)}"
         )
-    if resolve_backend(cfg, x) == "cuda":
+    backend = resolve_backend(cfg, x)
+    if backend == CUDA:
+        if torch.is_grad_enabled() and (
+                x.requires_grad or (torch.is_tensor(energy) and energy.requires_grad)):
+            raise RuntimeError(
+                'analog_dot on backend="cuda": x or the energy requires grad, and the kernel '
+                'has no backward; take the gradient on backend="torch" or "tile", or run '
+                "under torch.no_grad()")
         return fused_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)
+    if backend == TORCH:
+        # the generators' seeds are host words: a CPU table costs no copy
+        words = seed.detach().cpu().numpy()
+        if words.ndim == 1:
+            return _torch_dot(x, w, cfg=cfg, energy=energy, gen=_generator(words, x.device),
+                              sq=sq, n_repeats=n_repeats)
+        return torch.stack([
+            _torch_dot(x[b], w, cfg=cfg, energy=energy, gen=_generator(words[b], x.device),
+                       sq=sq, n_repeats=n_repeats)
+            for b in range(words.shape[0])
+        ])
     return tile_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)

@@ -43,7 +43,8 @@ def _device(x):
 
 def to_energy(log_e: EnergyTree, *, discrete: bool = False, quantum: float = 1.0) -> EnergyTree:
     """Log-parameters -> positive energies; ``discrete`` snaps them to
-    integer multiples (>= 1) of ``quantum`` (photon or repeat counts)."""
+    integer multiples (>= 1) of ``quantum`` (photon or repeat counts) with
+    a straight-through gradient."""
 
     def one(_path, le):
         e = torch.exp(_f32(le))
@@ -95,7 +96,10 @@ def log_energy_penalty(energies: EnergyTree, macs: MacTree, target_e_per_mac: fl
     ``E_max = target_e_per_mac * total_macs``."""
     e_tot = total_energy(energies, macs)
     budget = _f32(target_e_per_mac, e_tot.device) * total_macs(macs).to(e_tot.device)
-    return lam * torch.clamp_min(torch.log(e_tot) - torch.log(budget), 0.0)
+    excess = torch.log(e_tot) - torch.log(budget)
+    # torch.maximum, not clamp_min: at a tie it passes half the gradient,
+    # as jnp.maximum does
+    return lam * torch.maximum(excess, torch.zeros_like(excess))
 
 
 def uniform_log_energies(macs: MacTree, e_per_mac: float) -> EnergyTree:

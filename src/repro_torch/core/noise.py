@@ -4,6 +4,11 @@ Each model's noise std scales as ``1/sqrt(E)`` with ``E`` the energy per
 MAC. Thermal/weight ``E`` is relative and unitless; shot-noise ``E`` is
 optical energy in attojoules, ``photons/MAC = E / E_photon`` with
 ``E_photon = hc/lambda = 0.128 aJ`` at 1.55 um.
+
+The ``"torch"`` backend (the reference's ``"jnp"``) draws its noise from
+an explicit ``torch.Generator`` (``sample_output_noise``,
+``perturb_weights``); the kernel and its plain version draw counter-based
+Threefry gaussians (``kernels/prng.py``) instead.
 """
 from __future__ import annotations
 
@@ -60,3 +65,45 @@ def shot_noise_std(
     """Eq. 11: ||W_i||2 ||x||2 / sqrt(N * photons_per_mac)."""
     photons = torch.as_tensor(energy_aj, dtype=torch.float32) / photon_energy_aj
     return w_col_norms * x_row_norms / torch.sqrt(photons * float(np.float32(n_macs)))
+
+
+def sample_output_noise(gen: torch.Generator, shape, std, dtype=torch.float32) -> torch.Tensor:
+    """Reparameterized additive Gaussian output noise, ``std * N(0, 1)``,
+    drawn from ``gen`` on its device; ``std`` broadcasts against ``shape``.
+    The reparameterization (paper §V, [55]) makes the result differentiable
+    with respect to ``std`` and so to the energies."""
+    xi = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=dtype)
+    return xi * std
+
+
+def perturb_weights(gen: torch.Generator, w, w_range, sigma_w: float, energy) -> torch.Tensor:
+    """Eq. 10: elementwise Gaussian weight-read noise, drawn from ``gen``;
+    ``w_range`` and ``energy`` broadcast per output channel (w's last axis)."""
+    std = weight_noise_std(w_range, sigma_w, energy)
+    xi = torch.randn(tuple(w.shape), generator=gen, device=gen.device, dtype=torch.float32)
+    return w.to(torch.float32) + xi * std
+
+
+def noise_variance_for_layer(
+    spec: NoiseSpec,
+    *,
+    n_macs,
+    energy,
+    w_range=None,
+    x_range=None,
+    w_col_norms=None,
+    x_row_norm_sq_mean=None,
+) -> torch.Tensor:
+    """Analytic Var(eps_a) of a layer's output under each noise model (the
+    noise-bits analysis, §III). Weight noise: the output variance of
+    ``sum_j (W_ij + xi_j r sigma/sqrt(E)) x_j`` is ``(r sigma)^2/E ||x||^2``,
+    at the mean squared input norm."""
+    energy = torch.as_tensor(energy, dtype=torch.float32)
+    if spec.kind == THERMAL:
+        return thermal_noise_std(n_macs, w_range, x_range, spec.sigma, energy) ** 2
+    if spec.kind == WEIGHT:
+        return weight_noise_std(w_range, spec.sigma, energy) ** 2 * x_row_norm_sq_mean
+    if spec.kind == SHOT:
+        photons = energy / spec.photon_energy_aj
+        return (w_col_norms**2) * x_row_norm_sq_mean / (n_macs * photons)
+    return torch.zeros(())

@@ -6,12 +6,18 @@ Port of ``repro/kernels/dispatch.py``:
     takes the place of the reference's ``"pallas"``.
   * ``"tile"`` — the plain counter-based version (``kernels/ref.py``):
     identical math and noise draws, plain PyTorch ops.
+  * ``"torch"`` — the reference's ``"jnp"`` backend: plain PyTorch ops
+    with noise drawn from a ``torch.Generator`` per request
+    (``core/analog.py``), differentiable (straight-through energy
+    snapping and fake-quant), K repeats folded into one draw at K·E. Its
+    noise is not reproducible across tilings; the calibration's Eq.-14
+    gradient runs on it.
   * ``"auto"`` — ``"cuda"`` for CUDA tensors, ``"tile"`` for CPU tensors.
     There is no shape threshold: on the card every analog site goes
-    through the kernel.
+    through the kernel. It never picks ``"torch"``.
 
-The reference's ``"jnp"`` backend (``jax.random`` noise, not reproducible
-across tilings) has no counterpart yet.
+The kernel has no backward; ``analog_dot`` refuses a ``"cuda"`` call that
+autograd would have to differentiate.
 """
 from __future__ import annotations
 
@@ -20,11 +26,13 @@ import torch
 AUTO = "auto"
 CUDA = "cuda"
 TILE = "tile"
-BACKENDS = (AUTO, CUDA, TILE)
+TORCH = "torch"
+BACKENDS = (AUTO, CUDA, TILE, TORCH)
 
 
 def resolve_backend(cfg, x: torch.Tensor) -> str:
-    """``"cuda"`` or ``"tile"`` (never ``"auto"``) for an analog matmul on x."""
+    """``"cuda"``, ``"tile"`` or ``"torch"`` (never ``"auto"``) for an
+    analog matmul on x."""
     backend = cfg.backend
     if backend == AUTO:
         return CUDA if x.is_cuda else TILE

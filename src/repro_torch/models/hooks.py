@@ -32,20 +32,27 @@ class AnalogHook(MatmulHook):
     tensor); ``seeds`` maps site name -> its seed words, the layer's row of
     the forward's ``site_seed_table`` ((4,) for one key, (B, 4) with one
     stream per request row). ``n_repeats`` is the K-repeat knob, averaged
-    inside the kernel.
+    inside the kernel. ``rows_per_key`` > 1: each stacked seed covers that
+    many consecutive batch rows, run as one request (the noise samples of
+    ``core.calibrate.eval_accuracy`` stacked over a batch, each computed as
+    that batch alone under one key).
     """
 
     cfg: AnalogConfig
     energies: Dict[str, torch.Tensor]
     seeds: Dict[str, torch.Tensor]
     n_repeats: int = 1
+    rows_per_key: int = 1
 
     def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        xs = x
+        if self.rows_per_key > 1:
+            xs = x.reshape(x.shape[0] // self.rows_per_key, -1, x.shape[-1])
         y = analog_dot(
-            x, w, cfg=self.cfg, energy=self.energies[site],
+            xs, w, cfg=self.cfg, energy=self.energies[site],
             seed=self.seeds[site], n_repeats=self.n_repeats,
         )
-        return y.to(x.dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
 
 
 @dataclasses.dataclass
@@ -65,10 +72,12 @@ def hook_for_layer(
     seeds: Optional[Dict[str, torch.Tensor]],
     *,
     n_repeats: int = 1,
+    rows_per_key: int = 1,
 ) -> MatmulHook:
     """Hook for one layer: ``seeds`` is the layer's row of the forward's
     seed table, the reference's ``fold_key(key, layer_idx)`` → ``site_key``
     chain folded on the host."""
     if analog_cfg is None or layer_energies is None:
         return MatmulHook()
-    return AnalogHook(cfg=analog_cfg, energies=layer_energies, seeds=seeds, n_repeats=n_repeats)
+    return AnalogHook(cfg=analog_cfg, energies=layer_energies, seeds=seeds, n_repeats=n_repeats,
+                      rows_per_key=rows_per_key)

@@ -132,7 +132,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_ch
                     mask &= (qp - kp) < window
                 sc.masked_fill_(~mask, NEG_INF)
             m_new = torch.maximum(m, torch.amax(sc, dim=-1))
-            p = sc.sub_(m_new[..., None]).exp_()
+            # not in place: amax's backward reads sc
+            p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + torch.sum(p, dim=-1)
             pv = torch.matmul(p.view(b, kh, g * qn, kn), vt[:, :, k_lo:k_lo + kn])

@@ -30,10 +30,11 @@ transposed embedding under ``tie_embeddings``). Under a
 ``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
 ``energy_macs`` and ``profile_token_energy`` price that schedule.
 
-Prefill writes every cache leaf; decode updates the cache in place (one
-KV slot per row, griffin's recurrent and conv states whole) and returns
-it; ``scatter_cache_rows`` copies prefilled rows into a decode pool's
-cache along each leaf's own batch dim.
+Prefill writes every cache leaf (``hidden`` keeps none: the forward the
+calibration differentiates); decode updates the cache in place (one KV
+slot per row, griffin's recurrent and conv states whole) and returns it;
+``scatter_cache_rows`` copies prefilled rows into a decode pool's cache
+along each leaf's own batch dim.
 """
 from __future__ import annotations
 
@@ -76,6 +77,8 @@ class AnalogSpec:
     ``n_repeats``: the K-repeat dynamic-precision knob for every site.
     ``profile``: its per-layer form, a ``PrecisionProfile`` giving layer
     ``l`` its own K_l; it overrides ``n_repeats``, which must stay 1.
+    ``rows_per_key``: with a stacked key of S rows over a batch of S * G
+    rows, G; each key's G rows then run as one request (``AnalogHook``).
     """
 
     cfg: AnalogConfig
@@ -83,6 +86,7 @@ class AnalogSpec:
     key: np.ndarray
     n_repeats: int = 1
     profile: Optional[PrecisionProfile] = None
+    rows_per_key: int = 1
 
     def __post_init__(self):
         if self.profile is not None and self.n_repeats != 1:
@@ -477,8 +481,8 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
     q, k, v = q.reshape(b, t, qh, hd), k.reshape(b, t, kh, hd), v.reshape(b, t, kh, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    k_cache, v_cache = cache
     if mode == "decode":
+        k_cache, v_cache = cache
         if window is None:
             _cache_store(k_cache, k, pos)
             _cache_store(v_cache, v, pos)
@@ -495,12 +499,16 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
     else:
         if window is None:
             out = chunked_attention(q, k, v, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-            k_cache[:, :t] = k.to(k_cache.dtype)
-            v_cache[:, :t] = v.to(v_cache.dtype)
         else:
             out = local_attention(q, k, v, window=window)
-            _ring_fill(k_cache, k.to(k_cache.dtype), window, lengths)
-            _ring_fill(v_cache, v.to(v_cache.dtype), window, lengths)
+        if cache is not None:
+            k_cache, v_cache = cache
+            if window is None:
+                k_cache[:, :t] = k.to(k_cache.dtype)
+                v_cache[:, :t] = v.to(v_cache.dtype)
+            else:
+                _ring_fill(k_cache, k.to(k_cache.dtype), window, lengths)
+                _ring_fill(v_cache, v.to(v_cache.dtype), window, lengths)
     return hook(f"{prefix}_o", out.reshape(b, t, qh * hd), p["wo"])
 
 
@@ -508,18 +516,20 @@ def _sublayer(x, cfg: ModelConfig, hook, i: int, kind: str, ln1, ln2, mix_p, mlp
               mode, cache, pos, pad_mask, lengths):
     """One layer: norm, temporal mix (attention or the recurrent block),
     residual, norm, MLP, residual. ``cache``: the layer's (k, v) views, or
-    its (h, conv) state views for a recurrent layer, updated in place."""
+    its (h, conv) state views for a recurrent layer, updated in place;
+    None in a prefill that keeps no cache."""
     h = rms_norm(x, ln1, cfg.norm_eps)
     if kind == "rec":
         rec_hook = PrefixHook(hook, f"rec{i}_")
-        h_state, conv_state = cache
         if mode == "decode":
-            y, h_new, cs_new = griffin_lib.recurrent_decode(h, mix_p, rec_hook, h_state, conv_state)
+            y, h_new, cs_new = griffin_lib.recurrent_decode(h, mix_p, rec_hook, *cache)
         else:
             y, h_new, cs_new = griffin_lib.recurrent_mix(h, mix_p, rec_hook, pad_mask=pad_mask,
                                                          lengths=lengths)
-        h_state.copy_(h_new)
-        conv_state.copy_(cs_new)
+        if cache is not None:
+            h_state, conv_state = cache
+            h_state.copy_(h_new)
+            conv_state.copy_(cs_new)
     else:
         y = _attn_sublayer(h, mix_p, cfg, hook, f"attn{i}", rope=rope, mode=mode, cache=cache,
                            pos=pos, window=_window(cfg), lengths=lengths)
@@ -550,10 +560,12 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     rows, tail_ks = [(1,) * per] * g, [1] * tail
     if analog is not None:
         # the global group index keys the noise: a profile's layer l draws
-        # the stream of the uniform path's layer l
-        table = site_seed_table(analog.key, g, sites, h.device)
+        # the stream of the uniform path's layer l. The "torch" backend
+        # seeds its generators from host words: its table stays on the CPU.
+        dev = "cpu" if analog.cfg.backend == "torch" else h.device
+        table = site_seed_table(analog.key, g, sites, dev)
         tail_table = (site_seed_table(analog.key, [g * per + j for j in range(tail)], TAIL_SITES,
-                                      h.device) if tail else None)
+                                      dev) if tail else None)
         rows, tail_ks = _layer_ks(cfg, analog)
 
     def hooks(sub, idx, names, seeds, ks):
@@ -562,15 +574,18 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
             return [MatmulHook()] * len(ks)
         energies = {s: analog.energies[sub][s][idx] for s in names}
         row = {s: seeds[idx, i] for i, s in enumerate(names)}
-        return [hook_for_layer(analog.cfg, energies, row, n_repeats=k) for k in ks]
+        return [hook_for_layer(analog.cfg, energies, row, n_repeats=k,
+                               rows_per_key=analog.rows_per_key) for k in ks]
 
     kinds = ("attn",) if cfg.family == "dense" else cfg.griffin_pattern
-    gcache = cache["groups"]
+    gcache = None if cache is None else cache["groups"]
     for gi in range(g):
         gp = map_leaves(lambda _p, a: a[gi], params["blocks"])
         layer_hooks = hooks("groups", gi, sites, table, rows[gi])
         for i, kind in enumerate(kinds):
-            if cfg.family == "dense":
+            if gcache is None:
+                lc = None
+            elif cfg.family == "dense":
                 lc = (gcache["k"][gi, i], gcache["v"][gi, i])
             elif kind == "rec":
                 lc = (gcache[f"h{i}"][gi], gcache[f"conv{i}"][gi])
@@ -583,7 +598,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     for j in range(tail):
         tp = map_leaves(lambda _p, a: a[j], params["tail"])
         (hook,) = hooks("tail", j, TAIL_SITES, tail_table, (tail_ks[j],))
-        lc = (cache["tail"]["h0"][j], cache["tail"]["conv0"][j])
+        lc = None if cache is None else (cache["tail"]["h0"][j], cache["tail"]["conv0"][j])
         h = _sublayer(h, cfg, hook, 0, "rec", tp["ln1"], tp["ln2"], tp["rec"], tp["mlp"],
                       rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
                       lengths=lengths)
@@ -608,13 +623,22 @@ def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return h
 
 
-def forward_hidden(params, h, cfg: ModelConfig, *, cache, analog=None, lengths=None):
+def forward_hidden(params, h, cfg: ModelConfig, *, cache=None, analog=None, lengths=None):
     """Prefill trunk: embedded inputs h (B, T, d) (``_embed_inputs``) ->
-    normed hidden (B, T, d); writes every leaf of ``cache``."""
+    normed hidden (B, T, d); writes every leaf of ``cache``, or keeps no
+    cache when it is None (the reference's ``mode="train"`` forward, which
+    calibration differentiates)."""
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stack(params, h, cfg, mode="prefill", cache=cache, pos=None,
                    positions=positions, analog=analog, lengths=lengths)
     return rms_norm(h, params["final_ln"], cfg.norm_eps)
+
+
+def hidden(params, batch, cfg: ModelConfig, analog=None) -> torch.Tensor:
+    """Normed hidden states (B, T, d) of a whole batch, no cache kept: the
+    reference's ``forward_hidden(..., mode="train")``, through which the
+    calibration's gradient runs."""
+    return forward_hidden(params, _embed_inputs(params, batch, cfg), cfg, analog=analog)
 
 
 def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:

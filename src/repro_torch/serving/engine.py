@@ -513,3 +513,34 @@ class ServingEngine:
                 raise ValueError("digital engine: no energy tree to account")
             return lm.profile_token_energy(self.model_cfg, self.energies, tier)
         return float(self.tiers.get(tier).energy_per_token())
+
+    def probe_apply(self):
+        """``(energies, tokens, key) -> final hidden states`` over the live
+        model: the apply function of ``core.calibrate`` (``learn_energies``,
+        ``eval_accuracy``, ``noise_rms``) for this engine's weights, noise
+        model and backend, a forward that keeps no cache. ``tokens`` (B, T)
+        with one raw (2,) key, or (S, B, T) with a stacked (S, 2) key: S
+        noise samples, each computed as the batch alone under its key. The
+        reference caches its jitted function on the engine; the port runs
+        eagerly and needs no cache."""
+        if self.analog_cfg is None:
+            raise ValueError("digital engine: nothing to probe")
+
+        def fn(energies, tokens, key):
+            tok = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+            key = raw_key(key)
+            lead = tok.shape[:-1]
+            rows = int(np.prod(lead[1:], dtype=np.int64)) if key.ndim == 2 else 1
+            spec = lm.AnalogSpec(cfg=self.analog_cfg, energies=energies, key=key,
+                                 rows_per_key=rows)
+            h = lm.hidden(self.params, tok.reshape(-1, tok.shape[-1]), self.model_cfg,
+                          analog=spec)
+            return h.reshape(*lead, *h.shape[1:])
+
+        return fn
+
+    def probe_reference(self, tokens) -> torch.Tensor:
+        """Clean (digital) final hidden states of a probe batch (B, T): the
+        zero-noise reference of ``probe_apply``."""
+        tok = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        return lm.hidden(self.params, tok, self.model_cfg)

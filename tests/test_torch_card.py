@@ -127,3 +127,27 @@ def test_model_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_device):
                                                     kv_chunk=1024), prefill[one])
         assert torch.equal(layers.rms_norm(h[one], scale), normed[one])
         assert torch.equal(lm.logits_last(params, h[one], cfg), logits[one])
+
+
+@pytest.mark.cuda
+def test_torch_backend_on_card(cuda_device):
+    """The "torch" backend on the card: one generator a request (solo ==
+    batched, bit for bit), a finite energy gradient; the "cuda" backend
+    refuses an energy that requires grad."""
+    from repro_torch.core.analog import analog_dot, key_seed
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 64)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((64, 40)) * 0.2).astype(np.float32)).to(cuda_device)
+    seeds = key_seed(fold_in(PRNGKey(3), np.arange(3)), "cpu")
+    cfg = AnalogConfig.shot(backend="torch")
+    energy = torch.tensor(10.0, device=cuda_device, requires_grad=True)
+    batched = analog_dot(x, w, cfg=cfg, energy=energy, seed=seeds)
+    for i in range(3):
+        assert torch.equal(analog_dot(x[i], w, cfg=cfg, energy=energy, seed=seeds[i]), batched[i])
+    batched.square().sum().backward()
+    assert torch.isfinite(energy.grad) and float(energy.grad) != 0.0
+    with pytest.raises(RuntimeError, match='backend="torch" or "tile"'):
+        analog_dot(x, w, cfg=AnalogConfig.shot(backend="cuda"), energy=energy,
+                   seed=seeds.to(cuda_device))
