@@ -62,7 +62,20 @@ and learned ``min_energy_search`` with every accuracy probe through the
 kernels, Eq.-14 learning on the "torch" backend, the learned allocation
 served; and (``search``) a per-layer repeat profile searched over the 12
 layers, saved as JSON, registered as a tier beside K=4 and served, solo
-against batched, launches by route, K and site shape. Every phase
+against batched, launches by route, K and site shape. Then the last two
+families, one model's weights at a time: xlstm-1.3b at full width and
+depth (``serve_xlstm``: the serve, a request alone against its batch, the
+whole path kernels against plain block by block (at the logits random
+weights make float order alone O(1)), and the eight prompts at K=1 and
+K=4 through 4-slot pools against batch-synchronous batches;
+``xlstm_long``: a 2,048-token prompt whose chunk scan carries the state
+across 4 chunks, its blocks against the plain path and, in float32, each
+decode step against a cache-free prefill); grok-1 at 4 of its 64 layers,
+full width (``serve_grok``: 12 requests batch-synchronously, the same
+batch again, the padding rows' keys and count, and the whole path with
+its routing flips counted and the plain path's routing pinned to the
+kernels'); and llama4-maverick at 2 of its 48 layers (``llama4_fit``: a
+prefill and 4 decode steps over 128 experts). Every phase
 that fails raises; each prints its seconds. The last line is ``{"ok":
 true, "device": {...}}``; without a CUDA device it exits non-zero and
 prints no result.
@@ -161,10 +174,28 @@ CALIB_LR, CALIB_INIT_MULT = 0.05, 1.0
 SEARCH_ITERS, EVAL_SAMPLES, MAX_DEGRADATION = 4, 2, 0.02
 E_CLEAN, SEARCH_LO, SEARCH_HI, GRAD_E = 1e9, 1.0, 1e6, 1e3
 GRAD_CHECK_REL = 1e-3
+#: xlstm-1.3b's long prompt (one bucket of its length: 4 chunks of 512 carry
+#: the recurrent state) and its new tokens
+XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 2048, 4
+#: the MoE models' depths: grok-1 at 4 of its 64 layers, llama4-maverick at
+#: 2 of its 48 (one dense and one MoE layer); full depth does not fit one card
+GROK_LAYERS, LLAMA4_LAYERS = 4, 2
+#: grok's serve: 12 prompts of 33..64 tokens at K=1 (3 prefills of 4 x 64)
+MOE_REQUESTS = 12
+#: decode steps of the MoE pad checks and of the llama4 fit
+MOE_STEPS = 4
+#: grok's pad-count check: a capacity factor at which no token is dropped
+#: and every expert buffer holds more than M_DECODE rows in a 2-row and a
+#: 4-row bucket (3 and 6 in decode, 96 and 192 in prefill), so both buckets
+#: run every expert site on the tc route. (The no-drop minimum E / top_k =
+#: 4 gives the 2-row bucket 2-row decode buffers, which take the decode
+#: route: another float order.)
+PAD_COUNT_CF = 6.0
 PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
           "serve_weight", "profile", "continuous", "serve_griffin", "griffin_long",
           "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
-          "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends")
+          "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
+          "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -174,6 +205,8 @@ GRANITE20_FOLLOWERS = ("granite20_long",)
 #: phases that ``serve_bert`` runs after its own (bert-base's weights); search
 #: starts from what calibrate learned
 BERT_FOLLOWERS = ("calibrate", "search")
+#: phases that ``serve_xlstm`` runs after its own (xlstm-1.3b's weights)
+XLSTM_FOLLOWERS = ("xlstm_long",)
 SOURCE = {
     "decode": "src/repro_torch/kernels/csrc/analog_decode.cu",
     "tc": "src/repro_torch/kernels/csrc/analog_tc.cu",
@@ -186,9 +219,10 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: the weight route, so its count is 0 there. ``check_launches`` counts each
 #: route's launches in the phases that hold it against the plain version.
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
-MAIN_PATHS = {"decode": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS,
-              "tc": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS, "simt": (),
-              "weight": ("serve_weight",)}
+FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
+MAIN_PATHS = {"decode": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS + FAMILY_PATHS,
+              "tc": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS + FAMILY_PATHS,
+              "simt": (), "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "site_time")
 
 
@@ -517,6 +551,13 @@ def _cases():
                       True, 4, None))
     cases.append(("granite-20b shot K=1 long prefill k/v", (1, DENSE_LONG_BUCKET, 6144, 128),
                   shot, 20.0, False, 1, None))
+    # the expert sites: one request of the capacity rows, K = 1 and 4
+    for model, (sites, rows) in EXPERT_SITES.items():
+        for stage, m in rows.items():
+            for site, k, n in sites:
+                for reps in (1, 4):
+                    cases.append((f"{model} expert shot K={reps} {stage} {site}", (1, m, k, n),
+                                  shot, 20.0, False, reps, None))
     per_request = [
         ("weight K=4 decode gate/up, cs per request", (2, 1, *gate), weight, 5.0, False, 4, None),
         ("weight K=1 prefill k/v, cs per request", (2, 32, *kv), weight, 5.0, False, 1, None),
@@ -577,7 +618,8 @@ def _repeat_cases():
     """(route, (b, m, k, n), cfg, energy, n_repeats) of each route's largest
     site shapes: decode and tc at qwen2.5-32b's gate/up and down, tc at
     granite-20b's long-prompt k/v, weight at granite-3-8b's gate/up and
-    down, simt at granite-3-8b's gate/up."""
+    down, simt at granite-3-8b's gate/up; grok-1's expert down (prefill,
+    tc) and gate/up (decode)."""
     from repro_torch.core.analog import AnalogConfig
 
     shot, weight = AnalogConfig.shot(), AnalogConfig.weight(0.1)
@@ -590,6 +632,8 @@ def _repeat_cases():
         ("weight", (2, 1, 4096, 12800), weight, 5.0, 4),
         ("weight", (2, 32, 12800, 4096), weight, 5.0, 1),
         ("simt", (4, 64, 4096, 12800), weight, 5.0, 1),
+        ("tc", (1, 80, 16384, 6144), shot, 20.0, 1),
+        ("decode", (1, 2, 6144, 16384), shot, 20.0, 4),
     ]
 
 
@@ -684,14 +728,28 @@ DENSE_SITES = {
     "bert-base": [("q/k/v/o", 768, 768), ("in", 768, 3072), ("out", 3072, 768)],
     "musicgen-large": [("q/k/v/o", 2048, 2048), ("in", 2048, 8192), ("out", 8192, 2048)],
     "internvl2-2b": [("k/v", 2048, 1024)],
+    "xlstm-1.3b": [("2048x2048", 2048, 2048), ("wx", 2048, 8192)],
+    "grok-1-314b": [("q/o", 6144, 6144), ("k/v", 6144, 1024), ("router", 6144, 8)],
+    "llama4-maverick-400b-a17b": [("q/o", 5120, 5120), ("router", 5120, 128),
+                                  ("gate/up", 5120, 8192), ("down", 8192, 5120)],
+}
+#: the MoE expert sites: each expert's buffer is one key's rows, (1, G*C, K)
+#: @ (K, N), G*C the capacity rows of a 4 x 64 prefill and of a 4-row decode
+#: step at the config's capacity factor (grok: 16 virtual experts of 16,384;
+#: llama4: 128 experts of 8,192)
+EXPERT_SITES = {
+    "grok-1-314b": ([("gate/up", 6144, 16384), ("down", 16384, 6144)], {"prefill": 80, "decode": 2}),
+    "llama4-maverick-400b-a17b": ([("gate/up", 5120, 8192), ("down", 8192, 5120)],
+                                  {"prefill": 3, "decode": 1}),
 }
 
 
 def phase_site_time(draw_ps=None) -> list:
     """The chosen route and the simt route, in turns, at every analog site
-    shape of granite-3-8b, recurrentgemma-2b and the rest of the dense
-    family (``DENSE_SITES``): 4 requests, shot noise, K = 1, beside the
-    bound,
+    shape of granite-3-8b, recurrentgemma-2b, the rest of the dense family,
+    xlstm-1.3b and the MoE models' non-expert sites (``DENSE_SITES``): 4
+    requests, shot noise, K = 1; and the MoE expert sites at their capacity
+    rows (``EXPERT_SITES``, one request); beside the bound,
     the plain version, the bare product and the route without its noise
     (what the output noise costs inside the kernel); then the weight route
     at the weight-noise serve's shapes (2 requests, M = 1 and 32), K = 1
@@ -741,6 +799,23 @@ def phase_site_time(draw_ps=None) -> list:
                 if ms > simt_ms and model == "granite-3-8b":
                     raise AssertionError(
                         f"{stage} {site}: route {route} {ms} ms > simt {simt_ms} ms")
+    for model, (sites, m_rows) in EXPERT_SITES.items():
+        for stage, m in m_rows.items():
+            for site, k, n in sites:
+                o, _ = _site_operands(1, m, k, n, shot, 20.0)
+                route = _route_of(o)
+                bound, by, detail = _bound(o, 1)
+                ms, simt_ms, t = turns(o, 1, route)
+                row = dict(
+                    model=model, site=f"expert {site}", stage=stage, shape=[1, m, k, n],
+                    noise="output", n_repeats=1, route=route, ms=ms, simt_ms=simt_ms, turns_ms=t,
+                    share_of_bound=bound / ms,
+                    plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
+                    matmul_only_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush),
+                    bound_ms=bound, bound_by=by, f32_simt_bound_ms=detail["f32_simt"],
+                )
+                rows.append(row)
+                log("site_time", **row, card=card())
     weight = AnalogConfig.weight(0.1)
     for stage, m in (("prefill", WEIGHT_PREFILL_ROWS), ("decode", 1)):
         for site, k, n in SITES:
@@ -856,35 +931,63 @@ def phase_weights(CONFIG=None):
             device="cuda", **opts,
         )
 
+    make_engine.params, make_engine.energies = params, energies
     return make_engine
 
 
-def forward_sites(cfg) -> int:
-    """Analog sites of one forward: every group's and every tail layer's."""
+def site_launches(cfg) -> dict:
+    """Kernel launches of each analog site of a group in one forward: m for
+    an mLSTM site (the group's m blocks), E * split for an expert site (one
+    a virtual expert), 1 otherwise."""
     from repro_torch.models import lm
 
-    return (len(lm.group_sites(cfg)) * lm.group_structure(cfg)[0]
+    return {s: (suf[0] if suf else 1) for s, suf in lm.group_sites(cfg).items()}
+
+
+def forward_sites(cfg) -> int:
+    """Kernel launches of one forward's analog sites: every group's and
+    every tail layer's."""
+    from repro_torch.models import lm
+
+    return (sum(site_launches(cfg).values()) * lm.group_structure(cfg)[0]
             + len(lm.TAIL_SITES) * lm.n_tail(cfg))
 
 
 def layer_sites(cfg) -> list:
-    """Analog sites of each model layer, in layer order."""
+    """Kernel launches of the analog sites of each model layer, in layer
+    order."""
     from repro_torch.models import lm
 
     g, per = lm.group_structure(cfg)
-    subs = list(lm.group_site_subs(cfg).values())
-    return [subs.count(i) for i in range(per)] * g + [len(lm.TAIL_SITES)] * lm.n_tail(cfg)
+    counts = [0] * per
+    for site, sub in lm.group_site_subs(cfg).items():
+        if sub == "stack":  # one launch for each of the m mLSTM blocks
+            for j in range(per - 1):
+                counts[j] += 1
+        else:
+            counts[sub] += site_launches(cfg)[site]
+    return counts * g + [len(lm.TAIL_SITES)] * lm.n_tail(cfg)
 
 
 #: an analog site's suffix -> its weight leaf
 _LEAF_OF = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "w_gate", "up": "w_up",
             "in": "w_in", "out": "w_down", "rec_gate": "w_gate", "rec_in": "w_x", "rec_a": "w_a",
             "rec_i": "w_i", "rec_out": "w_out"}
+#: the xlstm and MoE sites' weight leaves (under ``blocks``)
+_FAMILY_LEAF = {"mlstm_z": ("mlstm", "w_z"), "mlstm_q": ("mlstm", "w_q"),
+                "mlstm_k": ("mlstm", "w_k"), "mlstm_v": ("mlstm", "w_v"),
+                "mlstm_o": ("mlstm", "w_o"), "slstm_wx": ("slstm", "w_x"),
+                "slstm_o": ("slstm", "w_o"), "router": ("moe", "router"),
+                "moe_gate": ("moe", "w_gate"), "moe_up": ("moe", "w_up"),
+                "moe_in": ("moe", "w_in"), "moe_down": ("moe", "w_down"),
+                "moe_shared_gate": ("moe", "shared", "w_gate"),
+                "moe_shared_up": ("moe", "shared", "w_up"),
+                "moe_shared_out": ("moe", "shared", "w_down")}
 
 
 def forward_shapes(cfg) -> dict:
-    """(K, N) of every analog site of one forward -> its count, from the
-    weight leaves the sites read."""
+    """(K, N) of every analog site launch of one forward -> its count, from
+    the weight leaves the sites read."""
     from repro_torch.models import lm
 
     leaves = lm.param_leaves(cfg)
@@ -894,9 +997,16 @@ def forward_shapes(cfg) -> dict:
         kn = tuple(leaf.shape[-2:])
         count[kn] = count.get(kn, 0) + times
 
-    for site in lm.group_sites(cfg):
-        sub, kind = site.split("_", 1)
-        add(leaves["blocks"][sub][_LEAF_OF[kind]], lm.group_structure(cfg)[0])
+    g = lm.group_structure(cfg)[0]
+    for site, n in site_launches(cfg).items():
+        if site in _FAMILY_LEAF:
+            leaf = leaves["blocks"]
+            for part in _FAMILY_LEAF[site]:
+                leaf = leaf[part]
+        else:
+            sub, kind = site.split("_", 1)
+            leaf = leaves["blocks"][sub][_LEAF_OF[kind]]
+        add(leaf, g * n)
     for site in lm.TAIL_SITES if lm.n_tail(cfg) else ():
         sub, kind = site.split("_", 1)
         add(leaves["tail"]["rec" if sub.startswith("rec") else "mlp"][_LEAF_OF[kind]],
@@ -2151,6 +2261,435 @@ def phase_frontends():
         params = energies = cache = ocache = None
     return total
 
+class _Blocks:
+    """Records every xlstm block call of a forward: (the block function,
+    x, params, hook, keyword arguments, output y, new state)."""
+
+    def __enter__(self):
+        from repro_torch.models import xlstm
+
+        self.calls, self.real = [], (xlstm.mlstm_block, xlstm.slstm_block)
+
+        def wrap(fn):
+            def call(x, p, hook, **kw):
+                y, st = fn(x, p, hook, **kw)
+                self.calls.append((fn, x, p, hook, kw, y, st))
+                return y, st
+            return call
+
+        xlstm.mlstm_block, xlstm.slstm_block = (wrap(f) for f in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import xlstm
+
+        xlstm.mlstm_block, xlstm.slstm_block = self.real
+
+
+def _blocks_vs_plain(forward, lengths):
+    """Every xlstm block of ``forward()`` (a kernel-path prefill), run again
+    from its own input on the plain path: the whole path, block by block.
+    Returns the largest relative errors (max|dy| / max|y| over the real
+    tokens) against the plain path, of the plain path against itself (each
+    request alone against its row of the batch: float order only), and of
+    faulty controls: other noise streams (a key word changed), no noise."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.hooks import MatmulHook
+
+    with _Blocks() as rec:
+        forward()
+    b, t = rec.calls[0][1].shape[:2]
+    real = torch.arange(t, device="cuda")[None, :] < lengths.to("cuda")[:, None]
+    rows = [i for i in range(b) if int(lengths[i]) > 0]
+
+    def rel(y, want, mask=real):
+        return float((y[mask] - want[mask]).abs().max()) / float(want[mask].abs().max())
+
+    out = {"kernel": [], "float_order": [], "other_seeds": [], "no_noise": []}
+    for fn, x, p, hook, kw, y, _ in rec.calls:
+        tile = dataclasses.replace(hook, cfg=dataclasses.replace(hook.cfg, backend="tile"))
+        yt, _ = fn(x, p, tile, **kw)
+        out["kernel"].append(rel(y, yt))
+        solo = []
+        for i in rows:
+            one = dataclasses.replace(tile, seeds={s: v[i:i + 1] for s, v in tile.seeds.items()})
+            kw1 = dict(kw, pad_mask=None if kw.get("pad_mask") is None else kw["pad_mask"][i:i + 1])
+            solo.append(rel(fn(x[i:i + 1], p, one, **kw1)[0], yt[i:i + 1], real[i:i + 1]))
+        out["float_order"].append(max(solo))
+        flip = torch.tensor([1, 0, 0, 0], dtype=torch.int32, device="cuda")  # another key word
+        other = dataclasses.replace(hook, seeds={s: v ^ flip for s, v in hook.seeds.items()})
+        out["other_seeds"].append(rel(fn(x, p, other, **kw)[0], yt))
+        out["no_noise"].append(rel(fn(x, p, MatmulHook(), **kw)[0], yt))
+    return out
+
+
+def _block_summary(out):
+    """The largest error of each kind, and the block that gave it."""
+    return {k: dict(max=max(v), block=v.index(max(v)), min=min(v)) for k, v in out.items()}
+
+
+def phase_whole_path_xlstm(make_engine, engine, prompts, tiers):
+    """The first batch, kernels against the plain ("tile") path on the card,
+    block by block: each of the 48 blocks of the kernel-path prefill run
+    again from its own input on the plain path, within ``LOGIT_REL_TOL`` of
+    max|y| and below every faulty control. (On random weights the mLSTM
+    block amplifies a relative change of its sites' outputs 60-250 fold,
+    so at the logits, 48 blocks deep, float order alone differs by O(1):
+    printed beside the controls, not held.)"""
+    fb = _first_batch(engine, prompts, tiers)
+    k, n = fb["k"], len(fb["first"])
+    cache_len = fb["sb"] + SERVE_MAX_GEN
+    prefill = lambda eng, table, sl=slice(None): eng.tiers.get(k).prefill(
+        fb["tok"][sl], fb["lengths"][sl], table[sl], cache_len)[1]
+    blocks = _blocks_vs_plain(lambda: prefill(engine, fb["table"]), fb["lengths"])
+    tile = make_engine("tile")
+    lk, lt = prefill(engine, fb["table"]), prefill(tile, fb["table"])
+    float_order = [_rel(prefill(tile, fb["table"], slice(i, i + 1)), lt[i:i + 1], 1)
+                   for i in range(n)]
+    summary = _block_summary(blocks)
+    tol = LOGIT_REL_TOL
+    worst_control = min(min(blocks["other_seeds"]), min(blocks["no_noise"]))
+    log("whole_path_xlstm", config=engine.model_cfg.name, requests=fb["first"], tier=k,
+        bucket=[fb["bb"], fb["sb"]], blocks=len(blocks["kernel"]), block_rel=summary,
+        block_rel_tol=tol, tol_below_controls=tol < worst_control,
+        kernel_by_block=blocks["kernel"], logit_rel_err=_rel(lk, lt, n),
+        logit_plain_float_order=float_order, card=card())
+    if not (summary["kernel"]["max"] <= tol < worst_control):
+        raise AssertionError(f"xlstm blocks kernel vs plain: {summary} (tol {tol})")
+
+
+def phase_xlstm_long(make_engine, CONFIG):
+    """One request with a 2,048-token prompt (one bucket of its length: the
+    chunk scan carries its state across 4 chunks of 512 in every mLSTM
+    block, sLSTM runs 2,048 steps), K=1, ``XLSTM_LONG_GEN`` new tokens
+    through the engine. Its kernel-path prefill against the plain path,
+    block by block (``_blocks_vs_plain``); then, digitally in float32,
+    each decode step's logits against a cache-free prefill of the sequence
+    so far (2,049 tokens and on, whose chunk grid ends in a short chunk),
+    beside a control that decodes from another prompt's state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import batch_keys
+
+    rng = np.random.default_rng(2)
+    prompt, other = (rng.integers(0, CONFIG.vocab_size, XLSTM_LONG_PROMPT).astype(np.int32)
+                     for _ in range(2))
+    kw = dict(max_gen=XLSTM_LONG_GEN, batch_buckets=(1,), seq_buckets=(XLSTM_LONG_PROMPT,))
+    engine = make_engine("auto", **kw)
+    uid = engine.submit(prompt, n_repeats=1, max_new_tokens=XLSTM_LONG_GEN)
+    results, flush_s, launches = _drain(engine)
+    st = engine.stats
+    sites = forward_sites(CONFIG)
+    expected = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+                "weight": 0}
+    if launches != expected or len(results[uid]) != XLSTM_LONG_GEN:
+        raise AssertionError(f"long prompt: launches {launches} != {expected}, tokens {results}")
+    lengths = torch.tensor([XLSTM_LONG_PROMPT], device="cuda")
+    table = batch_keys([fold_in(PRNGKey(0), uid)], 1)
+    cache_len = XLSTM_LONG_PROMPT + XLSTM_LONG_GEN
+    tok = torch.tensor(prompt[None], device="cuda")
+    tier = engine.tiers.get(engine.tiers.base_id)
+    (_, lk), kernel_ms = _wall_ms(lambda: tier.prefill(tok, lengths, table, cache_len))
+    blocks = _block_summary(_blocks_vs_plain(lambda: tier.prefill(tok, lengths, table, cache_len),
+                                             lengths))
+    tol = LOGIT_REL_TOL
+    worst_control = min(blocks["other_seeds"]["min"], blocks["no_noise"]["min"])
+    if not (blocks["kernel"]["max"] <= tol < worst_control and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"long prefill blocks kernel vs plain: {blocks} (tol {tol})")
+
+    # float32, digital: decode steps against cache-free prefills
+    cfg32 = dataclasses.replace(CONFIG, dtype="float32")
+    params = lm.map_leaves(lambda _p, a: a.float(), make_engine.params)
+    cache, h = lm.prefill(params, tok, cfg32, cache_len=cache_len)
+    ocache, _ = lm.prefill(params, torch.tensor(other[None], device="cuda"), cfg32,
+                           cache_len=cache_len)
+    seq, nxt = list(prompt), torch.argmax(lm.logits_last(params, h, cfg32)[:, 0, 0], dim=-1)
+    errs, ctrl, full_ms = [], [], []
+    for step in range(XLSTM_LONG_GEN - 1):
+        pos = torch.tensor([XLSTM_LONG_PROMPT + step])
+        seq.append(int(nxt[0]))
+        lg, cache = lm.decode_step(params, cache, nxt[:, None], pos, cfg32)
+        lo, ocache = lm.decode_step(params, ocache, nxt[:, None], pos, cfg32)
+        (_, h), ms = _wall_ms(lambda: lm.prefill(params, torch.tensor([seq], device="cuda"), cfg32))
+        full_ms.append(ms)
+        want = lm.logits_last(params, h, cfg32)[:, 0, 0]
+        errs.append(_rel(lg[:, 0, 0], want, 1))
+        ctrl.append(_rel(lo[:, 0, 0], want, 1))
+        nxt = torch.argmax(lg[:, 0, 0], dim=-1)
+    log("xlstm_long", config=CONFIG.name, prompt_len=XLSTM_LONG_PROMPT,
+        chunks=-(-XLSTM_LONG_PROMPT // min(CONFIG.attn_kv_chunk, 512)), new_tokens=XLSTM_LONG_GEN,
+        tokens=results[uid].tolist(), launches=launches, expected_launches=expected,
+        flush_ms=flush_s * 1e3, prefill_ms=kernel_ms, block_rel=blocks, block_rel_tol=tol,
+        cache_free_prefill_f32_ms=full_ms, state_gib=sum(
+            a.numel() * a.element_size() for a in cache["groups"].values()) / 2**30,
+        decode_vs_prefill_f32_rel_err=errs, control_other_state=ctrl,
+        decode_tol_below_control=tol < min(ctrl), card=card())
+    if not (max(errs) <= tol < min(ctrl) and bool(torch.isfinite(lg).all())):
+        raise AssertionError(f"long decode vs cache-free prefill: {errs} > {tol} or control {ctrl}")
+    return launches
+
+
+def _moe_traffic(cfg):
+    """``MOE_REQUESTS`` prompts of 33..64 tokens (``default_rng(0)``) at
+    K=1: whole 4 x 64 prefill buckets."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(33, 65, size=MOE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lengths]
+    return prompts, [1] * MOE_REQUESTS
+
+
+class _Routing:
+    """Records the expert ids of every ``moe.router_topk`` call (``pin``
+    None), or hands each call the ids of a recorded run (``pin``: the
+    gate weights are the call's own probabilities at those ids)."""
+
+    def __init__(self, pin=None):
+        self.pin, self.ids = pin, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.real = moe.router_topk
+
+        def routed(logits, top_k):
+            gates, ids = self.real(logits, top_k)
+            if self.pin is not None:
+                ids = self.pin[len(self.ids)]
+                z = logits.float()
+                probs = torch.softmax(z, dim=-1)
+                gates = torch.gather(probs, -1, ids)
+                if top_k > 1:
+                    gates = gates / gates.sum(dim=-1, keepdim=True)
+            self.ids.append(ids)
+            return gates, ids
+
+        moe.router_topk = routed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.router_topk = self.real
+
+
+def _flip_share(a, b, real):
+    """Share of the real tokens' (token, slot) expert choices that differ
+    between two recorded runs; ``real`` (B * T,) marks real tokens."""
+    flips = total = 0
+    for x, y in zip(a.ids, b.ids):
+        x, y = x.reshape(-1, x.shape[-1])[real], y.reshape(-1, y.shape[-1])[real]
+        flips += int((x != y).sum())
+        total += x.numel()
+    return flips / total
+
+
+def phase_whole_path_moe(make_engine, engine, prompts, tiers):
+    """The first batch's prefill, kernels against the plain ("tile") path
+    on the card. Routing is discrete: the share of (token, slot) expert
+    choices that differ between the two is held below half of what a path
+    with a known fault (other seeds) flips, and the plain path's logits
+    with its routing pinned to the kernel path's choices are held to the
+    dense rule (``LOGIT_REL_TOL``); the rows whose routing matched in every
+    layer are printed with their error."""
+    import torch
+
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving.engine import batch_keys
+
+    fb = _first_batch(engine, prompts, tiers)
+    k, n = fb["k"], len(fb["first"])
+    cache_len = fb["sb"] + SERVE_MAX_GEN
+    prefill = lambda eng, kk, table: eng.tiers.get(kk).prefill(
+        fb["tok"], fb["lengths"], table, cache_len)[1]
+    real = (torch.arange(fb["sb"], device="cuda")[None, :] < fb["lengths"][:, None]).reshape(-1)
+    with _Routing() as rk:
+        lk = prefill(engine, k, fb["table"])
+    tile = make_engine("tile")
+    with _Routing() as rt:
+        lt = prefill(tile, k, fb["table"])
+    with _Routing(pin=rk.ids):
+        lt_pinned = prefill(tile, k, fb["table"])
+    other = batch_keys([fold_in(PRNGKey(1), i) for i in fb["first"]], fb["bb"])
+    with _Routing() as ro:
+        lo = prefill(engine, k, other)
+    with _Routing() as rd:
+        ld = prefill(make_engine(None), 1, fb["table"])
+    flips = _flip_share(rk, rt, real)
+    controls = {"other_seeds": _flip_share(ro, rt, real), "no_noise": _flip_share(rd, rt, real)}
+    bound = 0.5 * controls["other_seeds"]
+    rows_real = real.reshape(fb["bb"], fb["sb"])
+    matched = [i for i in range(n) if all(bool((
+        x.reshape(fb["bb"], fb["sb"], -1)[i][rows_real[i]] == y.reshape(
+            fb["bb"], fb["sb"], -1)[i][rows_real[i]]).all()) for x, y in zip(rk.ids, rt.ids))]
+    rel_pinned = _rel(lk, lt_pinned, n)
+    rel_matched = {i: _rel(lk[i:i + 1], lt[i:i + 1], 1) for i in matched}
+    tol = LOGIT_REL_TOL
+    log("whole_path_moe", config=engine.model_cfg.name, requests=fb["first"], tier=k,
+        bucket=[fb["bb"], fb["sb"]], router_calls=len(rk.ids), flip_share=flips,
+        flip_bound=bound, control_flip_share=controls, logit_rel_err_pinned=rel_pinned,
+        logit_rel_err_unpinned=_rel(lk, lt, n), logit_rel_tol=tol,
+        control_logit_rel={"other_seeds": _rel(lo, lt, n), "no_noise": _rel(ld, lt, n)},
+        rows_routing_matched=matched, logit_rel_err_matched_rows=rel_matched, card=card())
+    if not (flips <= bound and rel_pinned <= tol and all(r <= tol for r in rel_matched.values())
+            and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"moe whole path: flips {flips} > {bound}, or logits {rel_pinned} "
+                             f"/ {rel_matched} > {tol}")
+
+
+def phase_moe_pad(make_engine, CONFIG, prompts):
+    """The first two prompts through ``lm.prefill`` and ``MOE_STEPS``
+    ``lm.decode_step``s on the kernels, at K=1: (pad keys, the reference's
+    ``tests/test_serving.py`` pad-row case) in a 4-row bucket at the
+    config's capacity factor, the two padding rows' keys and tokens changed
+    -> the real rows' logits equal bit for bit; (pad count) in a 2-row and
+    a 4-row bucket at ``PAD_COUNT_CF`` -> equal bit for bit. The capacity
+    follows the padded group's size, so the pad count changes it: equal
+    capacity behaviour needs no token dropped, and equal bits need each
+    expert buffer on one route in both buckets."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.analog import AnalogConfig, fold_key
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+
+    params, energies = make_engine.params, make_engine.energies
+    two = prompts[:2]  # of at most 64 tokens
+    rng = np.random.default_rng(3)
+
+    def run(cfg, bb, pad_seed, pad_tokens):
+        toks = np.zeros((bb, 64), np.int64)
+        for i, p in enumerate(two):
+            toks[i, :len(p)] = p
+        if pad_tokens:
+            toks[2:] = rng.integers(0, cfg.vocab_size, (bb - 2, 64))
+        lengths = np.asarray([len(p) for p in two] + [0] * (bb - 2))
+        keys = np.stack([fold_in(PRNGKey(0), i) for i in range(2)] + [PRNGKey(pad_seed)] * (bb - 2))
+        spec = lm.AnalogSpec(cfg=AnalogConfig.shot(), energies=energies, key=keys)
+        cache, h = lm.prefill(params, torch.from_numpy(toks).cuda(), cfg, analog=spec,
+                              cache_len=64 + MOE_STEPS, lengths=torch.from_numpy(lengths).cuda())
+        out = [lm.logits_last(params, h, cfg)[:2, 0, 0].float()]
+        for t in range(MOE_STEPS):
+            tok = torch.argmax(out[-1], dim=-1)
+            pad = torch.from_numpy(rng.integers(0, cfg.vocab_size, bb - 2)).cuda() if pad_tokens \
+                else torch.zeros(bb - 2, dtype=tok.dtype, device="cuda")
+            pos = lengths + t
+            lg, cache = lm.decode_step(params, cache, torch.cat([tok, pad])[:, None],
+                                       torch.from_numpy(pos), cfg,
+                                       analog=dataclasses.replace(spec, key=fold_key(keys, pos)),
+                                       lengths=torch.from_numpy(lengths))
+            out.append(lg[:2, 0, 0].float())
+        return out
+
+    def equal(a, b):
+        return [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+
+    keys_equal = equal(run(CONFIG, 4, 0, False), run(CONFIG, 4, 12345, True))
+    wide = dataclasses.replace(CONFIG, capacity_factor=PAD_COUNT_CF)
+    count_equal = equal(run(wide, 2, 0, False), run(wide, 4, 0, True))
+    cap = lambda cfg, n_tok: max(1, int(-(-min(cfg.moe_group_size, n_tok) * cfg.top_k
+                                          * cfg.capacity_factor // cfg.n_experts)))
+    log("moe_pad", config=CONFIG.name, prompt_lens=[len(p) for p in two],
+        pad_keys_equal=keys_equal, pad_count_equal=count_equal,
+        capacity_factor=CONFIG.capacity_factor, pad_count_capacity_factor=PAD_COUNT_CF,
+        capacity_rows={"pad_keys": [cap(CONFIG, 4 * 64), cap(CONFIG, 4)],
+                       "bucket2": [cap(wide, 2 * 64), cap(wide, 2)],
+                       "bucket4": [cap(wide, 4 * 64), cap(wide, 4)]},
+        steps=["prefill"] + [f"decode{t}" for t in range(MOE_STEPS)], card=card())
+    if not (all(keys_equal) and all(count_equal)):
+        raise AssertionError(f"moe pad rows changed real rows: keys {keys_equal}, "
+                             f"count {count_equal}")
+
+
+def phase_serve_grok(make_engine, CONFIG):
+    """grok-1 at ``GROK_LAYERS`` layers, full width: ``MOE_REQUESTS``
+    requests batch-synchronously through ``ServingEngine`` (3 prefills of 4
+    x 64, then decode), every site launch on its route (the 16 virtual
+    experts' buffers: 80 rows in prefill on tc, 2 in decode on decode); the
+    same traffic again through another engine gives the same tokens.
+    Returns (engine, launches, prompts, tiers)."""
+    import numpy as np
+
+    prompts, tiers = _moe_traffic(CONFIG)
+    engine, results, launches = phase_serve(make_engine, prompts, tiers, CONFIG)
+    again = make_engine("auto")
+    for p in prompts:
+        again.submit(p, n_repeats=1, max_new_tokens=SERVE_MAX_GEN)
+    repeat, _, _ = _drain(again)
+    same = [bool(np.array_equal(results[u], repeat[u])) for u in sorted(results)]
+    log("moe_repeat", config=CONFIG.name, requests=len(results), equal=same, card=card())
+    if not all(same):
+        raise AssertionError(f"the same batch served twice differs: {same}")
+    return engine, launches, prompts, tiers
+
+
+def phase_llama4_fit():
+    """llama4-maverick at ``LLAMA4_LAYERS`` layers (one dense and one MoE
+    layer of 128 experts and a shared one), full width: one prefill of a 4
+    x 64 bucket at K=1 through the kernels (3 capacity rows an expert, tc),
+    then ``MOE_STEPS`` decode steps (1 row an expert, decode); launches by
+    route and shape, finite logits, tokens in the vocabulary, wall times,
+    the peak memory and the weights' share of it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_depth
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving.bucketing import pad_to_bucket
+    from repro_torch.serving.engine import batch_keys
+
+    cfg = reduced_depth(get_config("llama4-maverick-400b-a17b"), n_layers=LLAMA4_LAYERS)
+    make_engine = phase_weights(cfg)
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine("auto")
+    prompts, _ = _traffic(cfg)
+    tok_np, lengths_np = pad_to_bucket(prompts[:4], (4, 64))
+    table = batch_keys([fold_in(PRNGKey(0), i) for i in range(4)], 4)
+    tier = engine.tiers.get(1)
+    torch.cuda.synchronize()
+    _zero_launches()
+    tok, lengths = torch.from_numpy(tok_np).cuda(), torch.from_numpy(lengths_np).cuda()
+    (cache, logits), prefill_ms = _wall_ms(lambda: tier.prefill(tok, lengths, table, 64 + MOE_STEPS))
+    prefill_launches = dict(am.LAUNCHES)
+    tokens, step_ms = [torch.argmax(logits, dim=-1)], []
+    for step in range(MOE_STEPS):
+        (logits, cache), ms = _wall_ms(
+            lambda: tier.decode(cache, tokens[-1], lengths_np + step, table, lengths_np))
+        step_ms.append(ms)
+        tokens.append(torch.argmax(logits, dim=-1))
+    launches = dict(am.LAUNCHES)
+    by_shape = {f"{r}:{k}x{n}": c for (r, k, n), c in sorted(am.LAUNCHES_BY_SHAPE.items())}
+    sites = forward_sites(cfg)
+    expected = {"decode": sites * MOE_STEPS, "tc": sites, "simt": 0, "weight": 0}
+    toks = torch.stack(tokens, dim=1).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    log("llama4_fit", config=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+        active_params=cfg.active_param_count(), weights_gib=weights / 2**30,
+        peak_gib=peak / 2**30, weights_share_of_peak=weights / peak, bucket=[4, 64],
+        prompt_lens=[len(p) for p in prompts[:4]], prefill_ms=prefill_ms, decode_ms=step_ms,
+        launches=launches, prefill_launches=prefill_launches, expected_launches=expected,
+        launches_by_shape=by_shape, tokens=toks.tolist(), card=card())
+    if (launches != expected or not bool(torch.isfinite(logits).all())
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"llama4: launches {launches} != {expected} or bad tokens {toks}")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2160,7 +2699,9 @@ def main() -> int:
                          "continuous phases; serve_griffin its step, solo, whole-path and the "
                          "griffin_* phases; serve_granite20, serve_qwen14 and serve_bert their "
                          "step, solo and whole-path phases, serve_granite20 granite20_long too, "
-                         "serve_bert calibrate and search); "
+                         "serve_bert calibrate and search; serve_xlstm its step, solo, "
+                         "whole-path and continuous phases and xlstm_long; serve_grok its "
+                         "step, pad and whole-path phases); "
                          "default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
@@ -2181,6 +2722,7 @@ def main() -> int:
     run |= set(GRIFFIN_FOLLOWERS) if "serve_griffin" in only else set()
     run |= set(GRANITE20_FOLLOWERS) if "serve_granite20" in only else set()
     run |= set(BERT_FOLLOWERS) if run & {"serve_bert", *BERT_FOLLOWERS} else set()
+    run |= set(XLSTM_FOLLOWERS) if "serve_xlstm" in run else set()
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -2289,6 +2831,41 @@ def main() -> int:
         make = cal = None
     if "frontends" in run:
         by_path["frontends"] = timed("frontends", phase_frontends)
+    if run & {"serve_xlstm", *XLSTM_FOLLOWERS}:
+        from repro_torch.configs import get_config
+
+        _free()
+        XLSTM = get_config("xlstm-1.3b")
+        make_xlstm = timed("xlstm_weights", phase_weights, XLSTM)
+        xprompts, xtiers = _traffic(XLSTM)
+    if "serve_xlstm" in run:
+        engine, results, by_path["serve_xlstm"] = timed(
+            "serve_xlstm", phase_serve, make_xlstm, xprompts, xtiers, XLSTM)
+        fb = timed("xlstm_step", phase_steps, engine, xprompts, xtiers)
+        timed("xlstm_solo", phase_solo, engine, results, xprompts, xtiers)
+        timed("xlstm_whole_path", phase_whole_path_xlstm, make_xlstm, engine, xprompts, xtiers)
+        by_path["xlstm_continuous"] = timed(
+            "xlstm_continuous", phase_continuous, make_xlstm, xprompts, XLSTM,
+            ({"n_repeats": 1}, {"n_repeats": 4}))
+        engine = results = fb = None
+    if "xlstm_long" in run:
+        by_path["xlstm_long"] = timed("xlstm_long", phase_xlstm_long, make_xlstm, XLSTM)
+    make_xlstm = None
+    if "serve_grok" in run:
+        from repro_torch.configs import get_config, reduced_depth
+
+        _free()
+        GROK = reduced_depth(get_config("grok-1-314b"), n_layers=GROK_LAYERS)
+        make_grok = timed("grok_weights", phase_weights, GROK)
+        engine, by_path["serve_grok"], gprompts, gtiers = timed(
+            "serve_grok", phase_serve_grok, make_grok, GROK)
+        timed("grok_step", phase_steps, engine, gprompts, gtiers)
+        timed("grok_pad", phase_moe_pad, make_grok, GROK, gprompts)
+        timed("grok_whole_path", phase_whole_path_moe, make_grok, engine, gprompts, gtiers)
+        make_grok = engine = None
+    if "llama4_fit" in run:
+        _free()
+        by_path["llama4_fit"] = timed("llama4_fit", phase_llama4_fit)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))

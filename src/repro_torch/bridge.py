@@ -4,7 +4,8 @@
 (``repro.models.lm.param_leaves`` structure, layer-stacked leaves) as numpy
 arrays and returns the port's tree on ``device``; ``energies_from_numpy``
 does the same for an ``init_energy_tree`` tree (with griffin's ``tail``
-subtrees where the model has tail layers). Both packages then compute
+subtrees where the model has tail layers, and the (G, m) mLSTM and
+(G, E) expert leaves at their shapes). Both packages then compute
 from identical weights. Shapes are checked against ``lm.param_leaves``;
 dtypes are kept (numpy bfloat16 arrays become ``torch.bfloat16``).
 """
@@ -45,9 +46,13 @@ def energies_from_numpy(tree, cfg, device="cuda"):
         want["tail"] = lm.TAIL_SITES
     if set(tree) - {"lm_head"} != set(want):
         raise ValueError(f"energy subtrees {sorted(tree)} != {sorted(want) + ['lm_head']}")
+    shapes = lm.map_leaves(lambda _p, a: tuple(a.shape), lm.init_energy_tree(cfg, 1.0, "meta"))
     out = {"lm_head": _to_torch(tree["lm_head"], dev).to(torch.float32)}
     for sub, sites in want.items():
         if set(tree[sub]) != set(sites):
             raise ValueError(f"{sub} energy sites {sorted(tree[sub])} != {sorted(sites)}")
+        for s in sites:
+            if tuple(np.shape(tree[sub][s])) != shapes[sub][s]:
+                raise ValueError(f"{sub}/{s}: shape {np.shape(tree[sub][s])} != {shapes[sub][s]}")
         out[sub] = {s: _to_torch(tree[sub][s], dev).to(torch.float32) for s in sites}
     return out

@@ -13,14 +13,17 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-#: architecture id -> module; the reference's ids, for the families ported
+#: architecture id -> module; the reference's ids, in its order
 ARCHS: Dict[str, str] = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "grok-1-314b": "grok_1_314b",
     "granite-3-8b": "granite_3_8b",
     "qwen2.5-32b": "qwen2_5_32b",
     "granite-20b": "granite_20b",
     "qwen2.5-14b": "qwen2_5_14b",
     "musicgen-large": "musicgen_large",
     "internvl2-2b": "internvl2_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

@@ -171,6 +171,25 @@ def site_seed_table(key, layers, sites: Sequence[str], device) -> torch.Tensor:
     return key_seed(sk, device)
 
 
+def expert_seed_table(key, layers, sites: Sequence[str], n_experts: int, valid, device
+                      ) -> torch.Tensor:
+    """Seeds of the expert-batched sites of one forward, copied to
+    ``device`` once: (L, S, E, 4). Row ``[l, s, e]`` is ``key_seed`` of
+    expert e's key in the reference's chain: ``fold_key(key, layers[l])``
+    per request row, ``collapse_keys`` of the rows (``valid`` False rows,
+    the batch padding, fold the XOR identity), ``site_key(.., sites[s])``
+    and ``split(.., n_experts)[e]``. One batch-level stream: capacity
+    buffers mix the batch's requests."""
+    key = raw_key(key)
+    idx = np.arange(layers) if isinstance(layers, (int, np.integer)) else np.asarray(layers)
+    lk = fold_key(key[None], idx.astype(np.int64).reshape((-1,) + (1,) * (key.ndim - 1)))
+    ck = np.stack([collapse_keys(k, valid) for k in lk])  # (L, 2)
+    hashes = np.asarray([site_hash(s) for s in sites], np.int64)
+    sk = fold_key(ck[:, None], hashes[None, :])  # (L, S, 2)
+    ek = prng.fold_in(sk[:, :, None], np.arange(n_experts))  # split: (L, S, E, 2)
+    return key_seed(ek, device)
+
+
 # ---------------------------------------------------------------------------
 # the analog matmul
 # ---------------------------------------------------------------------------

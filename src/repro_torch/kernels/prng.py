@@ -162,6 +162,14 @@ def fold_in(key, data) -> np.ndarray:
     return np.stack(np.broadcast_arrays(x0, x1), axis=-1).astype(np.uint32)
 
 
+def split(key, num: int) -> np.ndarray:
+    """``jax.random.split`` on a raw (2,) key, as JAX computes it with
+    ``jax_threefry_partitionable`` on: key ``i`` of the ``num`` is
+    ``threefry(key, (0, i))``, which is ``fold_in(key, i)``. Returns
+    (num, 2) uint32."""
+    return fold_in(np.asarray(key, np.uint32)[None, :], np.arange(int(num)))
+
+
 def key_to_words(key):
     """Raw key -> its two uint32 key words (a one-word key is ``(0, w)``)."""
     data = np.asarray(key, np.uint32).reshape(-1)

@@ -82,7 +82,8 @@ class ServingEngine:
     length is its seq bucket plus ``max_gen``). ``profiles`` are
     registered as tiers at construction.
 
-    ``continuous=True`` decodes through per-tier slot pools of
+    ``continuous=True`` (not for the moe family, whose expert noise is
+    batch-level) decodes through per-tier slot pools of
     ``pool_slots`` rows (default: the largest batch bucket) and a cache
     length of ``max(seq_buckets) + max_gen`` unless ``pool_cache_len``
     says otherwise; a request whose seq bucket plus budget does not fit a
@@ -115,6 +116,13 @@ class ServingEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        if continuous and model_cfg.family == "moe":
+            raise ValueError(
+                "continuous batching is unavailable for the moe family: analog expert sites "
+                "draw a batch-level noise stream (capacity buffers mix requests), so "
+                "admitting or retiring a request would change another's noise mid-stream; "
+                "serve MoE batch-synchronously (continuous=False)"
+            )
         if model_cfg.frontend != "none":
             raise ValueError(f"{model_cfg.name}: the engine serves token prompts, not the "
                              f"{model_cfg.frontend!r} frontend's embeddings")
@@ -346,7 +354,7 @@ class ServingEngine:
         for t in range(n_steps):
             if has_stops and all(done):
                 break  # every real row hit its budget or a stop id
-            logits, cache = tier.decode(cache, tok, lengths + t, keys)
+            logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths)
             tok = torch.argmax(logits, dim=-1)
             toks.append(tok)
             steps_run += 1
@@ -465,7 +473,8 @@ class ServingEngine:
         length-0 rows, and a row that reaches its budget or emits a stop
         id retires at once, its slot free for the next round."""
         tok_dev = torch.from_numpy(pool.tok.astype(np.int64)).to(self.device, non_blocking=True)
-        logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys)
+        logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys,
+                                                   pool.lengths)
         tok = torch.argmax(logits, dim=-1)
         t_read = time.perf_counter()
         tok_np = tok.cpu().numpy()  # retiring rows needs this step's tokens

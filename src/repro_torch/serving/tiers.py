@@ -56,13 +56,18 @@ class ExecutionTier:
         logits = lm.logits_last(eng.params, h_last, eng.model_cfg)
         return cache, logits[:, 0, 0].to(torch.float32)
 
-    def decode(self, cache, tok: torch.Tensor, pos: np.ndarray, keys: np.ndarray):
-        """One decode step at per-row positions -> (logits (B, V) f32, cache)."""
+    def decode(self, cache, tok: torch.Tensor, pos: np.ndarray, keys: np.ndarray,
+               lengths: Optional[np.ndarray] = None):
+        """One decode step at per-row positions -> (logits (B, V) f32, cache).
+        ``lengths``: the rows' prompt lengths, 0 for a batch-padding row
+        (which MoE leaves out of expert capacity and its expert noise key,
+        and whose xlstm state stays as it was); None: every row is real."""
         eng = self.engine
         pos_dev = torch.as_tensor(pos, dtype=torch.int64).to(eng.device, non_blocking=True)
         logits, cache = lm.decode_step(
             eng.params, cache, tok[:, None], pos_dev, eng.model_cfg,
             analog=self.analog_spec(keys, pos=pos),
+            lengths=None if lengths is None else torch.as_tensor(lengths, dtype=torch.int64),
         )
         return logits[:, 0, 0].to(torch.float32), cache
 

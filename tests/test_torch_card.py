@@ -151,3 +151,73 @@ def test_torch_backend_on_card(cuda_device):
     with pytest.raises(RuntimeError, match='backend="torch" or "tile"'):
         analog_dot(x, w, cfg=AnalogConfig.shot(backend="cuda"), energy=energy,
                    seed=seeds.to(cuda_device))
+
+
+class _RowHook:
+    """Digital sites one row at a time: a matmul's bits then do not depend
+    on how many rows it has (the analog routes keep this themselves)."""
+
+    def __call__(self, site, x, w):
+        rows = x.reshape(-1, x.shape[-1])
+        w = w.to(x.dtype)
+        return torch.cat([rows[i:i + 1] @ w for i in range(rows.shape[0])]).reshape(
+            *x.shape[:-1], w.shape[-1])
+
+    def batched(self, site, x, w):
+        return torch.stack([self(site, x[e], w[e]) for e in range(w.shape[0])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 4])
+def test_recurrent_and_moe_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_device):
+    """xlstm-1.3b's ops at its widths (4 heads of 512) on the card: mLSTM
+    decode's contractions over 512 and the chunk scan, the mLSTM and sLSTM
+    blocks (the gate projection, the head norm, the recurrent product of
+    every step) give a request's row alone (B = 1) the bits it has in a
+    batch of ``b``. And the MoE block (routing softmax, dispatch, the
+    combine): two requests' tokens in a group with ``b`` - 2 padding rows
+    get the bits they get alone, at a capacity that drops none."""
+    from repro_torch.models import lm, moe, xlstm
+    from repro_torch.models.config import ModelConfig
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=cuda_device) * scale  # noqa: E731
+    q, k, v = randn(b, 1, 4, 512), randn(b, 1, 4, 512), randn(b, 1, 4, 512)
+    li, lf = randn(b, 1, 4), -torch.rand((b, 1, 4), generator=gen, device=cuda_device)
+    st = (randn(b, 4, 512, 512, scale=0.1), randn(b, 4, 512, scale=0.1), randn(b, 4))
+    dec, dec_st = xlstm.mlstm_decode(q, k, v, li, lf, st)
+    qp, kp, vp = randn(b, 64, 4, 512), randn(b, 64, 4, 512), randn(b, 64, 4, 512)
+    lip, lfp = randn(b, 64, 4), -torch.rand((b, 64, 4), generator=gen, device=cuda_device)
+    scan, scan_st = xlstm.mlstm_chunkwise(qp, kp, vp, lip, lfp, chunk=512)
+    cfg = ModelConfig(name="x", family="xlstm", n_layers=8, d_model=2048, n_heads=4, n_kv_heads=4,
+                      d_ff=0, vocab_size=64)
+    pm = {n: randn(*leaf.shape, scale=leaf.scale or 0.1).to(torch.bfloat16)
+          for n, leaf in lm._mlstm_leaves(cfg, ()).items()}
+    ps = {n: randn(*leaf.shape, scale=leaf.scale or 0.1).to(torch.bfloat16)
+          for n, leaf in lm._slstm_leaves(cfg, ()).items()}
+    x = randn(b, 16, 2048).to(torch.bfloat16)
+    mb, mb_st = xlstm.mlstm_block(x, pm, _RowHook(), n_heads=4, chunk=512)
+    sb, sb_st = xlstm.slstm_block(x[:, :6], ps, _RowHook(), n_heads=4)
+    for i in range(b):
+        one = slice(i, i + 1)
+        h1, s1 = xlstm.mlstm_decode(q[one], k[one], v[one], li[one], lf[one],
+                                    tuple(s[one] for s in st))
+        assert torch.equal(h1, dec[one]) and all(torch.equal(a, c[one]) for a, c in zip(s1, dec_st))
+        h1, s1 = xlstm.mlstm_chunkwise(qp[one], kp[one], vp[one], lip[one], lfp[one], chunk=512)
+        assert torch.equal(h1, scan[one]) and all(torch.equal(a, c[one]) for a, c in zip(s1, scan_st))
+        h1, s1 = xlstm.mlstm_block(x[one], pm, _RowHook(), n_heads=4, chunk=512)
+        assert torch.equal(h1, mb[one]) and all(torch.equal(a, c[one]) for a, c in zip(s1, mb_st))
+        h1, s1 = xlstm.slstm_block(x[one, :6], ps, _RowHook(), n_heads=4)
+        assert torch.equal(h1, sb[one]) and all(torch.equal(a, c[one]) for a, c in zip(s1, sb_st))
+
+    mcfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=512, vocab_size=64, n_experts=8, top_k=2, moe_ff_split=2,
+                       capacity_factor=4.0, dtype="bfloat16")
+    pe = {n: randn(*leaf.shape, scale=leaf.scale).to(torch.bfloat16)
+          for n, leaf in lm._moe_leaves(mcfg, ()).items()}
+    xm = randn(b, 16, 256).to(torch.bfloat16)
+    lengths = torch.tensor([16, 9] + [0] * (b - 2), device=cuda_device)
+    pad = torch.arange(16, device=cuda_device)[None, :] >= lengths[:, None]
+    alone = moe.moe_block(xm[:2], pe, mcfg, _RowHook(), pad_mask=pad[:2])
+    padded = moe.moe_block(xm, pe, mcfg, _RowHook(), pad_mask=pad)
+    assert torch.equal(alone[~pad[:2]], padded[:2][~pad[:2]])

@@ -98,11 +98,12 @@ def test_config_is_the_reference_config(arch):
 
 
 def test_registry_covers_the_port_configs():
-    assert set(configs.ARCHS) <= set(jconfigs.ARCHS)
+    """The port's registry is the reference's: every family is ported."""
+    assert configs.ARCHS == jconfigs.ARCHS
     assert configs.EXTRA_ARCHS == jconfigs.EXTRA_ARCHS
     assert set(NEW) <= set(configs.ARCHS) | set(configs.EXTRA_ARCHS)
     with pytest.raises(KeyError):
-        configs.get_config("xlstm-1.3b")
+        configs.get_config("xlstm-7b")
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -134,9 +135,10 @@ def test_gelu_config_rules():
     base = dict(name="x", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64)
     assert ModelConfig(family="dense", mlp_type="gelu", qkv_bias=True, frontend="frames",
                        n_codebooks=4, **base).n_codebooks == 4
+    assert ModelConfig(family="moe", mlp_type="gelu", n_experts=4, **base).mlp_type == "gelu"
     for kw in (dict(family="griffin", qkv_bias=True), dict(family="griffin", frontend="patch"),
                dict(family="griffin", n_codebooks=2), dict(family="dense", frontend="audio"),
-               dict(family="moe", mlp_type="gelu")):
+               dict(family="moe", mlp_type="gelu", n_experts=4, n_shared_experts=1)):
         with pytest.raises(ValueError):
             ModelConfig(**{**base, **kw})
 

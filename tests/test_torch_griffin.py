@@ -439,10 +439,14 @@ def test_recurrentgemma_config_is_the_reference_config():
     assert "tail" in lm.param_leaves(RGEMMA) and "lm_head" not in lm.param_leaves(RGEMMA)
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="xlstm"),
+@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="xlstm"), dict(family="rnn"),
                                 dict(family="griffin", mlp_type="gelu"),
                                 dict(family="griffin", griffin_pattern=("rec", "mlstm"))])
 def test_config_raises_for_unported_families(kw):
+    """Every family of the reference is ported; what raises is a family the
+    reference does not have, or a config its family cannot run: moe with
+    no experts, xlstm with no whole group of ``slstm_ratio`` (8) layers,
+    griffin with a GELU MLP or an unknown sublayer."""
     base = dict(name="x", family="dense", n_layers=2, d_model=32, d_ff=64, **_TINY)
     with pytest.raises(ValueError):
         ModelConfig(**{**base, **kw})
