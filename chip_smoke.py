@@ -32,7 +32,13 @@ launches by K and its prefill logits against the plain path
 (``profile``), and serves 24 requests of mixed budgets over K=1, K=4 and
 ``edge4`` through continuous batching (per-tier 4-slot decode pools) and
 batch-synchronous batches, holding every request's tokens equal bit for
-bit across the two, and alone (``continuous``). Then it frees granite's
+bit across the two, and alone (``continuous``). On the same weights it
+holds serving resilience (``resilience``): fault plans (empty, drift held
+against hand-set energies, transient faults with retries, poisoned rows,
+deadlines), the drift watchdog, the precision governor, and a three-replica
+cluster over one copy of the weights through a crash, a hang, a degraded
+replica and a hedge, every request's tokens against the plain pooled
+run's. Then it frees granite's
 weights and serves recurrentgemma-2b (griffin: RG-LRU and local
 attention, 26 layers, 200 analog sites a forward) at full width and depth
 (``serve_griffin``): eight requests through ``ServingEngine`` with every
@@ -144,6 +150,13 @@ WEIGHT_PREFILL_ROWS = 32
 EDGE4 = (4,) * 4 + (1,) * 32 + (4,) * 4
 PROFILE_SERVE_GEN = 8
 POOL_SLOTS = 4
+#: the resilience phase: new tokens a request; the drift factors held
+#: against hand-set energies; the watchdog's probe width (2 rows), probe
+#: cadence (pump steps), noise samples a probe and the drift's onset
+#: (fault clock)
+RES_GEN = 8
+RES_DRIFT = (1.5, 2.0)
+WD_T, WD_INTERVAL, WD_SAMPLES, WD_ONSET = 32, 2, 2, 6
 #: the griffin serve (recurrentgemma-2b): its edge profile, K=4 at layers
 #: 0-2 and 23-25 (both tail layers), K=1 between; the long prompt's length,
 #: seq bucket and new tokens
@@ -192,12 +205,12 @@ MOE_STEPS = 4
 #: route: another float order.)
 PAD_COUNT_CF = 6.0
 PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
-          "serve_weight", "profile", "continuous", "serve_griffin", "griffin_long",
+          "serve_weight", "profile", "continuous", "resilience", "serve_griffin", "griffin_long",
           "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
 #: phases that ``serve`` runs after its own (they share its weights)
-SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous")
+SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
 GRIFFIN_FOLLOWERS = ("griffin_long", "griffin_profile", "griffin_continuous")
 #: phases that ``serve_granite20`` runs after its own (granite-20b's weights)
@@ -220,8 +233,10 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: route's launches in the phases that hold it against the plain version.
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
-MAIN_PATHS = {"decode": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS + FAMILY_PATHS,
-              "tc": ("serve", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS + FAMILY_PATHS,
+MAIN_PATHS = {"decode": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
+              + FAMILY_PATHS,
+              "tc": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
+              + FAMILY_PATHS,
               "simt": (), "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "site_time")
 
@@ -1246,33 +1261,54 @@ def _first_batch(engine, prompts, tiers):
                 table=batch_keys(keys, bb))
 
 
-def phase_steps(engine, prompts, tiers):
-    """Prefill and decode of the first batch through the kernels: wall time
-    of an unprofiled prefill and of an unprofiled run of decode steps (one
-    sync at each end, as the engine runs them), then one profiled prefill
-    and decode step for the device's time by kernel. The idle share is
+def phase_steps(engine, prompts, tiers, drift_ab=False):
+    """Prefill and decode of the first batch through the kernels, with the
+    engine's drift operand as the engine passes it: wall time of an
+    unprofiled prefill and of an unprofiled run of decode steps (one sync
+    at each end, as the engine runs them), then one profiled prefill and
+    decode step for the device's time by kernel. The idle share is
     1 - profiled device time / unprofiled wall time; the profiler's own
-    cost (profiled wall - unprofiled wall) is printed beside it."""
+    cost (profiled wall - unprofiled wall) is printed beside it.
+
+    ``drift_ab``: also time the decode steps without the drift operand
+    (the forward of an engine that has none) against with it, in turns
+    (off, on, on, off), and profile one step of each: what carrying the
+    drift as a runtime operand costs a step."""
     import torch
 
     fb = _first_batch(engine, prompts, tiers)
     tier = engine.tiers.get(fb["k"])
     cache_len = fb["sb"] + SERVE_MAX_GEN
-    prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len)
+    scale = engine._scale_arr()
+    prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len,
+                                   noise_scale=scale)
     (cache, logits), prefill_ms = _wall_ms(prefill)
     n_steps = SERVE_MAX_GEN - 1
 
-    def decode_run():
+    def decode_run(d=scale):
         c, tok = cache, torch.argmax(logits, dim=-1)
         for t in range(n_steps):
-            lg, c = tier.decode(c, tok, fb["lengths_np"] + t, fb["table"])
+            lg, c = tier.decode(c, tok, fb["lengths_np"] + t, fb["table"], noise_scale=d)
             tok = torch.argmax(lg, dim=-1)
         return tok
 
     _, decode_ms = _wall_ms(decode_run)
+    if drift_ab:
+        ms = {"off": [], "on": []}
+        for arm in ("off", "on", "on", "off"):
+            ms[arm].append(_wall_ms(lambda: decode_run(None if arm == "off" else scale))[1]
+                           / n_steps)
+        one = lambda d: lambda: tier.decode(cache, torch.argmax(logits, dim=-1),
+                                            fb["lengths_np"], fb["table"], noise_scale=d)
+        prof = {arm: _profile(one(d))[1] for arm, d in (("off", None), ("on", scale))}
+        log("drift_operand", config=engine.model_cfg.name, steps_timed=n_steps,
+            ms_a_step_off=ms["off"], ms_a_step_on=ms["on"],
+            device_ms_off=prof["off"]["device_ms"], device_ms_on=prof["on"]["device_ms"],
+            card=card())
     (cache, logits), prefill_prof = _profile(prefill)
     _, decode_prof = _profile(
-        lambda: tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"], fb["table"]))
+        lambda: tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"], fb["table"],
+                            noise_scale=scale))
     n_real = len(fb["first"])
     prompt_tokens = sum(len(prompts[i]) for i in fb["first"])
     step_ms = decode_ms / n_steps
@@ -1507,6 +1543,402 @@ def phase_continuous(make_engine, prompts, CONFIG=None, tiers=None):
         slot_steps={k: r["decode_slot_steps"] for k, r in rows.items()},
         tokens_per_s={k: r["generated_tokens_per_s"] for k, r in rows.items()}, card=card())
     return rows["continuous"]["launches"]
+
+
+def _launch_delta(before):
+    from repro_torch.kernels import analog_matmul as am
+
+    return {r: am.LAUNCHES[r] - before[r] for r in am.ROUTES}
+
+
+def _res_serve(engine, subs, *, dt=1e-3, max_rounds=2000):
+    """Submit ``(prompt, kwargs)`` pairs at virtual time 0 and poll on a
+    virtual clock until every request resolves: (uids, results, wall
+    seconds, launches by route in the window)."""
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+
+    torch.cuda.synchronize()
+    before = dict(am.LAUNCHES)
+    t0 = time.perf_counter()
+    uids = [engine.submit(p, now=0.0, **kw) for p, kw in subs]
+    results, now = {}, 0.0
+    for _ in range(max_rounds):
+        if not engine.n_in_flight:
+            break
+        now += dt
+        results.update(engine.poll(now=now))
+    torch.cuda.synchronize()
+    if engine.n_in_flight:
+        raise AssertionError(f"engine did not drain in {max_rounds} rounds")
+    return uids, results, time.perf_counter() - t0, _launch_delta(before)
+
+
+def _tokens_ok(toks, n, vocab):
+    import numpy as np
+
+    return isinstance(toks, np.ndarray) and len(toks) == n and toks.min() >= 0 and toks.max() < vocab
+
+
+def phase_resilience(make_engine, prompts, tiers, CONFIG=None):
+    """Serving resilience on granite-3-8b at full width and depth (shot
+    noise at 20 aJ/MAC), the serve's eight prompts and tiers through 4-slot
+    continuous pools (one seq bucket, ``RES_GEN`` new tokens), every check
+    a failure of the run: (a) an empty ``FaultPlan`` gives the plain
+    engine's tokens and launches; (b) under a ``DriftRamp`` at each of
+    ``RES_DRIFT`` the tokens equal an engine's without a plan whose
+    energies are E/d**2 set by hand, launches by route unchanged, and a
+    noise scale of 1.0 gives the prefill logits of no scale bit for bit;
+    (c) a transient decode fault retries its pool's rows at the promoted
+    tier, the other pool's tokens equal to the plain run's, and a fault
+    past the retry budget resolves to ``Failed``; (d) a poisoned row
+    retires that row alone; (e) a queued deadline gives an empty
+    ``TimedOut``, a pooled one keeps a prefix of the plain run's tokens;
+    (f) the drift watchdog stays in band at nominal and catches a 2x step
+    within two probe intervals (ms a probe); (g) the precision governor
+    demotes K=4 -> K=1 under a load ramp and promotes back, sheds only with
+    no demotion headroom left, and a power budget holds promotion off; (h)
+    three replicas over one copy of the weights (``ClusterRouter``): a
+    healthy cluster, a crash (failover, journaled prefixes re-served equal),
+    a hang (suspect, recovered, no failover), a degraded replica (its queued
+    work quarantined) and a hedge give the plain run's tokens; the
+    failover's seconds, peak memory and the cluster's tokens/s beside one
+    engine's. Returns the phase's launches by route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.serving import (
+        ClusterRouter,
+        DriftRamp,
+        Failed,
+        FaultPlan,
+        NoiseDriftWatchdog,
+        PolicyConfig,
+        QueueFull,
+        ReplicaCrash,
+        ReplicaDegraded,
+        ReplicaHang,
+        ServingEngine,
+        TierSpec,
+        TimedOut,
+        WatchdogConfig,
+    )
+    from repro_torch.serving.bucketing import pad_to_bucket
+    from repro_torch.serving.engine import batch_keys
+    from repro_torch.tree import leaves, map_leaves
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    vocab, sites = CONFIG.vocab_size, forward_sites(CONFIG)
+    opts = dict(continuous=True, pool_slots=POOL_SLOTS, seq_buckets=(64,), max_wait=0.0,
+                max_gen=RES_GEN, k_ladder=(1, 2, 4))
+
+    def eng(**kw):
+        return make_engine("auto", **dict(opts, **kw))
+
+    def eng_over(energies, **kw):
+        return ServingEngine(make_engine.params, CONFIG, analog_cfg=AnalogConfig.shot(),
+                             energies=energies, device="cuda", batch_buckets=(1, 2, 4),
+                             **dict(opts, **kw))
+
+    keys = [fold_in(PRNGKey(0), i) for i in range(len(prompts))]
+    subs = [(p, dict(n_repeats=k, max_new_tokens=RES_GEN, key=key))
+            for p, k, key in zip(prompts, tiers, keys)]
+    torch.cuda.synchronize()
+    _zero_launches()
+
+    # (a) the plain pooled run, and an armed but empty plan
+    base_eng = eng()
+    _, base, base_s, base_l = _res_serve(base_eng, subs)
+    st = base_eng.stats
+    want = {"decode": sites * st["decode_steps"], "tc": sites * st["batches"], "simt": 0,
+            "weight": 0}
+    if base_l != want or not all(_tokens_ok(base[u], RES_GEN, vocab) for u in range(len(subs))):
+        raise AssertionError(f"plain run: launches {base_l} != {want} or bad tokens {base}")
+    _, empty, _, empty_l = _res_serve(eng(fault_plan=FaultPlan()), subs)
+    same = [bool(np.array_equal(empty[u], base[u])) for u in range(len(subs))]
+    log("resilience_empty_plan", equal=same, launches=empty_l, plain_launches=base_l,
+        plain_s=base_s, plain_tokens_per_s=RES_GEN * len(subs) / base_s, card=card())
+    if not all(same) or empty_l != base_l:
+        raise AssertionError(f"empty plan changed the serve: equal {same}, launches {empty_l}")
+
+    # (b) drift served as E / d**2, a tensor operand; scale 1.0 is no scale
+    for d in RES_DRIFT:
+        _, drifted, _, drift_l = _res_serve(
+            eng(fault_plan=FaultPlan(drift=DriftRamp(start=0, rate=None, max_scale=d))), subs)
+        dt = torch.tensor(d, dtype=torch.float32, device="cuda")
+        hand_energies = map_leaves(lambda _p, e: e / (dt * dt), make_engine.energies)
+        _, hand, _, hand_l = _res_serve(eng_over(hand_energies), subs)
+        equal = [bool(np.array_equal(drifted[u], hand[u])) for u in range(len(subs))]
+        moved = sum(int((drifted[u] != base[u]).sum()) for u in range(len(subs)))
+        log("resilience_drift", scale=d, equal_to_hand_set=equal, tokens_moved_from_plain=moved,
+            launches=drift_l, hand_launches=hand_l, card=card())
+        if not all(equal) or not drift_l == hand_l == base_l:
+            raise AssertionError(f"drift {d}: equal {equal}, launches {drift_l} {hand_l} {base_l}")
+        if d == max(RES_DRIFT) and moved == 0:
+            raise AssertionError(f"a {d}x drift moved no token: the scale did not reach the kernels")
+    tier = base_eng.tiers.get(1)
+    tok, lengths = pad_to_bucket([p for p in prompts[:4]], (4, 64))
+    tok, lengths = torch.from_numpy(tok).cuda(), torch.from_numpy(lengths).cuda()
+    table = batch_keys(keys[:4], 4)
+    _, no_scale = tier.prefill(tok, lengths, table, 64 + RES_GEN)
+    _, unit = tier.prefill(tok, lengths, table, 64 + RES_GEN,
+                           noise_scale=torch.ones((), dtype=torch.float32, device="cuda"))
+    log("resilience_unit_scale", logits_equal=bool(torch.equal(no_scale, unit)), card=card())
+    if not torch.equal(no_scale, unit):
+        raise AssertionError("noise scale 1.0 changed the prefill logits")
+
+    # (c) a transient decode fault: the faulted pool's rows retry one rung up
+    fault_eng = eng(fault_plan=FaultPlan(exe_faults=[("decode", 2)]))
+    uids, res, _, _ = _res_serve(fault_eng, subs)
+    entry = next(e for e in fault_eng.fault_log if e["kind"] == "exe_fault")
+    hit = set(entry["uids"])
+    kept = [bool(np.array_equal(res[u], base[u])) for u in uids if u not in hit]
+    promoted = {u: (tiers[u], t) for u, t in entry["promoted"].items()}
+    ok = (fault_eng.stats["exe_faults"] == 1 and hit and set(entry["retried"]) == hit
+          and all(t > k or k == 4 for k, t in promoted.values()) and all(kept)
+          and all(_tokens_ok(res[u], RES_GEN, vocab) for u in uids))
+    fail_eng = eng(fault_plan=FaultPlan(exe_fault_rate=1.0), max_retries=1)
+    (fu,), fres, _, fail_l = _res_serve(fail_eng, subs[:1])
+    failed = fres[fu]
+    log("resilience_transient", faulted=sorted(hit), promoted=promoted, neighbours_equal=kept,
+        failed=type(failed).__name__, failed_retries=getattr(failed, "retries", None),
+        failed_launches=fail_l, card=card())
+    if not ok or not (isinstance(failed, Failed) and failed.retries == 1
+                      and failed.tokens.size == 0 and not any(fail_l.values())):
+        raise AssertionError(f"transient fault: {fault_eng.fault_log}, {failed}")
+
+    # (d) a poisoned readout row retires that row alone
+    poison_eng = eng(fault_plan=FaultPlan(poison={(2, 0): -9}))
+    uids, res, _, _ = _res_serve(poison_eng, subs)
+    hit = {u for e in poison_eng.fault_log for u in e.get("uids", ())}
+    kept = [bool(np.array_equal(res[u], base[u])) for u in uids if u not in hit]
+    log("resilience_poison", poisoned=sorted(hit), others_equal=kept,
+        poisoned_rows=poison_eng.stats["poisoned_rows"], card=card())
+    if (poison_eng.stats["poisoned_rows"] != 1 or len(hit) != 1 or not all(kept)
+            or not all(_tokens_ok(res[u], RES_GEN, vocab) for u in uids)):
+        raise AssertionError(f"poisoned row: {poison_eng.fault_log}")
+
+    # (e) deadlines: queued -> empty TimedOut; pooled -> a prefix of the plain tokens
+    q_eng = eng(max_wait=10.0)
+    qu = q_eng.submit(prompts[0], now=0.0, deadline=0.5, **subs[0][1])
+    first = q_eng.poll(now=0.1)
+    queued = q_eng.poll(now=0.6)[qu]
+    p_eng = eng(fault_plan=FaultPlan(stall_steps=range(3, 1000)))
+    pu = p_eng.submit(prompts[0], now=0.0, deadline=0.006, **subs[0][1])
+    pooled, now = {}, 0.0
+    while pu not in pooled and now < 0.1:
+        now += 1e-3
+        pooled.update(p_eng.pump_step(now=now))
+    pooled = pooled.get(pu)
+    log("resilience_deadline", queued=type(queued).__name__, queued_tokens=len(queued.tokens),
+        pooled=type(pooled).__name__, pooled_tokens=None if pooled is None else
+        np.asarray(pooled.tokens).tolist(), plain=base[0].tolist(), card=card())
+    if not (first == {} and isinstance(queued, TimedOut) and queued.tokens.size == 0
+            and isinstance(pooled, TimedOut) and 1 <= pooled.tokens.size < RES_GEN
+            and np.array_equal(pooled.tokens, base[0][: pooled.tokens.size])):
+        raise AssertionError(f"deadlines: queued {queued}, pooled {pooled}")
+
+    # (f) the drift watchdog: probes at nominal, then a 2x step at WD_ONSET
+    wd_eng = eng(fault_plan=FaultPlan(drift=DriftRamp(start=WD_ONSET, rate=None, max_scale=2.0)))
+    probe = np.stack([np.resize(p, WD_T) for p in prompts[:2]]).astype(np.int32)
+    cfg = WatchdogConfig(interval=WD_INTERVAL, n_samples=WD_SAMPLES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd = NoiseDriftWatchdog(wd_eng, probe, config=cfg, key=PRNGKey(3))
+    baseline_ms, probe_ms = (time.perf_counter() - t0) * 1e3, []
+    event, now = None, 0.0
+    for step in range(4 * WD_ONSET):
+        now += 1e-3
+        if wd_eng.n_in_flight == 0:  # keep a pool decoding
+            wd_eng.submit(prompts[0], now=now, **subs[0][1])
+        wd_eng.pump_step(now=now)
+        n = len(wd.estimates)
+        t0 = time.perf_counter()
+        event = wd.maybe_probe(step)
+        if len(wd.estimates) > n:
+            probe_ms.append((time.perf_counter() - t0) * 1e3)
+        if event is not None:
+            break
+    nominal = [e for s, e in wd.estimates if s < WD_ONSET]
+    wd_eng.promote_tiers(event)
+    wd_eng.submit(prompts[0], now=now + 1e-3, n_repeats=1, max_new_tokens=2, key=keys[0])
+    promoted_to = sorted(wd_eng.scheduler.pending_tiers())
+    wd_eng.flush()
+    wd_eng.fault_plan = None
+    wd_eng.recalibrate()
+    wd.clear()
+    after = wd.probe(step=1000)
+    log("resilience_watchdog", baseline_rms=wd.baseline_rms, estimates=wd.estimates,
+        event=None if event is None else dict(step=event.step, clock=event.clock,
+                                              estimate=event.estimate),
+        onset=WD_ONSET, interval=WD_INTERVAL, n_samples=WD_SAMPLES, probe_rows=list(probe.shape),
+        promoted_tiers=promoted_to, recalibrated_estimate=wd.estimates[-1][1],
+        ms_per_probe=sorted(probe_ms)[len(probe_ms) // 2], baseline_ms=baseline_ms, card=card())
+    if (not nominal or not all(cfg.band[0] < e < cfg.band[1] for e in nominal)
+            or event is None or event.step < WD_ONSET or event.step > WD_ONSET + 2 * WD_INTERVAL
+            or event.estimate <= cfg.band[1] or promoted_to != [2] or after is not None):
+        raise AssertionError(f"watchdog: estimates {wd.estimates}, event {event}, "
+                             f"promoted {promoted_to}, after {after}")
+
+    # (g) the precision governor
+    ladder = (TierSpec(1, 0.80), TierSpec(2, 0.90), TierSpec(4, 0.97))
+    gov_eng = eng(policy=PolicyConfig(tiers=ladder, demote_at=1.0, promote_at=0.25, shed_at=3.0,
+                                      min_dwell=2))
+    now, ramp = 0.0, []
+    for tick in range(3):  # four K=4 arrivals a tick: a pool's worth
+        for i in range(4):
+            j = 4 * tick + i
+            ramp.append(gov_eng.submit(prompts[j % len(prompts)], n_repeats=4, max_new_tokens=4,
+                                       now=now, key=fold_in(PRNGKey(1), j)))
+        now += 1e-2
+        gov_eng.pump_step(now=now)
+    while gov_eng.n_in_flight:
+        now += 1e-2
+        gov_eng.pump_step(now=now)
+    for _ in range(6):
+        now += 1e-2
+        gov_eng.pump_step(now=now)
+    kinds = [e.kind for e in gov_eng.governor.events]
+    demoted_served = sorted({gov_eng.served_tiers[u] for u in ramp})
+    shed_eng = eng(policy=PolicyConfig(tiers=ladder, demote_at=1.0, promote_at=0.25, shed_at=2.0,
+                                       min_dwell=1))
+    for i in range(12):
+        shed_eng.submit(prompts[i % len(prompts)], n_repeats=4, max_new_tokens=2, now=0.0,
+                        accuracy_floor=0.97, key=fold_in(PRNGKey(2), i))
+    shed_eng.pump_step(now=0.01)
+    shed_eng.pump_step(now=0.02)
+    shed_kinds = [e.kind for e in shed_eng.governor.events]
+    try:
+        shed_eng.submit(prompts[0], n_repeats=4, now=0.03)
+        refused = False
+    except QueueFull:
+        refused = True
+    now = 0.03
+    while shed_eng.n_in_flight:
+        now += 1e-2
+        shed_eng.pump_step(now=now)
+    for _ in range(6):
+        now += 1e-2
+        shed_eng.pump_step(now=now)
+    e1, e4 = base_eng.tier_energy_per_token(1), base_eng.tier_energy_per_token(4)
+    budget_eng = eng(policy=PolicyConfig(tiers=ladder, demote_at=50.0, promote_at=0.25,
+                                         shed_at=50.0, min_dwell=1, power_budget_aj=(e1 + e4) / 2))
+    bu = budget_eng.submit(prompts[0], n_repeats=4, max_new_tokens=4, now=0.0, key=keys[0])
+    now, held = 0.0, []
+    while budget_eng.n_in_flight:
+        now += 1e-2
+        budget_eng.pump_step(now=now)
+        held.append(budget_eng.governor.mode)
+    for _ in range(4):
+        now += 1e-2
+        budget_eng.pump_step(now=now)
+    budget_kinds = [(e.kind, e.detail) for e in budget_eng.governor.events]
+    log("resilience_governor", ramp_events=kinds, ramp_served_tiers=demoted_served,
+        ramp_mode=gov_eng.governor.mode, shed_events=shed_kinds, shed_refused=refused,
+        shed_mode=shed_eng.governor.mode, budget_events=budget_kinds, budget_modes=held,
+        budget_served=budget_eng.served_tiers[bu], budget_aj=(e1 + e4) / 2,
+        tier_aj={1: e1, 4: e4}, card=card())
+    if not (kinds[:1] == ["demote"] and "promote" in kinds and 1 in demoted_served
+            and gov_eng.governor.mode == "nominal"
+            and shed_kinds[:2] == ["demote", "shed_on"] and refused
+            and shed_eng.governor.mode == "nominal"
+            and budget_kinds[0] == ("demote", "power budget") and set(held) == {"demoted"}
+            and budget_kinds[-1][0] == "promote" and budget_eng.served_tiers[bu] == 1
+            and budget_eng.governor.mode == "nominal"):
+        raise AssertionError(f"governor: ramp {kinds}, shed {shed_kinds} {refused}, "
+                             f"budget {budget_kinds} {held}")
+
+    # (h) three replicas over one copy of the weights
+    base_eng = fault_eng = fail_eng = poison_eng = q_eng = p_eng = wd_eng = None
+    gov_eng = shed_eng = budget_eng = None
+    torch.cuda.synchronize()
+    weights_gib = sum(a.numel() * a.element_size()
+                      for a in leaves(make_engine.params)) / 2**30
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    def cluster_run(n, faults=(), slots=POOL_SLOTS, **kw):
+        """The serve's traffic through ``n`` replicas on a virtual clock:
+        (cluster, results, wall seconds at the end of each round, the round
+        each request was delivered)."""
+        cluster = ClusterRouter([eng(pool_slots=slots) for _ in range(n)], seed=0,
+                                backoff_jitter=0, faults=faults, **kw)
+        for p, k in zip(prompts, tiers):
+            cluster.submit(p, tier=k, max_new_tokens=RES_GEN, now=0.0)
+        torch.cuda.synchronize()
+        t0, now, results, walls, at = time.perf_counter(), 0.0, {}, [], {}
+        for rnd in range(2000):
+            if not cluster.n_in_flight:
+                break
+            now += 1e-2
+            got = cluster.pump_step(now=now)
+            results.update(got)
+            at.update({c: rnd for c in got})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if cluster.n_in_flight:
+            raise AssertionError("cluster did not drain")
+        return cluster, results, walls, at
+
+    def equal_base(results, cuids=None):
+        return [bool(np.array_equal(results[c], base[c]))
+                for c in (sorted(results) if cuids is None else cuids)]
+
+    healthy, h_res, h_walls, _ = cluster_run(3)
+    h_equal = equal_base(h_res)
+    crash, c_res, c_walls, c_at = cluster_run(3, faults=(ReplicaCrash(replica=0, at=2),),
+                                              suspect_after=2, dead_after=4)
+    fo = next(e for e in crash.events if e["kind"] == "failover")
+    failover_s = c_walls[max(c_at[c] for c in fo["uids"])] - c_walls[fo["round"]]
+    c_equal = equal_base(c_res)
+    hang, g_res, _, _ = cluster_run(3, faults=(ReplicaHang(replica=1, at=1, steps=3),),
+                                    suspect_after=2, dead_after=8, recover_after=2)
+    hang_moves = [(e["frm"], e["to"]) for e in hang.events if e["kind"] == "health"]
+    degr, d_res, _, _ = cluster_run(2, faults=(ReplicaDegraded(replica=0, at=0, scale=2.5),),
+                                    slots=1, drift_patience=2, recover_after=2)
+    nominal_served = [c for c in sorted(d_res) if degr.journal[c].replica != 0]
+    d_equal = equal_base(d_res, nominal_served)
+    hedge = ClusterRouter([eng() for _ in range(2)], seed=0)
+    cu = hedge.submit(prompts[0], tier=tiers[0], max_new_tokens=RES_GEN, now=0.0, hedge=True)
+    e_res, _ = hedge.run_until_drained(0.0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cs, ks, ds, es = crash.stats, hang.stats, degr.stats, hedge.stats
+    log("resilience_cluster", replicas=3, weights_gib=weights_gib,
+        allocated_before_gib=before_gib, peak_gib=peak_gib,
+        healthy_equal=h_equal, healthy_s=h_walls[-1],
+        cluster_tokens_per_s=RES_GEN * len(h_res) / h_walls[-1],
+        engine_tokens_per_s=RES_GEN * len(base) / base_s,
+        crash_equal=c_equal, crash_health=crash.health, failover_round=fo["round"],
+        failed_over=fo["uids"], failover_s=failover_s, crash_s=c_walls[-1],
+        dedup_tokens=cs["dedup_tokens"], redispatched=cs["redispatched"],
+        prefix_mismatches=cs["prefix_mismatches"], hang_health_moves=hang_moves,
+        hang_failed_over=ks["failed_over"], degraded_quarantined=ds["quarantined"],
+        degraded_health=degr.health, degraded_nominal_served=nominal_served,
+        degraded_nominal_equal=d_equal,
+        hedge_stats={k: es[k] for k in ("hedges", "hedge_wins_primary", "hedge_wins_backup",
+                                         "hedge_cancelled", "duplicates_discarded", "delivered")},
+        card=card())
+    if not (all(h_equal) and len(h_res) == len(prompts)
+            and all(c_equal) and len(c_res) == len(prompts) and crash.health[0] == "dead"
+            and cs["failed_over"] > 0 and cs["dedup_tokens"] > 0 and cs["prefix_mismatches"] == 0
+            and hang_moves == [("healthy", "suspect"), ("suspect", "healthy")]
+            and ks["failed_over"] == 0 and all(equal_base(g_res)) and len(g_res) == len(prompts)
+            and ds["quarantined"] > 0 and ds["replicas_degraded"] == 1
+            and len(d_res) == len(prompts) and nominal_served and all(d_equal)
+            and list(e_res) == [cu] and np.array_equal(e_res[cu], base[0])
+            and es["delivered"] == 1 and es["hedge_wins_primary"] + es["hedge_wins_backup"] == 1
+            and es["hedge_cancelled"] + es["duplicates_discarded"] >= 1
+            and es["prefix_mismatches"] == 0):
+        raise AssertionError("cluster checks failed (see the resilience_cluster line)")
+    log("resilience", config=CONFIG.name, layers=CONFIG.n_layers, launches=dict(am.LAUNCHES),
+        launches_by_shape={f"{r}:{k}x{n}": v for (r, k, n), v in sorted(am.LAUNCHES_BY_SHAPE.items())},
+        card=card())
+    return dict(am.LAUNCHES)
 
 
 def phase_solo(engine, results, prompts, tiers):
@@ -2695,8 +3127,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} "
-                         "(serve includes the step, whole-path, serve_weight, profile and "
-                         "continuous phases; serve_griffin its step, solo, whole-path and the "
+                         "(serve includes the step, whole-path, serve_weight, profile, "
+                         "continuous and resilience phases; serve_griffin its step, solo, whole-path and the "
                          "griffin_* phases; serve_granite20, serve_qwen14 and serve_bert their "
                          "step, solo and whole-path phases, serve_granite20 granite20_long too, "
                          "serve_bert calibrate and search; serve_xlstm its step, solo, "
@@ -2749,14 +3181,14 @@ def main() -> int:
     site_rows = counted("site_time", phase_site_time, draw_ps) if "site_time" in run else None
     if "sweep" in run:
         timed("sweep", phase_sweep)
-    if run & {"serve", "serve_weight", *SERVE_FOLLOWERS}:
+    if run & {"serve", *SERVE_FOLLOWERS}:
         from repro_torch.configs.granite_3_8b import CONFIG
 
         make_engine = timed("weights", phase_weights)
         prompts, tiers = _traffic(CONFIG)
     if "serve" in run:
         engine, results, by_path["serve"] = timed("serve", phase_serve, make_engine, prompts, tiers)
-        fb = timed("step", phase_steps, engine, prompts, tiers)
+        fb = timed("step", phase_steps, engine, prompts, tiers, True)
         timed("whole_path", phase_whole_path, make_engine, engine, results, prompts, tiers, fb)
     if "serve_weight" in run:
         by_path["serve_weight"] = timed("serve_weight", phase_serve_weight, make_engine, prompts,
@@ -2766,6 +3198,8 @@ def main() -> int:
         by_path["profile"] = timed("profile", phase_profile, make_engine, prompts, tiers)
     if "continuous" in run:
         by_path["continuous"] = timed("continuous", phase_continuous, make_engine, prompts)
+    if "resilience" in run:
+        by_path["resilience"] = timed("resilience", phase_resilience, make_engine, prompts, tiers)
     if run & {"serve_griffin", *GRIFFIN_FOLLOWERS}:
         import gc
 

@@ -49,6 +49,15 @@ class AnalogHook(MatmulHook):
     reference's ``vmap`` over experts runs ``analog_dot`` on it. With
     stacked noise samples the words are (S, E, 4), one stream a sample
     (``sample``).
+
+    ``noise_scale``: the hardware's noise drift, a 0-d float32 tensor
+    ``d`` multiplying the noise std at every site. Every noise model's std
+    is proportional to ``1/sqrt(E)``, so the drift is served exactly as
+    energies ``E / d**2`` (the reference's order: ``d * d``, then the
+    division); at ``d = 1`` that division is exact. ``None`` (the
+    default) serves the energies as they are. The model's forward divides
+    its energy tree once instead (``lm.drifted_energies``, the same bits)
+    and builds its hooks without the scale.
     """
 
     cfg: AnalogConfig
@@ -57,13 +66,20 @@ class AnalogHook(MatmulHook):
     n_repeats: int = 1
     rows_per_key: int = 1
     expert_seeds: Optional[Dict[str, torch.Tensor]] = None
+    noise_scale: Optional[torch.Tensor] = None
+
+    def _site_energy(self, site: str) -> torch.Tensor:
+        e = self.energies[site]
+        if self.noise_scale is not None:
+            e = e / (self.noise_scale * self.noise_scale)  # std ~ 1/sqrt(E)
+        return e
 
     def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         xs = x
         if self.rows_per_key > 1:
             xs = x.reshape(x.shape[0] // self.rows_per_key, -1, x.shape[-1])
         y = analog_dot(
-            xs, w, cfg=self.cfg, energy=self.energies[site],
+            xs, w, cfg=self.cfg, energy=self._site_energy(site),
             seed=self.seeds[site], n_repeats=self.n_repeats,
         )
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
@@ -78,7 +94,7 @@ class AnalogHook(MatmulHook):
 
     def batched(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         n_e = w.shape[0]
-        energy = self.energies[site]
+        energy = self._site_energy(site)
         energy = energy.expand(n_e) if energy.dim() == 0 else energy
         seeds = self.expert_seeds[site]
         y = torch.stack([

@@ -90,6 +90,9 @@ class AnalogSpec:
     ``l`` its own K_l; it overrides ``n_repeats``, which must stay 1.
     ``rows_per_key``: with a stacked key of S rows over a batch of S * G
     rows, G; each key's G rows then run as one request (``AnalogHook``).
+    ``noise_scale``: an optional 0-d float32 tensor, the drift factor on
+    every site's noise std, served as energies ``E / d**2``: the forward
+    divides the energy tree once (``drifted_energies``).
     """
 
     cfg: AnalogConfig
@@ -98,6 +101,7 @@ class AnalogSpec:
     n_repeats: int = 1
     profile: Optional[PrecisionProfile] = None
     rows_per_key: int = 1
+    noise_scale: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.profile is not None and self.n_repeats != 1:
@@ -730,6 +734,15 @@ def _layer_ks(cfg: ModelConfig, analog: AnalogSpec):
     return [(analog.n_repeats,) * per] * g, [analog.n_repeats] * n_tail(cfg)
 
 
+def drifted_energies(energies, noise_scale: torch.Tensor):
+    """The energy tree that serves a noise std drifted by ``noise_scale``
+    ``d`` (a 0-d float32 tensor): every leaf ``E / (d * d)``, elementwise in
+    float32 and so the bits of ``AnalogHook``'s per-site division, exact at
+    ``d = 1``. One division a leaf, once a forward."""
+    d2 = noise_scale * noise_scale
+    return map_leaves(lambda _p, e: e / d2, energies)
+
+
 def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                analog: Optional[AnalogSpec], lengths=None):
     """The layer groups, then griffin's tail layers.
@@ -773,13 +786,15 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
             else:
                 experts = expert_seed_table(analog.key, g, expert_sites(cfg), n_e, valid, dev)
         rows, tail_ks = _layer_ks(cfg, analog)
+        energy_tree = (analog.energies if analog.noise_scale is None
+                       else drifted_energies(analog.energies, analog.noise_scale))
 
     def hooks(sub, idx, names, seeds, ks):
         """One hook per layer of a group (``sub`` "groups") or a tail layer;
         xlstm's block j takes entry j of the mLSTM sites' (m,) energies."""
         if analog is None:
             return [MatmulHook()] * len(ks)
-        energies = {s: analog.energies[sub][s][idx] for s in names}
+        energies = {s: energy_tree[sub][s][idx] for s in names}
         row = {s: seeds[idx, i] for i, s in enumerate(names)}
         ex = None if sub != "groups" or experts is None else {
             s: experts[idx, i] for i, s in enumerate(expert_sites(cfg))}

@@ -1,7 +1,6 @@
 """Bucket-batched analog serving engine.
 
-Port of ``repro/serving/engine.py`` (without faults, deadlines, the
-precision governor, metrics and meshes):
+Port of ``repro/serving/engine.py`` (without meshes and the int8 tier):
 
   submit -> TierScheduler groups same-tier requests        (scheduler.py)
          -> pad into a power-of-two (batch, seq) bucket    (bucketing.py)
@@ -35,14 +34,33 @@ are ``fold_in(PRNGKey(seed), uid)``; batch-padding rows carry
 so tokens are bit-identical across the two disciplines when their cache
 lengths are equal (one seq bucket).
 
+Resilience (the reference's fault-tolerance layer): requests may carry a
+``deadline`` (or an SLO ``target_latency`` that arms one) and resolve to a
+structured ``TimedOut`` when it passes, queued (empty) or pooled (the
+partial tokens, a prefix of the fault-free output); ``cancel`` withdraws a
+request; a ``FaultPlan`` (faults.py) injects drift, stalled pool steps,
+transient call faults and poisoned rows at the engine's seams. A call
+fault raises before any launch and before a cache is touched; the
+faulted batch retries once from scratch at its tier's promoted rung
+(``max_retries``) or resolves to ``Failed``. Only the plan's injected
+``TransientExecutableFault`` is caught: any other exception propagates.
+The noise-std drift factor (``set_noise_scale``, or the plan's
+``DriftRamp``) is a 0-d float32 tensor operand of every forward, served
+as energies ``E / d**2``; at 1.0 the tokens are bit-identical to serving
+without it. ``promote_tiers``/``recalibrate`` are the drift response, a
+``PrecisionGovernor`` (policy.py, ``policy=``) moves queued requests
+between tiers under load, and a ``MetricsFeed`` (monitor.py,
+``metrics=``) takes one sample a poll or pump round.
+
 The engine runs on ``device`` (default ``"cuda"``; it raises without a
 card unless the caller passes ``device="cpu"``). ``params`` and
 ``energies`` must already live there.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -61,9 +79,12 @@ from repro_torch.serving.bucketing import (
     pad_to_bucket,
     pool_shape,
 )
+from repro_torch.serving.faults import BoundedLog, FaultPlan, QueueFull, TransientExecutableFault
+from repro_torch.serving.policy import PolicyConfig, PrecisionGovernor
 from repro_torch.serving.pool import DecodePool
 from repro_torch.serving.scheduler import Request, TierScheduler
-from repro_torch.serving.tiers import TierRegistry
+from repro_torch.serving.tiers import ExecutionTier, TierRegistry
+from repro_torch.tree import map_leaves
 
 
 def batch_keys(keys: Sequence[np.ndarray], bb: int) -> np.ndarray:
@@ -71,6 +92,39 @@ def batch_keys(keys: Sequence[np.ndarray], bb: int) -> np.ndarray:
     fixed key ``PRNGKey(0)`` (their outputs are discarded)."""
     rows = [raw_key(k) for k in keys] + [PRNGKey(0)] * (bb - len(keys))
     return np.stack(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestFailure:
+    """A request the engine gave up on, in place of its token row.
+
+    ``tokens`` holds what was generated before the failure (empty for a
+    queued timeout), a prefix of the fault-free output; a failed or
+    timed-out request resolves exactly once.
+    """
+
+    uid: int
+    tokens: np.ndarray
+    detail: str
+    retries: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class TimedOut(RequestFailure):
+    """The request's deadline passed while it was queued or decoding."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Failed(RequestFailure):
+    """The request hit an injected fault and ran out of retries."""
+
+
+#: what poll()/flush() map a uid to: a token row or a structured failure
+RequestResult = Union[np.ndarray, RequestFailure]
 
 
 class ServingEngine:
@@ -88,6 +142,16 @@ class ServingEngine:
     length of ``max(seq_buckets) + max_gen`` unless ``pool_cache_len``
     says otherwise; a request whose seq bucket plus budget does not fit a
     slot is rejected at submit.
+
+    ``max_queue`` bounds the scheduler queue (``QueueFull`` past it).
+    ``fault_plan`` arms the injection sites, whenever it is set (the
+    reference arms its executable guard only when a plan is given at
+    construction: the port has no executable cache and guards every call
+    while a plan is set; ``fault_plan = None`` models repaired hardware). ``max_retries`` bounds a faulted request's retries and
+    ``k_ladder`` is the calibrated ladder of uniform K that retries and the
+    drift response climb. ``fault_log`` keeps the last ``fault_log_maxlen``
+    fault and policy events. ``policy`` builds a ``PrecisionGovernor``;
+    ``metrics`` (a ``MetricsFeed``) is sampled once a poll or pump round.
 
     The engine serves token prompts: a config with a ``frames`` or
     ``patch`` frontend is refused (its inputs are embeddings, which the
@@ -113,9 +177,20 @@ class ServingEngine:
         continuous: bool = False,
         pool_slots: Optional[int] = None,
         pool_cache_len: Optional[int] = None,
+        max_queue: Optional[int] = None,
+        fault_plan: Optional[FaultPlan] = None,
+        max_retries: int = 1,
+        k_ladder: Sequence[int] = (1, 2, 4, 8),
+        fault_log_maxlen: Optional[int] = 4096,
+        policy: Optional[PolicyConfig] = None,
+        metrics=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if not k_ladder or any(int(k) < 1 for k in k_ladder):
+            raise ValueError(f"k_ladder must be positive Ks, got {k_ladder}")
         if continuous and model_cfg.family == "moe":
             raise ValueError(
                 "continuous batching is unavailable for the moe family: analog expert sites "
@@ -131,7 +206,7 @@ class ServingEngine:
         self.params = params
         self.model_cfg = model_cfg
         self.analog_cfg = analog_cfg
-        self.energies = energies
+        self._energies = energies
         self.tiers = TierRegistry(self)
         for p in profiles or ():
             self.register_profile(p)
@@ -143,7 +218,12 @@ class ServingEngine:
             max_batch=min(max_batch, max(batch_buckets)),
             max_wait=max_wait,
             seq_buckets=seq_buckets,
+            max_queue=max_queue,
         )
+        #: the injection schedule; None (set at any time) silences every site
+        self.fault_plan = fault_plan
+        self.max_retries = int(max_retries)
+        self.k_ladder = tuple(sorted({int(k) for k in k_ladder}))
         self.continuous = bool(continuous)
         self.pool_slots, self.pool_cache_len = pool_shape(
             pool_slots if pool_slots is not None else max(batch_buckets), seq_buckets, max_gen
@@ -161,6 +241,16 @@ class ServingEngine:
         self._base_key = PRNGKey(seed)
         self._uid = 0
         self._clock: Optional[str] = None  # "real" | "virtual", set on first use
+        #: the realized noise-std drift factor (1.0 nominal) and its 0-d
+        #: float32 operand on the device, refilled in place when it changes
+        self._noise_scale = 1.0
+        self._scale_t = torch.ones((), dtype=torch.float32, device=self.device)
+        self._scale_filled = 1.0
+        #: drift response: new uniform-K submissions serve one rung up
+        self._promoted = False
+        #: one tick a decode step attempted (stalled ones included): the
+        #: fault plan's clock
+        self._fault_clock = 0
         self.stats = {
             "requests": 0,
             "batches": 0,  # prefill batches (admission waves in continuous mode)
@@ -170,11 +260,36 @@ class ServingEngine:
             "decode_slot_steps": 0,  # decode steps x batch rows (or pool slots)
             "active_slot_steps": 0,  # of those, pool rows that carried a request
             "admitted": 0,  # requests admitted into a pool slot
-            "retired": 0,  # pool retirements (budget reached or stop id)
+            "retired": 0,  # pool retirements (budget, stop id, timeout, cancel, fault)
             "pool_read_s": 0.0,  # host seconds waiting for pool steps' tokens
+            "timed_out": 0,  # requests retired past their deadline
+            "failed": 0,  # requests that ran out of fault retries
+            "retried": 0,  # fault-triggered resubmissions
+            "stalled_steps": 0,  # pool decode steps lost to injected stalls
+            "exe_faults": 0,  # injected call faults absorbed
+            "poisoned_rows": 0,  # corrupted decode rows detected and retired
+            "cancelled": 0,  # requests withdrawn by cancel()
+            "promotions": 0,  # drift responses switched on
+            "shed": 0,  # submissions the governor's last rung refused
+            "demoted": 0,  # queued requests moved down a tier under pressure
+            "promoted_back": 0,  # demoted requests restored after the episode
+            "policy_transitions": 0,  # governor mode changes
+            "dropped_events": 0,  # fault_log entries evicted by its bound
             "tier_tokens": {},
             "tier_decode_steps": {},
         }
+        #: every fault consequence and policy action, most recent last
+        self.fault_log: List[dict] = BoundedLog(maxlen=fault_log_maxlen,
+                                                on_drop=self._note_dropped_events)
+        #: uid -> the tier the request was dispatched at (a retry overwrites it)
+        self.served_tiers: Dict[int, object] = {}
+        self.metrics = metrics
+        self.governor: Optional[PrecisionGovernor] = None
+        if policy is not None:
+            self.governor = PrecisionGovernor(self, policy)
+
+    def _note_dropped_events(self, n: int) -> None:
+        self.stats["dropped_events"] += n
 
     def _bump_tier(self, stat: str, tier, n: int) -> None:
         d = self.stats[stat]
@@ -200,29 +315,51 @@ class ServingEngine:
         stays bound to its schedule). Returns its id for ``submit(profile=)``."""
         return self.tiers.register_profile(profile)
 
+    def register_tier(self, tier: ExecutionTier):
+        """Register a custom tier of this engine (e.g. a ``DigitalTier``)
+        for ``submit(tier=)``; add-only. Returns its id."""
+        return self.tiers.register(tier)
+
     def submit(
         self,
         tokens,
         *,
         n_repeats: int = 1,
         profile=None,
+        tier=None,
         max_new_tokens: Optional[int] = None,
         stop_tokens: Sequence[int] = (),
         key=None,
         now: Optional[float] = None,
+        deadline: Optional[float] = None,
+        target_latency: Optional[float] = None,
+        accuracy_floor: Optional[float] = None,
+        max_degradation: Optional[float] = None,
     ) -> int:
         """Enqueue one request; returns its uid (the key of its result).
 
         ``profile``: a registered profile's name or a ``PrecisionProfile``
         (registered here), exclusive with ``n_repeats``; a uniform profile
-        is the ``n_repeats=K`` tier. A digital engine serves every request
-        on its one tier.
+        is the ``n_repeats=K`` tier. ``tier``: the general form (a tier id,
+        a ``PrecisionProfile`` or an ``ExecutionTier``), exclusive with
+        both and honoured on a digital engine too; otherwise a digital
+        engine serves every request on its one tier.
 
-        Raises ``ValueError`` for requests the engine could never serve: an
-        empty prompt, a prompt longer than the largest seq bucket, a
-        ``max_new_tokens`` outside ``[1, max_gen]`` (None asks for the full
-        ``max_gen``), ``n_repeats < 1``, an unknown profile, or in
-        continuous mode a request that does not fit a pool slot.
+        ``deadline``: an absolute time on the engine's clock past which the
+        request resolves to ``TimedOut`` (checked by clocked ``poll`` and
+        ``pump_step``; ``flush`` checks none). SLO fields, the precision
+        governor's inputs: ``target_latency`` (seconds from arrival) arms
+        the deadline when none is given; ``accuracy_floor`` bounds how far
+        the governor may demote the request; ``max_degradation`` is that
+        floor relative to the requested tier's accuracy (needs a governor).
+
+        Raises ``QueueFull`` at ``max_queue`` pending or while the governor
+        sheds load, and ``ValueError`` for requests the engine could never
+        serve: an empty prompt, a prompt longer than the largest seq
+        bucket, a ``max_new_tokens`` outside ``[1, max_gen]`` (None asks
+        for the full ``max_gen``), ``n_repeats < 1``, an unknown profile,
+        bad SLO fields, or in continuous mode a request that does not fit
+        a pool slot.
         """
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
@@ -248,6 +385,24 @@ class ServingEngine:
             )
         if n_repeats < 1:
             raise ValueError(f"n_repeats must be >= 1, got {n_repeats}")
+        if target_latency is not None and target_latency <= 0.0:
+            raise ValueError(f"target_latency must be > 0 seconds, got {target_latency}")
+        if accuracy_floor is not None and max_degradation is not None:
+            raise ValueError(
+                "pass either accuracy_floor or max_degradation, not both: "
+                "max_degradation is the floor expressed relative to the "
+                "requested tier's accuracy"
+            )
+        if max_degradation is not None:
+            if max_degradation < 0.0:
+                raise ValueError(f"max_degradation must be >= 0, got {max_degradation}")
+            if self.governor is None:
+                raise ValueError(
+                    "max_degradation needs a policy governor: the floor is "
+                    "relative to the requested tier's measured accuracy, "
+                    "which lives in the governor's tier table (pass "
+                    "accuracy_floor for an absolute bound instead)"
+                )
         if self.continuous:
             sb = next_bucket(tokens.size, self.seq_buckets)
             if sb + max_new_tokens > self.pool_cache_len:
@@ -257,7 +412,15 @@ class ServingEngine:
                     f"{self.pool_cache_len}; raise pool_cache_len or size "
                     "seq_buckets/max_gen to the traffic"
                 )
-        if profile is not None:
+        if tier is not None:
+            if profile is not None or n_repeats != 1:
+                raise ValueError(
+                    "pass either tier, or the legacy n_repeats/profile "
+                    "knobs, not both: tier is the general form of the "
+                    "same dial"
+                )
+            tier_id = self.tiers.resolve(tier)
+        elif profile is not None:
             if n_repeats != 1:
                 raise ValueError(
                     "pass either n_repeats or profile, not both: a profile "
@@ -266,13 +429,30 @@ class ServingEngine:
             tier_id = self.tiers.resolve_profile(profile)
         else:
             tier_id = int(n_repeats)
-        if self.analog_cfg is None:
-            tier_id = self.tiers.base_id  # K and profiles are no-ops without noise
-        arrival = self._now(now, "submit")
+        if max_degradation is not None:
+            accuracy_floor = self.governor.tier_accuracy(tier_id) - float(max_degradation)
+        if self.governor is not None and self.governor.shedding:
+            self.stats["shed"] += 1
+            self.fault_log.append({"kind": "shed", "clock": self._fault_clock,
+                                   "queue_depth": self.scheduler.n_pending})
+            raise QueueFull(
+                f"precision governor is shedding load: every queued request "
+                f"is already at its accuracy floor and pressure is still "
+                f"above the shed threshold ({self.scheduler.n_pending} "
+                "pending); retry after the queue drains"
+            )
         uid = self._uid
         self._uid += 1
         if key is None:
             key = fold_in(self._base_key, uid)
+        if tier is None and self.analog_cfg is None:
+            tier_id = self.tiers.base_id  # K and profiles are no-ops without noise
+        elif self._promoted:
+            # drift response: new traffic serves one rung up its tier's ladder
+            tier_id = self.tiers.drift_promote(tier_id)
+        arrival = self._now(now, "submit")
+        if deadline is None and target_latency is not None:
+            deadline = arrival + float(target_latency)
         req = Request(
             uid=uid,
             tokens=tokens,
@@ -281,64 +461,225 @@ class ServingEngine:
             arrival=arrival,
             stop_tokens=tuple(int(t) for t in stop_tokens),
             tier=tier_id,
+            deadline=deadline,
+            target_latency=None if target_latency is None else float(target_latency),
+            accuracy_floor=None if accuracy_floor is None else float(accuracy_floor),
         )
         self.scheduler.submit(req)
         self.stats["requests"] += 1
         return uid
 
-    def poll(self, now: Optional[float] = None) -> Dict[int, np.ndarray]:
+    def poll(self, now: Optional[float] = None) -> Dict[int, RequestResult]:
         """Serve what is ready at ``now``; returns the finished uids' token
-        rows. Batch-synchronous: each ready batch to completion.
+        rows (or ``TimedOut``/``Failed``). Batch-synchronous: each ready
+        batch to completion, requests a fault requeued included.
         Continuous: admit ready requests and pump decode steps until the
         pools drain and nothing else is ready."""
         now = self._now(now, "poll")
         if self.continuous:
             return self._pump(now, force=False)
-        results: Dict[int, np.ndarray] = {}
-        for reqs in self.scheduler.pop_ready(now):
-            results.update(self._run_batch(reqs))
+        results: Dict[int, RequestResult] = self._expire_queued(now)
+        if self.governor is not None:
+            self.governor.step(now)
+        while True:
+            batches = self.scheduler.pop_ready(now)
+            if not batches:
+                break
+            for reqs in batches:
+                results.update(self._run_batch(reqs))
+        if self.metrics is not None:
+            self.metrics.record(self, now=now)
         return results
 
-    def flush(self) -> Dict[int, np.ndarray]:
+    def cancel(self, uid: int) -> bool:
+        """Withdraw a request: a queued one leaves the scheduler, a pooled
+        one retires now (its slot is free for the next round; its partial
+        tokens are dropped). Its batch-mates' tokens never depended on it.
+        False when ``uid`` is unknown or already finished."""
+        if self.scheduler.cancel(uid) is not None:
+            self.stats["cancelled"] += 1
+            self.fault_log.append({"kind": "cancel", "where": "queue", "uids": [uid]})
+            return True
+        for pool in self._pools.values():
+            for s in pool.active_slots():
+                if pool.record(s).request.uid == uid:
+                    pool.retire(s)
+                    self.stats["retired"] += 1
+                    self.stats["cancelled"] += 1
+                    self.fault_log.append({"kind": "cancel", "where": "pool", "uids": [uid]})
+                    return True
+        return False
+
+    def flush(self) -> Dict[int, RequestResult]:
         """Drain the queue regardless of deadlines (end of replay/shutdown)."""
         if self.continuous:
             return self._pump(None, force=True)
-        results: Dict[int, np.ndarray] = {}
-        for reqs in self.scheduler.flush():
-            results.update(self._run_batch(reqs))
+        results: Dict[int, RequestResult] = {}
+        while self.scheduler.n_pending:  # fault retries re-enter the queue
+            for reqs in self.scheduler.flush():
+                results.update(self._run_batch(reqs))
         return results
+
+    # -- graceful degradation ------------------------------------------------
+
+    def _expire_queued(self, now: Optional[float]) -> Dict[int, RequestResult]:
+        """Retire queued requests whose deadline passed (clocked calls only)."""
+        out: Dict[int, RequestResult] = {}
+        if now is None:
+            return out
+        for r in self.scheduler.pop_expired(now):
+            out[r.uid] = TimedOut(uid=r.uid, tokens=np.zeros((0,), np.int32), retries=r.retries,
+                                  detail=f"deadline {r.deadline:g} passed at {now:g} in queue")
+            self.stats["timed_out"] += 1
+            self.fault_log.append({"kind": "timeout", "where": "queue", "uids": [r.uid]})
+        return out
+
+    def _expire_pooled(self, now: Optional[float]) -> Dict[int, RequestResult]:
+        """Retire pooled requests past their deadline, keeping their partial
+        tokens; their slots free at once."""
+        out: Dict[int, RequestResult] = {}
+        if now is None:
+            return out
+        for pool in self._pools.values():
+            for s in pool.expired(now):
+                rec = pool.retire(s)
+                r = rec.request
+                out[r.uid] = TimedOut(
+                    uid=r.uid, tokens=np.asarray(rec.emitted, np.int32), retries=r.retries,
+                    detail=f"deadline {r.deadline:g} passed at {now:g} after "
+                           f"{len(rec.emitted)} tokens",
+                )
+                self.stats["timed_out"] += 1
+                self.stats["retired"] += 1
+                self.fault_log.append({"kind": "timeout", "where": "pool", "uids": [r.uid]})
+        return out
+
+    def _fault_requeue(self, reqs: List[Request], kind: str, detail: str) -> Dict[int, RequestResult]:
+        """Requests whose batch hit a fault: one retry from scratch at the
+        tier's promoted rung (``ExecutionTier.promote``) while retries
+        remain, else ``Failed``. A faulted batch's partial tokens are
+        dropped."""
+        out: Dict[int, RequestResult] = {}
+        entry = {"kind": kind, "clock": self._fault_clock, "detail": detail,
+                 "uids": [r.uid for r in reqs], "retried": [], "failed": [], "promoted": {}}
+        for r in reqs:
+            if r.retries < self.max_retries:
+                r2 = dataclasses.replace(r, retries=r.retries + 1)
+                r2.retier(self.tiers.get(r.tier).promote())
+                self.scheduler.submit(r2, force=True)  # a requeue never meets QueueFull
+                self.stats["retried"] += 1
+                entry["retried"].append(r.uid)
+                entry["promoted"][r.uid] = r2.tier
+            else:
+                out[r.uid] = Failed(uid=r.uid, tokens=np.zeros((0,), np.int32), detail=detail,
+                                    retries=r.retries)
+                self.stats["failed"] += 1
+                entry["failed"].append(r.uid)
+        self.fault_log.append(entry)
+        return out
+
+    def set_noise_scale(self, scale: float) -> None:
+        """Set the realized noise-std drift factor (1.0 = nominal), served
+        from the next forward on as energies ``E / scale**2``."""
+        if scale <= 0.0:
+            raise ValueError(f"noise scale must be > 0, got {scale}")
+        self._noise_scale = float(scale)
+
+    @property
+    def noise_scale(self) -> float:
+        return self._noise_scale
+
+    @property
+    def promoted(self) -> bool:
+        """True while the drift response promotes new uniform-K traffic."""
+        return self._promoted
+
+    def promote_tiers(self, event=None) -> None:
+        """Drift response: until :meth:`recalibrate`, new uniform-K
+        submissions serve one rung up ``k_ladder`` (more repeats buy back
+        the drifted noise floor). Typically driven by a watchdog's
+        ``DriftEvent``; idempotent."""
+        if not self._promoted:
+            self.stats["promotions"] += 1
+        self._promoted = True
+        self.fault_log.append({
+            "kind": "drift_promotion", "clock": self._fault_clock,
+            "event": event if event is None else dataclasses.asdict(event),
+            "exempt_tiers": self.tiers.drift_exempt_ids(),
+        })
+
+    def recalibrate(self, *, noise_scale: float = 1.0) -> None:
+        """Clear the drift response and pin the realized noise scale (1.0
+        after a physical recalibration)."""
+        self._promoted = False
+        self.set_noise_scale(noise_scale)
+        self.fault_log.append({"kind": "recalibrated", "clock": self._fault_clock,
+                               "noise_scale": float(noise_scale)})
+
+    def _sync_noise_scale(self) -> None:
+        """Pull the fault plan's drift factor at the current fault clock."""
+        if self.fault_plan is not None and self.fault_plan.drift is not None:
+            self._noise_scale = self.fault_plan.noise_scale_at(self._fault_clock)
+
+    def _scale_arr(self) -> torch.Tensor:
+        """The drift operand of the next forward: one 0-d device tensor,
+        filled in place when the factor changed (stream order keeps queued
+        launches on the value they were given)."""
+        if self._noise_scale != self._scale_filled:
+            self._scale_t.fill_(self._noise_scale)
+            self._scale_filled = self._noise_scale
+        return self._scale_t
+
+    def _guard(self, phase: str, tier, *shape) -> None:
+        """The injection point of a prefill, decode or insert call: raises
+        the plan's ``TransientExecutableFault`` before any launch (``tier``
+        None for the tier-free insert)."""
+        if self.fault_plan is not None:
+            key = (phase,) + shape + (() if tier is None else (tier,))
+            self.fault_plan.check_executable(key)
 
     # -- execution -----------------------------------------------------------
 
     def _prefill_batch(self, reqs: List[Request], cache_len: Optional[int] = None):
         """Pad into a bucket and prefill at ``cache_len`` (default: the
         batch's ``sb + max_gen``; admission passes the pool's): returns
-        (bb, lengths (bb,) numpy, keys (bb, 2), cache, first tokens (bb,) on
-        the device)."""
-        tier = self.tiers.get(reqs[0].tier)
+        (bb, cache_len, lengths (bb,) numpy, keys (bb, 2), cache, first
+        tokens (bb,) on the device)."""
+        tier_id = reqs[0].tier
+        if any(r.tier != tier_id for r in reqs):
+            raise ValueError("mixed-tier batch")
+        for r in reqs:  # the tier is bound at dispatch
+            self.served_tiers[r.uid] = tier_id
+        tier = self.tiers.get(tier_id)
         bb, sb = bucket_shape(
             len(reqs), max(r.prompt_len for r in reqs),
             batch_buckets=self.batch_buckets, seq_buckets=self.seq_buckets,
         )
+        if cache_len is None:
+            cache_len = sb + self.max_gen
         tokens_np, lengths_np = pad_to_bucket(
             [r.tokens for r in reqs], (bb, sb), pad_id=self.pad_id
         )
         keys = batch_keys([r.key for r in reqs], bb)
+        self._guard("prefill", tier_id, bb, sb, cache_len)
+        self._sync_noise_scale()
         cache, logits = tier.prefill(
             torch.from_numpy(tokens_np).to(self.device, non_blocking=True),
             torch.from_numpy(lengths_np).to(self.device, non_blocking=True),
-            keys, sb + self.max_gen if cache_len is None else cache_len,
+            keys, cache_len, noise_scale=self._scale_arr(),
         )
         self.stats["batches"] += 1
         self.stats["padded_rows"] += bb - len(reqs)
-        return bb, lengths_np, keys, cache, torch.argmax(logits, dim=-1)
+        return bb, cache_len, lengths_np, keys, cache, torch.argmax(logits, dim=-1)
 
-    def _run_batch(self, reqs: List[Request]) -> Dict[int, np.ndarray]:
+    def _run_batch(self, reqs: List[Request]) -> Dict[int, RequestResult]:
         tier_id = reqs[0].tier
-        if any(r.tier != tier_id for r in reqs):
-            raise ValueError("mixed-tier batch")
         tier = self.tiers.get(tier_id)
-        bb, lengths, keys, cache, tok = self._prefill_batch(reqs)
+        try:
+            bb, cache_len, lengths, keys, cache, tok = self._prefill_batch(reqs)
+        except TransientExecutableFault as f:
+            self.stats["exe_faults"] += 1
+            return self._fault_requeue(reqs, "exe_fault", str(f))
         toks = [tok]
         stop_sets = [r.stop_set for r in reqs]
         has_stops = any(stop_sets)
@@ -354,7 +695,18 @@ class ServingEngine:
         for t in range(n_steps):
             if has_stops and all(done):
                 break  # every real row hit its budget or a stop id
-            logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths)
+            self._fault_clock += 1
+            self._sync_noise_scale()
+            try:
+                self._guard("decode", tier_id, bb, cache_len)
+            except TransientExecutableFault as f:
+                # raised before the step: the batch retries from scratch
+                self.stats["exe_faults"] += 1
+                self.stats["decode_steps"] += steps_run
+                self.stats["decode_slot_steps"] += steps_run * bb
+                return self._fault_requeue(reqs, "exe_fault", str(f))
+            logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths,
+                                        noise_scale=self._scale_arr())
             tok = torch.argmax(logits, dim=-1)
             toks.append(tok)
             steps_run += 1
@@ -366,7 +718,7 @@ class ServingEngine:
                         done[i] = emitted[i] >= r.max_new_tokens or int(tok_np[i]) in stop_sets[i]
 
         seq = torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()  # (bb, steps + 1)
-        out: Dict[int, np.ndarray] = {}
+        out: Dict[int, RequestResult] = {}
         for i, r in enumerate(reqs):
             row = seq[i, : min(r.max_new_tokens, seq.shape[1])]
             if stop_sets[i]:
@@ -400,19 +752,20 @@ class ServingEngine:
         """Requests submitted but not finished: queued + pooled."""
         return self.scheduler.n_pending + sum(p.n_active for p in self._pools.values())
 
-    def pump_step(self, now: Optional[float] = None, *, force: bool = False) -> Dict[int, np.ndarray]:
-        """One continuous-scheduling round: admit ready requests into free
-        slots (every pending one that fits when ``force``), then one
-        decode step of every pool with active slots. Returns the requests
-        that finished in this round."""
+    def pump_step(self, now: Optional[float] = None, *, force: bool = False
+                  ) -> Dict[int, RequestResult]:
+        """One continuous-scheduling round: expire, one governor step, admit
+        ready requests into free slots (every pending one that fits when
+        ``force``), then one decode step of every pool with active slots.
+        Returns the requests that finished in this round."""
         if not self.continuous:
             raise ValueError("pump_step() requires continuous=True")
         now = self._now(now, "poll")
         results, _ = self._pump_once(now, force)
         return results
 
-    def _pump(self, now: Optional[float], force: bool) -> Dict[int, np.ndarray]:
-        results: Dict[int, np.ndarray] = {}
+    def _pump(self, now: Optional[float], force: bool) -> Dict[int, RequestResult]:
+        results: Dict[int, RequestResult] = {}
         while True:
             step_results, progressed = self._pump_once(now, force)
             results.update(step_results)
@@ -420,12 +773,17 @@ class ServingEngine:
                 return results
 
     def _pump_once(self, now, force):
-        """(finished requests, progressed) of one admit-then-decode round.
-        Admission comes first, so freed slots refill as soon as the
-        scheduler's readiness rule allows; ``progressed`` is False only
-        when nothing was admitted and no slot decoded."""
-        results: Dict[int, np.ndarray] = {}
-        progressed = False
+        """(finished requests, progressed) of one round. Deadlines are
+        checked first (clocked calls only), then the governor turns the
+        dial on queued work (not under ``force``), then admission, then one
+        decode step a pool; ``progressed`` is False only when nothing
+        expired, was admitted or decoded."""
+        results: Dict[int, RequestResult] = {}
+        results.update(self._expire_queued(now))
+        results.update(self._expire_pooled(now))
+        progressed = bool(results)
+        if self.governor is not None and not force:
+            self.governor.step(now)
         free = {}
         for tier in self.scheduler.pending_tiers():
             pool = self._pools.get(tier)
@@ -437,24 +795,38 @@ class ServingEngine:
             if pool.n_active:
                 results.update(self._pool_step(pool))
                 progressed = True
+        if self.metrics is not None:
+            self.metrics.record(self, now=now)
         return results, progressed
 
-    def _admit(self, reqs: List[Request]) -> Dict[int, np.ndarray]:
+    def _admit(self, reqs: List[Request]) -> Dict[int, RequestResult]:
         """Prefill a ready group at the pool's cache length and copy it into
         free slots. A request that finishes at its first token (budget 1,
-        or a stop id) completes here and never takes a decode step."""
+        or a stop id) completes here and never takes a decode step. A fault
+        at either call requeues the whole group (taken slots released)."""
         pool = self._pool(reqs[0].tier)
         if len(reqs) > pool.n_free:
             raise ValueError(f"admitting {len(reqs)} requests into {pool.n_free} free slots")
-        bb, _lengths, _keys, src_cache, tok = self._prefill_batch(reqs, pool.cache_len)
+        try:
+            bb, _cl, _lengths, _keys, src_cache, tok = self._prefill_batch(reqs, pool.cache_len)
+        except TransientExecutableFault as f:
+            self.stats["exe_faults"] += 1
+            return self._fault_requeue(reqs, "exe_fault", str(f))
         tok0 = tok.cpu().numpy()  # admission needs the first tokens on the host
         slots = pool.take(len(reqs))
         # batch-padding rows aim past the pool and are dropped
         slot_ids = np.full((bb,), pool.slots, np.int64)
         slot_ids[: len(reqs)] = slots
+        try:
+            self._guard("insert", None, pool.slots, pool.cache_len, bb)
+        except TransientExecutableFault as f:
+            for s in slots:
+                pool.release(s)
+            self.stats["exe_faults"] += 1
+            return self._fault_requeue(reqs, "exe_fault", str(f))
         lm.scatter_cache_rows(self.model_cfg, pool.cache, src_cache, slot_ids)
         self.stats["admitted"] += len(reqs)
-        out: Dict[int, np.ndarray] = {}
+        out: Dict[int, RequestResult] = {}
         for i, (r, s) in enumerate(zip(reqs, slots)):
             t0 = int(tok0[i])
             if r.max_new_tokens == 1 or t0 in r.stop_set:
@@ -467,25 +839,63 @@ class ServingEngine:
                 pool.activate(s, r, t0, r.key)
         return out
 
-    def _pool_step(self, pool: DecodePool) -> Dict[int, np.ndarray]:
+    def _retire_all(self, pool: DecodePool) -> List[Request]:
+        reqs = []
+        for s in pool.active_slots():
+            reqs.append(pool.retire(s).request)
+            self.stats["retired"] += 1
+        return reqs
+
+    def _pool_step(self, pool: DecodePool) -> Dict[int, RequestResult]:
         """One decode step over a whole pool: active rows decode at their
         own positions under their own keys, inactive rows are inert
         length-0 rows, and a row that reaches its budget or emits a stop
-        id retires at once, its slot free for the next round."""
+        id retires at once, its slot free for the next round.
+
+        Fault sites: a stalled step dispatches nothing (a lost step on the
+        fault clock); a call fault retires every active row into the retry
+        path before any launch; a poisoned row (a token outside the vocab)
+        retires that row alone. Per-request keys keep the other rows'
+        tokens bit-identical through all of it."""
+        plan = self.fault_plan
+        clock = self._fault_clock
+        self._fault_clock += 1
+        if plan is not None and plan.stalled(clock):
+            self.stats["stalled_steps"] += 1
+            self.fault_log.append({"kind": "stall", "clock": clock, "tier": pool.tier,
+                                   "uids": [pool.record(s).request.uid
+                                            for s in pool.active_slots()]})
+            return {}
+        try:
+            self._guard("decode", pool.tier, pool.slots, pool.cache_len)
+        except TransientExecutableFault as f:
+            self.stats["exe_faults"] += 1
+            return self._fault_requeue(self._retire_all(pool), "exe_fault", str(f))
+        self._sync_noise_scale()
         tok_dev = torch.from_numpy(pool.tok.astype(np.int64)).to(self.device, non_blocking=True)
         logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys,
-                                                   pool.lengths)
+                                                   pool.lengths, noise_scale=self._scale_arr())
         tok = torch.argmax(logits, dim=-1)
         t_read = time.perf_counter()
         tok_np = tok.cpu().numpy()  # retiring rows needs this step's tokens
         self.stats["pool_read_s"] += time.perf_counter() - t_read
+        if plan is not None and plan.poison_map:
+            tok_np = tok_np.copy()
+            plan.poison_rows(clock, tok_np)  # detected below by value
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += pool.slots
         self.stats["active_slot_steps"] += pool.n_active
         self._bump_tier("tier_decode_steps", pool.tier, 1)
-        out: Dict[int, np.ndarray] = {}
+        out: Dict[int, RequestResult] = {}
+        poisoned: List[Request] = []
+        vocab = self.model_cfg.vocab_size
         for s in pool.active_slots():
             t = int(tok_np[s])
+            if not 0 <= t < vocab:
+                poisoned.append(pool.retire(s).request)
+                self.stats["poisoned_rows"] += 1
+                self.stats["retired"] += 1
+                continue
             rec = pool.record(s)
             rec.emitted.append(t)
             pool.tok[s] = t
@@ -496,9 +906,26 @@ class ServingEngine:
                 self.stats["tokens_generated"] += len(rec.emitted)
                 self._bump_tier("tier_tokens", pool.tier, len(rec.emitted))
                 self.stats["retired"] += 1
+        for r in poisoned:
+            out.update(self._fault_requeue([r], "poison", "out-of-vocab token"))
         return out
 
     # -- introspection -------------------------------------------------------
+
+    @property
+    def energies(self):
+        """The frozen energy allocation (None on a digital engine)."""
+        return self._energies
+
+    def effective_energies(self):
+        """The energies the hardware delivers now: the allocation divided by
+        the realized drift factor squared (the allocation itself at 1.0)."""
+        if self._energies is None:
+            raise ValueError("digital engine: no energy tree")
+        s = self._noise_scale
+        if s == 1.0:
+            return self._energies
+        return map_leaves(lambda _p, e: e / (s * s), self._energies)
 
     @property
     def profiles(self) -> Dict[str, PrecisionProfile]:
@@ -518,9 +945,9 @@ class ServingEngine:
         MACs. ``tier``: a tier id (K int, profile name) or an ad-hoc
         ``PrecisionProfile``."""
         if isinstance(tier, PrecisionProfile):
-            if self.energies is None:
+            if self._energies is None:
                 raise ValueError("digital engine: no energy tree to account")
-            return lm.profile_token_energy(self.model_cfg, self.energies, tier)
+            return lm.profile_token_energy(self.model_cfg, self._energies, tier)
         return float(self.tiers.get(tier).energy_per_token())
 
     def probe_apply(self):

@@ -1,6 +1,6 @@
 """Persistent decode slot pools: the state behind continuous batching.
 
-Port of ``repro/serving/pool.py`` (without mesh placement and deadlines).
+Port of ``repro/serving/pool.py`` (without mesh placement).
 A ``DecodePool`` is one tier's always-resident decode batch: ``slots``
 rows, each free or carrying one in-flight request, over one device cache
 tree (``lm.init_cache(cfg, slots, cache_len)``) that the pool's decode
@@ -123,6 +123,17 @@ class DecodePool:
         if rec is None:
             raise ValueError(f"slot {slot} is not active")
         return rec
+
+    def expired(self, now: float) -> List[int]:
+        """Active slots whose request's deadline is at or before ``now``
+        (the engine retires them through :meth:`retire` with a partial
+        ``TimedOut`` result)."""
+        out = []
+        for s in self.active_slots():
+            d = self.record(s).request.deadline
+            if d is not None and d <= now:
+                out.append(s)
+        return out
 
     def take(self, k: int) -> List[int]:
         """Claim ``k`` free slots for an admission wave; they decode only

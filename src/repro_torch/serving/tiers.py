@@ -1,5 +1,5 @@
 """Execution tiers; port of ``repro/serving/tiers.py`` (uniform K, per-layer
-profiles and the digital base tier).
+profiles and digital tiers; the int8 tier is not ported).
 
 A tier is one servable execution configuration: how a batch's prefill and
 decode steps run (``analog_spec``: the noise model of the forward, or
@@ -11,15 +11,23 @@ kernel); ``AnalogProfileTier`` is its per-layer form, a registered
 each row's position into the row's key, so every generated token draws
 fresh noise. Analog tiers price a token through the engine's energy tree
 (``sum_l K_l * E_l * MACs_l``); ``DigitalTier`` through a per-MAC digital
-constant. The ``TierRegistry`` maps tier ids (K ints, profile names) to
-tiers.
+constant. The ``TierRegistry`` maps tier ids (K ints, profile names,
+registered custom ids) to tiers.
+
+Each tier also carries its place on the degradation ladder: ``accuracy``
+(the precision governor's coordinate), ``promote()`` (the tier a fault
+retry moves to: one rung up the engine's ``k_ladder`` for uniform K, a
+registered more accurate tier or a per-layer re-trim for a profile, the
+same tier for digital), ``drift_promote()`` (the tier new traffic serves
+at while the engine's drift response is on) and ``drift_exempt``
+(digital tiers do not drift with the analog array).
 
 PyTorch runs eagerly, so a tier executes directly; there is no compiled
 executable cache as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,34 +38,60 @@ from repro_torch.core.profile import PrecisionProfile
 from repro_torch.models import lm
 
 
+def _next_rung(k: int, ladder: Tuple[int, ...]) -> int:
+    """The smallest ladder rung above ``k`` (``k`` itself at the top: a
+    promotion never goes past the calibrated ladder)."""
+    for rung in ladder:
+        if rung > k:
+            return rung
+    return k
+
+
 class ExecutionTier:
     """One servable execution configuration of one engine."""
 
-    def __init__(self, engine, tier_id):
+    #: digital tiers do not share the analog array's drift: the watchdog's
+    #: response leaves them where they are
+    drift_exempt = False
+
+    def __init__(self, engine, tier_id, *, accuracy: Optional[float] = None):
         self.engine = engine
         self.tier_id = tier_id
+        self.accuracy = None if accuracy is None else float(accuracy)
 
-    def analog_spec(self, keys: np.ndarray, pos=None):
+    def analog_spec(self, keys: np.ndarray, pos=None, noise_scale=None):
         """AnalogSpec of this tier's forwards (None: digital). ``keys`` are
-        the batch's stacked raw keys, ``pos`` the decode positions (B,)."""
+        the batch's stacked raw keys, ``pos`` the decode positions (B,),
+        ``noise_scale`` the engine's 0-d drift tensor."""
         return None
 
     def energy_per_token(self) -> float:
         """Modelled energy of one generated token (aJ)."""
         raise NotImplementedError
 
-    def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor, keys: np.ndarray, cache_len: int):
+    def promote(self):
+        """The tier id a fault retry of this tier's requests serves at (this
+        tier: repeats buy nothing without noise)."""
+        return self.tier_id
+
+    def drift_promote(self):
+        """The tier id new submissions serve at under the drift response."""
+        return self.tier_id
+
+    def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor, keys: np.ndarray, cache_len: int,
+                noise_scale=None):
         """Prefill a bucket batch -> (cache, last-token logits (B, V) f32)."""
         eng = self.engine
         cache, h_last = lm.prefill(
-            eng.params, tokens, eng.model_cfg, analog=self.analog_spec(keys),
+            eng.params, tokens, eng.model_cfg,
+            analog=self.analog_spec(keys, noise_scale=noise_scale),
             cache_len=cache_len, lengths=lengths,
         )
         logits = lm.logits_last(eng.params, h_last, eng.model_cfg)
         return cache, logits[:, 0, 0].to(torch.float32)
 
     def decode(self, cache, tok: torch.Tensor, pos: np.ndarray, keys: np.ndarray,
-               lengths: Optional[np.ndarray] = None):
+               lengths: Optional[np.ndarray] = None, noise_scale=None):
         """One decode step at per-row positions -> (logits (B, V) f32, cache).
         ``lengths``: the rows' prompt lengths, 0 for a batch-padding row
         (which MoE leaves out of expert capacity and its expert noise key,
@@ -66,7 +100,7 @@ class ExecutionTier:
         pos_dev = torch.as_tensor(pos, dtype=torch.int64).to(eng.device, non_blocking=True)
         logits, cache = lm.decode_step(
             eng.params, cache, tok[:, None], pos_dev, eng.model_cfg,
-            analog=self.analog_spec(keys, pos=pos),
+            analog=self.analog_spec(keys, pos=pos, noise_scale=noise_scale),
             lengths=None if lengths is None else torch.as_tensor(lengths, dtype=torch.int64),
         )
         return logits[:, 0, 0].to(torch.float32), cache
@@ -86,21 +120,28 @@ class UniformKTier(ExecutionTier):
     """Every analog matmul runs K repeats averaged (noise/sqrt(K) at K x
     energy). The id is the bare int K."""
 
-    def __init__(self, engine, k: int):
+    def __init__(self, engine, k: int, *, accuracy: Optional[float] = None):
         if k < 1:
             raise ValueError(f"n_repeats must be >= 1, got {k}")
-        super().__init__(engine, int(k))
+        super().__init__(engine, int(k), accuracy=accuracy)
         self.k = int(k)
 
-    def analog_spec(self, keys, pos=None):
+    def analog_spec(self, keys, pos=None, noise_scale=None):
         eng = self.engine
         return lm.AnalogSpec(cfg=eng.analog_cfg, energies=eng.energies,
-                             key=_step_keys(keys, pos), n_repeats=self.k)
+                             key=_step_keys(keys, pos), n_repeats=self.k,
+                             noise_scale=noise_scale)
 
     def energy_per_token(self) -> float:
         eng = self.engine
         profile = PrecisionProfile.uniform(self.k, eng.model_cfg.n_layers)
         return lm.profile_token_energy(eng.model_cfg, _analog_energies(eng), profile)
+
+    def promote(self):
+        return _next_rung(self.k, self.engine.k_ladder)
+
+    # the drift response climbs the same calibrated ladder as a retry
+    drift_promote = promote
 
 
 class AnalogProfileTier(ExecutionTier):
@@ -109,28 +150,54 @@ class AnalogProfileTier(ExecutionTier):
     go to the digital base tier)."""
 
     def __init__(self, engine, profile: PrecisionProfile):
-        super().__init__(engine, profile.name)
+        super().__init__(engine, profile.name, accuracy=profile.accuracy)
         self.profile = profile
 
-    def analog_spec(self, keys, pos=None):
+    def analog_spec(self, keys, pos=None, noise_scale=None):
         eng = self.engine
         if eng.analog_cfg is None:
             return None
         return lm.AnalogSpec(cfg=eng.analog_cfg, energies=eng.energies,
-                             key=_step_keys(keys, pos), profile=self.profile)
+                             key=_step_keys(keys, pos), profile=self.profile,
+                             noise_scale=noise_scale)
 
     def energy_per_token(self) -> float:
         eng = self.engine
         return lm.profile_token_energy(eng.model_cfg, _analog_energies(eng), self.profile)
 
+    def promote(self):
+        """The smallest registered tier more accurate than this one, else
+        the profile re-trimmed one ladder rung up in every layer (registered
+        as ``<name>+retrim``), else this tier (at the ladder's top)."""
+        eng = self.engine
+        if self.accuracy is not None:
+            best = None
+            for cand in eng.tiers.registered():
+                if cand is self or cand.accuracy is None:
+                    continue
+                if cand.accuracy > self.accuracy and (best is None or cand.accuracy < best.accuracy):
+                    best = cand
+            if best is not None:
+                return best.tier_id
+        reps = tuple(_next_rung(k, eng.k_ladder) for k in self.profile.repeats)
+        if reps == self.profile.repeats:
+            return self.tier_id
+        return eng.tiers.register_profile(PrecisionProfile(reps, name=f"{self.profile.name}+retrim"))
+
 
 class DigitalTier(ExecutionTier):
-    """Noiseless digital execution: the base tier of a digital engine.
-    A token is priced at ``aj_per_mac`` times the model's MACs a token;
-    without a constant there is nothing to price and the tier raises."""
+    """Noiseless digital execution: the base tier of a digital engine, or a
+    tier registered on an analog engine (``register``), exact and so of
+    accuracy 1.0 by default. A token is priced at ``aj_per_mac`` times the
+    model's MACs a token; without a constant there is nothing to price and
+    the tier raises."""
 
-    def __init__(self, engine, tier_id, *, aj_per_mac: Optional[float] = DIGITAL_BF16_AJ_PER_MAC):
-        super().__init__(engine, tier_id)
+    drift_exempt = True
+
+    def __init__(self, engine, tier_id="bf16", *,
+                 aj_per_mac: Optional[float] = DIGITAL_BF16_AJ_PER_MAC,
+                 accuracy: Optional[float] = 1.0):
+        super().__init__(engine, tier_id, accuracy=accuracy)
         self.aj_per_mac = None if aj_per_mac is None else float(aj_per_mac)
 
     def energy_per_token(self) -> float:
@@ -143,8 +210,9 @@ class DigitalTier(ExecutionTier):
 class TierRegistry:
     """Engine-owned map from tier ids to tiers. Uniform-K tiers materialize
     lazily on analog engines; on a digital engine every K resolves to the
-    one digital base tier (K is a no-op without noise). Profiles register
-    by name and are add-only: a name stays bound to its schedule."""
+    one digital base tier (K is a no-op without noise). Profiles and custom
+    tiers register by name and are add-only: a name stays bound to its
+    tier."""
 
     def __init__(self, engine):
         self._engine = engine
@@ -153,6 +221,22 @@ class TierRegistry:
         self.base_id = 1
         if engine.analog_cfg is None:
             self._tiers[self.base_id] = DigitalTier(engine, self.base_id, aj_per_mac=None)
+
+    def register(self, tier: ExecutionTier):
+        """Register a custom tier of this engine under its ``tier_id``
+        (idempotent for the same object, an error for a taken id)."""
+        if not isinstance(tier, ExecutionTier):
+            raise TypeError(f"expected an ExecutionTier, got {type(tier)!r}")
+        if tier.engine is not self._engine:
+            raise ValueError(f"tier {tier.tier_id!r} belongs to another engine")
+        prev = self._tiers.get(tier.tier_id)
+        if prev is tier:
+            return tier.tier_id
+        if prev is not None:
+            raise ValueError(f"tier id {tier.tier_id!r} is frozen to an already-registered tier; "
+                             "pick a new id")
+        self._tiers[tier.tier_id] = tier
+        return tier.tier_id
 
     def register_profile(self, profile: PrecisionProfile) -> str:
         """Register a profile under its name after checking it against the
@@ -191,6 +275,19 @@ class TierRegistry:
             return tier
         raise ValueError(f"unknown profile {tier_id!r}; register_profile() it first")
 
+    def resolve(self, tier):
+        """A submit-time ``tier=`` argument (a registered id, a uniform K, a
+        ``PrecisionProfile`` or an ``ExecutionTier``, registered here if
+        new) -> its tier id."""
+        if isinstance(tier, ExecutionTier):
+            if self._tiers.get(tier.tier_id) is not tier:
+                self.register(tier)
+            return tier.tier_id
+        if isinstance(tier, PrecisionProfile):
+            return self.resolve_profile(tier)
+        self.get(tier)  # existence check (materializes a uniform K)
+        return tier
+
     def resolve_profile(self, profile) -> object:
         """A submit-time ``profile=`` argument (a ``PrecisionProfile``,
         registered here if new, or a registered name) -> its tier id. A
@@ -214,3 +311,21 @@ class TierRegistry:
     def profiles(self) -> Dict[str, PrecisionProfile]:
         """Registered profiles by name (a copy; the registry is add-only)."""
         return dict(self._profiles)
+
+    def registered(self) -> List[ExecutionTier]:
+        """Every known tier, in registration order."""
+        return list(self._tiers.values())
+
+    def ladder(self) -> List[ExecutionTier]:
+        """Registered tiers with an accuracy, least accurate first: the
+        governor's demotion ladder over analog and digital tiers."""
+        tiers = [t for t in self._tiers.values() if t.accuracy is not None]
+        return sorted(tiers, key=lambda t: (t.accuracy, str(t.tier_id)))
+
+    def drift_exempt_ids(self) -> List[object]:
+        return [t.tier_id for t in self._tiers.values() if t.drift_exempt]
+
+    def drift_promote(self, tier_id):
+        """The tier id a new submission serves at under the drift response
+        (digital tiers and profiles stay where they are)."""
+        return self.get(tier_id).drift_promote()

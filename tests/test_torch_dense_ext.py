@@ -14,11 +14,15 @@ noise; engine tokens exact; decode against the full forward (the port's
 padded == unpadded bit for bit.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs as several processes on the cores (pytest-xdist): torch's
+# intra-op threads in each would oversubscribe them (20x slower when six run)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -205,6 +209,16 @@ def _keys():
                      + [jax.random.PRNGKey(0)])
 
 
+@functools.partial(jax.jit, static_argnames=("cfg", "k"))
+def _jdecode(params, cache, batch, pos, lengths, energies, key, *, cfg, k):
+    """The reference's decode step, compiled once a (config, K): a test's
+    decode steps share one executable (eagerly, each step recompiles its
+    layer scan)."""
+    spec = jlm.AnalogSpec(cfg=JAnalogConfig.shot(backend="tile"), energies=energies, key=key,
+                          n_repeats=k)
+    return jlm.decode_step(params, cache, batch, pos, cfg, analog=spec, lengths=lengths)
+
+
 @pytest.mark.parametrize("n_repeats", [1, 4], ids=["K1", "K4"])
 @pytest.mark.parametrize("arch", NEW)
 def test_prefill_and_decode_match_reference(arch, n_repeats):
@@ -232,10 +246,11 @@ def test_prefill_and_decode_match_reference(arch, n_repeats):
     for step in range(2):
         pos = lengths + step
         step_in = _step_input(cfg, tok, seed=10 + step)
-        jstep = dataclasses.replace(jspec, key=jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)))
         sspec = dataclasses.replace(spec, key=fold_key(np.asarray(keys), pos))
-        jlogits, jcache = jlm.decode_step(m["jparams"], jcache, _j(step_in), jnp.asarray(pos), jcfg,
-                                          analog=jstep, lengths=jnp.asarray(lengths))
+        jlogits, jcache = _jdecode(m["jparams"], jcache, _j(step_in), jnp.asarray(pos),
+                                   jnp.asarray(lengths), m["jenergies"],
+                                   jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)), cfg=jcfg,
+                                   k=n_repeats)
         logits, cache = lm.decode_step(m["params"], cache, _t(step_in), torch.from_numpy(pos), cfg,
                                        analog=sspec)
         _close(logits[:3], jlogits[:3])

@@ -7,11 +7,15 @@ depends on the jax version) at float32. Tolerance: max|dlogit| within
 ``1e-4 * max|logit|`` — float32 sums in another order through 4 layers.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs as several processes on the cores (pytest-xdist): torch's
+# intra-op threads in each would oversubscribe them (20x slower when six run)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -81,6 +85,15 @@ def _specs(weights, n_repeats, keys):
     return jspec, spec
 
 
+@functools.partial(jax.jit, static_argnames=("k",))
+def _jdecode(params, cache, tok, pos, lengths, energies, key, *, k):
+    """The reference's decode step (digital for ``k`` None), compiled once a
+    K: a test's decode steps share one executable."""
+    spec = None if k is None else jlm.AnalogSpec(
+        cfg=JAnalogConfig.shot(backend="tile"), energies=energies, key=key, n_repeats=k)
+    return jlm.decode_step(params, cache, {"tokens": tok}, pos, JCFG, analog=spec, lengths=lengths)
+
+
 @pytest.mark.parametrize("mode", ["digital", "analog-K1", "analog-K4"])
 def test_prefill_and_per_row_decode_match_reference(weights, mode):
     toks, lengths = _batch()
@@ -101,10 +114,11 @@ def test_prefill_and_per_row_decode_match_reference(weights, mode):
     tok = np.asarray(jnp.argmax(jlogits[:, 0, 0], axis=-1)).astype(np.int32)
     for step in range(2):
         pos = lengths + step
-        jstep = jspec and dataclasses.replace(jspec, key=jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)))
         step_spec = spec and dataclasses.replace(spec, key=fold_key(np.asarray(keys), pos))
-        jlogits, jcache = jlm.decode_step(weights["jparams"], jcache, {"tokens": jnp.asarray(tok)[:, None]},
-                                          jnp.asarray(pos), JCFG, analog=jstep, lengths=jnp.asarray(lengths))
+        jlogits, jcache = _jdecode(weights["jparams"], jcache, jnp.asarray(tok)[:, None],
+                                   jnp.asarray(pos), jnp.asarray(lengths), weights["jenergies"],
+                                   jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)),
+                                   k=None if mode == "digital" else n_rep)
         logits, cache = lm.decode_step(weights["params"], cache, torch.from_numpy(tok)[:, None],
                                        torch.from_numpy(pos), CFG, analog=step_spec)
         _close(logits[:3], jlogits[:3])

@@ -9,12 +9,16 @@ the port a uniform profile is the ``n_repeats=K`` forward bit for bit, and
 a profile request's tokens are the same bits solo and batched.
 """
 import dataclasses
+import functools
 import json
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs as several processes on the cores (pytest-xdist): torch's
+# intra-op threads in each would oversubscribe them (20x slower when six run)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -274,6 +278,15 @@ def _close(got, want, rel=LOGIT_REL):
     assert err <= rel * float(np.abs(want).max()), (err, float(np.abs(want).max()))
 
 
+@functools.partial(jax.jit, static_argnames=("profile",))
+def _jdecode(params, cache, tok, pos, lengths, energies, key, *, profile):
+    """The reference's profile decode step, compiled once: a test's decode
+    steps share one executable."""
+    spec = jlm.AnalogSpec(cfg=JAnalogConfig.shot(backend="tile"), energies=energies, key=key,
+                          profile=profile)
+    return jlm.decode_step(params, cache, {"tokens": tok}, pos, JCFG, analog=spec, lengths=lengths)
+
+
 def test_profile_prefill_and_decode_match_reference(weights):
     toks, lengths = _batch()
     keys, cache_len = _keys(), 20
@@ -290,10 +303,11 @@ def test_profile_prefill_and_decode_match_reference(weights):
     tok = np.asarray(jnp.argmax(jlogits[:, 0, 0], axis=-1)).astype(np.int32)
     for step in range(2):
         pos = lengths + step
-        jstep = dataclasses.replace(jspec, key=jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)))
         pstep = dataclasses.replace(spec, key=fold_key(np.asarray(keys), pos))
-        jlogits, jcache = jlm.decode_step(weights["jparams"], jcache, {"tokens": jnp.asarray(tok)[:, None]},
-                                          jnp.asarray(pos), JCFG, analog=jstep, lengths=jnp.asarray(lengths))
+        jlogits, jcache = _jdecode(weights["jparams"], jcache, jnp.asarray(tok)[:, None],
+                                   jnp.asarray(pos), jnp.asarray(lengths), weights["jenergies"],
+                                   jax.vmap(jax.random.fold_in)(keys, jnp.asarray(pos)),
+                                   profile=JPROFILE)
         logits, cache = lm.decode_step(weights["params"], cache, torch.from_numpy(tok)[:, None],
                                        torch.from_numpy(pos), CFG, analog=pstep)
         _close(logits[:3], jlogits[:3])

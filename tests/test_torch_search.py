@@ -15,6 +15,9 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs as several processes on the cores (pytest-xdist): torch's
+# intra-op threads in each would oversubscribe them (20x slower when six run)
+torch.set_num_threads(1)
 
 from repro.core import profile as jprofile  # noqa: E402
 from repro.core import search as jsearch  # noqa: E402
