@@ -38,7 +38,22 @@ against hand-set energies, transient faults with retries, poisoned rows,
 deadlines), the drift watchdog, the precision governor, and a three-replica
 cluster over one copy of the weights through a crash, a hang, a degraded
 replica and a hedge, every request's tokens against the plain pooled
-run's. Then it frees granite's
+run's, and an unexpected exception (a plain ``RuntimeError`` at every
+call of two tiers) contained as the reference contains it: retried once,
+then ``Failed``, its neighbours' tokens the plain run's. On the same
+weights it serves tensor-parallel (``tp``): the serve's prompts at K=1,
+K=4 and edge4 through engines on a local mesh of 2 and 4 column shards
+(run one after another on the card), batch-synchronously and through
+4-slot pools, every token equal to the unsharded engine's and tp times
+its launches at N / tp, with the decode step's ms, device ms and idle
+share at tp = 1, 2, 4; and it serves the int8 digital tier beside the
+bf16 one (``int8``: the trees' bytes, int8 logits against bf16, solo
+against batched, ms a decode step, energy a token). Before the serves,
+``tp_routes`` holds every route's column shards at granite-3-8b's and
+recurrentgemma-2b's site shapes to their slices of the unsharded call,
+bit for bit. Every engine of a phase that injects no fault must contain
+none (``exe_errors``, ``exe_faults``, ``failed``, ``timed_out`` all 0).
+Then it frees granite's
 weights and serves recurrentgemma-2b (griffin: RG-LRU and local
 attention, 26 layers, 200 analog sites a forward) at full width and depth
 (``serve_griffin``): eight requests through ``ServingEngine`` with every
@@ -49,7 +64,9 @@ prefill against the plain path, and each digital decode step against a
 cache-free prefill of the sequence so far); an ``edge`` profile over the
 groups and the two tail layers (``griffin_profile``); and the eight
 prompts through 4-slot pools against batch-synchronous batches
-(``griffin_continuous``). Then the rest of the dense family, one
+(``griffin_continuous``), and two of the prompts at K=1 and two at K=4
+on a mesh of 2 shards against the unsharded engine (``tp_griffin``, with
+``tp``). Then the rest of the dense family, one
 configuration's weights at a time: granite-20b (GELU with biases, MQA;
 ``serve_granite20``) and qwen2.5-14b (QKV bias; ``serve_qwen14``) through
 the same serve, solo and whole-path checks, launches by route and by site
@@ -204,8 +221,9 @@ MOE_STEPS = 4
 #: 4 gives the 2-row bucket 2-row decode buffers, which take the decode
 #: route: another float order.)
 PAD_COUNT_CF = 6.0
-PHASES = ("build", "threefry", "kernels", "routes", "site_time", "sweep", "serve",
-          "serve_weight", "profile", "continuous", "resilience", "serve_griffin", "griffin_long",
+PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "sweep", "serve",
+          "serve_weight", "profile", "continuous", "resilience", "tp", "int8", "serve_griffin",
+          "griffin_long",
           "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
@@ -233,12 +251,13 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: route's launches in the phases that hold it against the plain version.
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
+TP_PATHS = ("tp", "tp_griffin")
 MAIN_PATHS = {"decode": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
-              + FAMILY_PATHS,
+              + FAMILY_PATHS + TP_PATHS,
               "tc": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
-              + FAMILY_PATHS,
+              + FAMILY_PATHS + TP_PATHS,
               "simt": (), "weight": ("serve_weight",)}
-CHECK_PATHS = ("kernels", "routes", "site_time")
+CHECK_PATHS = ("kernels", "routes", "tp_routes", "site_time")
 
 
 def card() -> str:
@@ -959,13 +978,13 @@ def site_launches(cfg) -> dict:
     return {s: (suf[0] if suf else 1) for s, suf in lm.group_sites(cfg).items()}
 
 
-def forward_sites(cfg) -> int:
+def forward_sites(cfg, tp: int = 1) -> int:
     """Kernel launches of one forward's analog sites: every group's and
-    every tail layer's."""
+    every tail layer's, ``tp`` launches a site on a mesh of ``tp`` shards."""
     from repro_torch.models import lm
 
-    return (sum(site_launches(cfg).values()) * lm.group_structure(cfg)[0]
-            + len(lm.TAIL_SITES) * lm.n_tail(cfg))
+    return tp * (sum(site_launches(cfg).values()) * lm.group_structure(cfg)[0]
+                 + len(lm.TAIL_SITES) * lm.n_tail(cfg))
 
 
 def layer_sites(cfg) -> list:
@@ -1000,17 +1019,18 @@ _FAMILY_LEAF = {"mlstm_z": ("mlstm", "w_z"), "mlstm_q": ("mlstm", "w_q"),
                 "moe_shared_out": ("moe", "shared", "w_down")}
 
 
-def forward_shapes(cfg) -> dict:
+def forward_shapes(cfg, tp: int = 1) -> dict:
     """(K, N) of every analog site launch of one forward -> its count, from
-    the weight leaves the sites read."""
+    the weight leaves the sites read; on a mesh of ``tp`` shards each site
+    launches ``tp`` times at (K, N / tp)."""
     from repro_torch.models import lm
 
     leaves = lm.param_leaves(cfg)
     count = {}
 
     def add(leaf, times):
-        kn = tuple(leaf.shape[-2:])
-        count[kn] = count.get(kn, 0) + times
+        kn = (leaf.shape[-2], leaf.shape[-1] // tp)
+        count[kn] = count.get(kn, 0) + times * tp
 
     g = lm.group_structure(cfg)[0]
     for site, n in site_launches(cfg).items():
@@ -1206,20 +1226,21 @@ def phase_whole_path_weight(make_engine, prompts):
 
 
 def _profile(fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler) and
-    the host wall time of that profiled call."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler,
+    device activity only: the host's op events, thousands a forward, took
+    seconds of the run to record and average) and the host wall time of
+    that profiled call; ``profile_s`` is the whole profile's cost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    # device-side events only (kernels, copies): a CPU op's row repeats the
-    # device time of the kernels it launched
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
@@ -1227,6 +1248,7 @@ def _profile(fn):
     return out, dict(
         profiled_wall_ms=wall_ms, device_ms=sum(dev(e) for e in events) / 1e3,
         top=[dict(name=e.key[:60], ms=dev(e) / 1e3, calls=e.count) for e in top],
+        profile_s=time.perf_counter() - t0,
     )
 
 
@@ -1261,7 +1283,7 @@ def _first_batch(engine, prompts, tiers):
                 table=batch_keys(keys, bb))
 
 
-def phase_steps(engine, prompts, tiers, drift_ab=False):
+def phase_steps(engine, prompts, tiers, drift_ab=False, variant=None, n_steps=SERVE_MAX_GEN - 1):
     """Prefill and decode of the first batch through the kernels, with the
     engine's drift operand as the engine passes it: wall time of an
     unprofiled prefill and of an unprofiled run of decode steps (one sync
@@ -1273,7 +1295,8 @@ def phase_steps(engine, prompts, tiers, drift_ab=False):
     ``drift_ab``: also time the decode steps without the drift operand
     (the forward of an engine that has none) against with it, in turns
     (off, on, on, off), and profile one step of each: what carrying the
-    drift as a runtime operand costs a step."""
+    drift as a runtime operand costs a step. ``variant`` names the run in
+    its lines; ``n_steps`` decode steps are timed."""
     import torch
 
     fb = _first_batch(engine, prompts, tiers)
@@ -1283,7 +1306,6 @@ def phase_steps(engine, prompts, tiers, drift_ab=False):
     prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len,
                                    noise_scale=scale)
     (cache, logits), prefill_ms = _wall_ms(prefill)
-    n_steps = SERVE_MAX_GEN - 1
 
     def decode_run(d=scale):
         c, tok = cache, torch.argmax(logits, dim=-1)
@@ -1317,6 +1339,7 @@ def phase_steps(engine, prompts, tiers, drift_ab=False):
         ("decode", step_ms, decode_prof, n_real / step_ms * 1e3),
     ):
         log("step", config=engine.model_cfg.name, step=name, requests=fb["first"], tier=fb["k"],
+            tp=1 if engine.mesh is None else engine.mesh.tp, variant=variant,
             bucket=[fb["bb"], fb["sb"]],
             wall_ms=wall, tokens_per_s=rate, steps_timed=1 if name == "prefill" else n_steps,
             idle_share=max(0.0, 1.0 - prof["device_ms"] / wall),
@@ -1650,6 +1673,7 @@ def phase_resilience(make_engine, prompts, tiers, CONFIG=None):
             for p, k, key in zip(prompts, tiers, keys)]
     torch.cuda.synchronize()
     _zero_launches()
+    n_eng = len(_ENGINE_STATS)
 
     # (a) the plain pooled run, and an armed but empty plan
     base_eng = eng()
@@ -1711,6 +1735,27 @@ def phase_resilience(make_engine, prompts, tiers, CONFIG=None):
     if not ok or not (isinstance(failed, Failed) and failed.retries == 1
                       and failed.tokens.size == 0 and not any(fail_l.values())):
         raise AssertionError(f"transient fault: {fault_eng.fault_log}, {failed}")
+
+    # (c2) an unexpected exception (not the plan's transient fault) at every
+    # call of the K=1 and K=2 tiers: contained, retried once one rung up,
+    # then Failed; the K=4 pool serves the plain tokens
+    err_eng = eng(fault_plan=_broken_tier_plan((1, 2)), max_retries=1)
+    uids, res, _, err_l = _res_serve(err_eng, subs)
+    hit = [u for u in uids if tiers[u] in (1, 2)]
+    kept = [bool(np.array_equal(res[u], base[u])) for u in uids if u not in hit]
+    failed = [res[u] for u in hit]
+    est = err_eng.stats
+    log("resilience_exe_error", broken_tiers=[1, 2], failed=[type(f).__name__ for f in failed],
+        failed_retries=[getattr(f, "retries", None) for f in failed],
+        detail=getattr(failed[0], "detail", None), neighbours_equal=kept,
+        exe_errors=est["exe_errors"], retried=est["retried"], launches=err_l, card=card())
+    if not (failed and all(isinstance(f, Failed) and f.retries == 1 and f.tokens.size == 0
+                           and f.detail.startswith("RuntimeError(") for f in failed)
+            and kept and all(kept) and est["exe_errors"] >= 2 and est["exe_faults"] == 0
+            and sorted(res) == sorted(uids)
+            and all(p.n_active == 0 and p.n_free == p.slots for p in err_eng.pools.values())):
+        raise AssertionError(f"generic exception: {err_eng.fault_log}, {failed}, kept {kept}")
+    err_stats = est
 
     # (d) a poisoned readout row retires that row alone
     poison_eng = eng(fault_plan=FaultPlan(poison={(2, 0): -9}))
@@ -1854,7 +1899,7 @@ def phase_resilience(make_engine, prompts, tiers, CONFIG=None):
                              f"budget {budget_kinds} {held}")
 
     # (h) three replicas over one copy of the weights
-    base_eng = fault_eng = fail_eng = poison_eng = q_eng = p_eng = wd_eng = None
+    base_eng = fault_eng = fail_eng = err_eng = poison_eng = q_eng = p_eng = wd_eng = None
     gov_eng = shed_eng = budget_eng = None
     torch.cuda.synchronize()
     weights_gib = sum(a.numel() * a.element_size()
@@ -1935,6 +1980,10 @@ def phase_resilience(make_engine, prompts, tiers, CONFIG=None):
             and es["hedge_cancelled"] + es["duplicates_discarded"] >= 1
             and es["prefix_mismatches"] == 0):
         raise AssertionError("cluster checks failed (see the resilience_cluster line)")
+    # no engine of the phase contained an exception but the broken-tier one
+    others = [st["exe_errors"] for _, st in _ENGINE_STATS[n_eng:] if st is not err_stats]
+    if any(others):
+        raise AssertionError(f"an engine contained an unexpected exception: {others}")
     log("resilience", config=CONFIG.name, layers=CONFIG.n_layers, launches=dict(am.LAUNCHES),
         launches_by_shape={f"{r}:{k}x{n}": v for (r, k, n), v in sorted(am.LAUNCHES_BY_SHAPE.items())},
         card=card())
@@ -3122,6 +3171,376 @@ def phase_llama4_fit():
         raise AssertionError(f"llama4: launches {launches} != {expected} or bad tokens {toks}")
     return launches
 
+# ---------------------------------------------------------------------------
+# contained faults, tensor parallelism, the int8 tier
+# ---------------------------------------------------------------------------
+
+#: (phase, stats) of every ServingEngine the run builds (``_watch_engines``)
+_ENGINE_STATS: list = []
+#: the phase running now (set by ``main``'s ``timed``)
+_PHASE = ["start"]
+#: phases that inject faults on purpose: each holds its own engines
+FAULT_PHASES = ("resilience",)
+#: an engine's counters of contained faults and structured failures
+CONTAINED = ("exe_errors", "exe_faults", "failed", "timed_out")
+
+
+def _watch_engines() -> None:
+    """Keep the stats of every ``ServingEngine`` built from here on, with
+    the phase that built it, for ``_no_contained_faults``: the engine
+    contains an unexpected exception as a structured ``Failed`` (the
+    reference's ``exe_error`` path), and that must not hide a kernel
+    failure. Wraps the constructor; the engine behaves as it does."""
+    from repro_torch.serving.engine import ServingEngine
+
+    init = ServingEngine.__init__
+
+    def watched(self, *args, **kw):
+        init(self, *args, **kw)
+        _ENGINE_STATS.append((_PHASE[0], self.stats))
+
+    ServingEngine.__init__ = watched
+
+
+def _no_contained_faults() -> None:
+    """Every engine built outside ``FAULT_PHASES`` contained no exception
+    and resolved no request to a ``RequestFailure``."""
+    bad = [(phase, {k: st[k] for k in CONTAINED}) for phase, st in _ENGINE_STATS
+           if phase not in FAULT_PHASES and any(st[k] for k in CONTAINED)]
+    if bad:
+        raise AssertionError(f"an engine contained a fault where none was injected: {bad}")
+
+
+def _broken_tier_plan(broken):
+    """A ``FaultPlan`` under which every prefill and decode call of the
+    tiers ``broken`` raises a plain ``RuntimeError``: an unexpected
+    exception, not the plan's ``TransientExecutableFault``."""
+    from repro_torch.serving import FaultPlan
+
+    class BrokenTierPlan(FaultPlan):
+        def check_executable(self, key) -> None:
+            super().check_executable(key)
+            if key[0] != "insert" and key[-1] in broken:
+                raise RuntimeError(f"unplanned executable crash: {key}")
+
+    return BrokenTierPlan()
+
+
+#: tensor parallelism: shard counts, new tokens a request, and the tiers of
+#: the serve's 8 prompts (K=1, K=4 and edge4)
+TP_SIZES = (2, 4)
+TP_GEN = 8
+#: decode steps a step timing at each tp (a mean; the serve's phases time 15)
+TP_STEPS = 5
+TP_TIERS = ({"n_repeats": 1},) * 3 + ({"n_repeats": 4},) * 3 + ({"profile": "edge4"},) * 2
+TP_GRIFFIN_TIERS = ({"n_repeats": 1},) * 2 + ({"n_repeats": 4},) * 2
+#: the sites of tp_routes: granite-3-8b's and recurrentgemma-2b's
+TP_ROUTE_SITES = [("granite-3-8b " + s, k, n) for s, k, n in SITES] + [
+    ("recurrentgemma-2b " + s, k, n) for s, k, n in GRIFFIN_SITES]
+
+
+def _tp_route_cases():
+    """(route, (b, m), cfg, energy) of tp_routes: each route at its main
+    path's rows (weight noise at decode and prefill rows; simt forced)."""
+    from repro_torch.core.analog import AnalogConfig
+
+    shot, weight = AnalogConfig.shot(), AnalogConfig.weight(0.1)
+    return [("decode", (4, 1), shot, 20.0), ("tc", (4, 64), shot, 20.0),
+            ("weight", (2, 1), weight, 5.0), ("weight", (2, 32), weight, 5.0),
+            ("simt", (4, 1), shot, 20.0)]
+
+
+def phase_tp_routes() -> None:
+    """Every route at granite-3-8b's and recurrentgemma-2b's site shapes, K
+    = 1 and 4, tp = 2 and 4 (N / tp % 8 == 0 at each): shard r of
+    ``ops.analog_matmul_shards`` (a column view of the weight, its seed's
+    col0 at r N / tp, ``plan_n`` N) equals columns [r N / tp, (r + 1) N /
+    tp) of the unsharded call bit for bit, launching the route once a
+    shard; the gathered shards are within the route's rule of the plain
+    version; each shard's launch plan splits K as the whole call's. At K = 1
+    the decode and tc routes are timed (median of 10, L2 emptied): one
+    shard's launch beside its bound, and the unsharded call."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+    from repro_torch.kernels.ref import analog_matmul_ref_raw
+
+    flush = _flush_buffer()
+    rows = []
+    for site, k, n in TP_ROUTE_SITES:
+        for route, (b, m), cfg, energy in _tp_route_cases():
+            for reps in (1, 4):
+                o, _ = _site_operands(b, m, k, n, cfg, energy, seed=91)
+                whole = _run_raw(analog_matmul_raw, o, reps, route=route)
+                plain = _run_raw(analog_matmul_ref_raw, o, reps)
+                raw = functools.partial(analog_matmul_raw, route=route)
+                for tp in TP_SIZES:
+                    nl = n // tp
+                    if nl % 8:
+                        continue
+                    before = dict(am.LAUNCHES)
+                    shards = ops.analog_matmul_shards(
+                        raw, o["x"], o["w"], energy=torch.tensor(energy, device="cuda"),
+                        seed=o["seed"], cfg=cfg, n_repeats=reps, tp=tp, shards=range(tp),
+                        plan_n=n)
+                    launched = _launch_delta(before)
+                    equal = [bool(torch.equal(y, whole[..., r * nl:(r + 1) * nl]))
+                             for r, y in enumerate(shards)]
+                    err, atol, ok = _close(torch.cat(shards, dim=-1), plain, o, None)
+                    if route == "decode":
+                        plans = (am.decode_plan(k, nl, b * m, plan_n=n),
+                                 am.decode_plan(k, n, b * m))
+                    elif route == "weight":
+                        plans = (am.weight_plan(k, nl, m, plan_n=n), am.weight_plan(k, n, m))
+                    else:
+                        plans = ({"kc": am.TC_BK, "splits": am.tc_plan(b * m, k, nl)["k_tiles"]},
+                                 {"kc": am.TC_BK, "splits": am.tc_plan(b * m, k, n)["k_tiles"]})
+                    same_plan = all(plans[0][f] == plans[1][f] for f in ("kc", "splits"))
+                    row = dict(site=site, route=route, shape=[b, m, k, n], n_repeats=reps, tp=tp,
+                               shard_equals_slice=equal, max_abs_err=err, atol=atol, ok=ok,
+                               kc_splits=[plans[0]["kc"], plans[0]["splits"]],
+                               same_plan=same_plan, launched=launched)
+                    if reps == 1 and route in ("decode", "tc"):
+                        seeds = ops.shard_seeds(o["seed"], tp, nl)
+                        shard = dict(o, w=o["w"][:, :nl], col_scale=o["col_scale"][..., :nl],
+                                     wq=torch.ones((3, nl), device="cuda"), seed=seeds[0])
+                        row["shard_ms"] = cuda_ms(
+                            lambda: _run_raw(analog_matmul_raw, shard, 1, route=route, plan_n=n),
+                            10, flush)
+                        row["shard_bound_ms"], row["shard_bound_by"], _ = _bound(shard, 1)
+                        row["unsharded_ms"] = cuda_ms(
+                            lambda: _run_raw(analog_matmul_raw, o, 1, route=route), 10, flush)
+                    rows.append(row)
+                    log("tp_route", **row)
+                    if not (all(equal) and ok and same_plan
+                            and launched == {r: tp * (r == route) for r in am.ROUTES}):
+                        raise AssertionError(f"tp route {route} {site} tp={tp} K={reps}: {row}")
+    log("tp_routes", cases=len(rows), routes=sorted({r["route"] for r in rows}),
+        all_shards_equal=True, card=card())
+
+
+def _expected_launches(cfg, stats, tp):
+    """Launches by route and by (route, K, N / tp) of an engine's decode
+    steps and prefill batches, on a mesh of ``tp`` shards."""
+    sites = forward_sites(cfg, tp)
+    by_route = {"decode": sites * stats["decode_steps"], "tc": sites * stats["batches"],
+                "simt": 0, "weight": 0}
+    by_shape = {}
+    for (k, n), c in forward_shapes(cfg, tp).items():
+        for route, forwards in (("decode", stats["decode_steps"]), ("tc", stats["batches"])):
+            if c * forwards:
+                by_shape[(route, k, n)] = c * forwards
+    return by_route, by_shape
+
+
+def _tp_serve(make_engine, prompts, tiers, mesh, continuous, profiles):
+    """The tp traffic (``prompts`` at ``tiers``, ``TP_GEN`` tokens) through an
+    engine over the weights: (engine, tokens by uid, launches by route, by
+    (route, K, N), seconds)."""
+    from repro_torch.kernels import analog_matmul as am
+
+    kw = dict(continuous=True, pool_slots=POOL_SLOTS) if continuous else {}
+    engine = make_engine("auto", profiles=profiles, seq_buckets=(64,), max_wait=0.0,
+                         max_gen=TP_GEN, mesh=mesh, **kw)
+    for p, t in zip(prompts, tiers):
+        engine.submit(p, max_new_tokens=TP_GEN, **t)
+    results, s, launches = _drain(engine)
+    if sorted(results) != list(range(len(prompts))):
+        raise AssertionError(f"served {sorted(results)} of {len(prompts)}")
+    return engine, results, launches, dict(am.LAUNCHES_BY_SHAPE), s
+
+
+def phase_tp(make_engine, prompts, CONFIG=None, sizes=TP_SIZES, tiers=TP_TIERS,
+             disciplines=(False, True)):
+    """Tensor-parallel serving on one card (a local mesh: the shards run
+    one after another): the traffic at each tp of ``sizes``, batch-
+    synchronous and through 4-slot pools (``disciplines``), equals the
+    unsharded batch-synchronous engine's tokens bit for bit (at one seq
+    bucket pooled == sync, as ``continuous`` holds), with tp times its
+    launches by route, at N / tp; an ``attach_mesh`` with a request in
+    flight raises; then the ms a decode step (``TP_STEPS`` timed), device
+    ms and idle share of the first batch at tp = 1 and each of ``sizes``.
+    Returns the launches by route of the sharded serves."""
+    import numpy as np
+
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    prompts = list(prompts[:len(tiers)])
+    profiles = [_edge4()] if {"profile": "edge4"} in tiers else []
+    total = {r: 0 for r in am.ROUTES}
+    eng1, want, l1, _, s1 = _tp_serve(make_engine, prompts, tiers, None, False, profiles)
+    if l1 != _expected_launches(CONFIG, eng1.stats, 1)[0]:
+        raise AssertionError(f"unsharded: launches {l1}")
+    step_engines = {1: eng1}
+    for continuous in disciplines:
+        name = "pooled" if continuous else "sync"
+        for tp in sizes:
+            mesh = make_mesh_for_devices(tp)
+            eng, got, launches, by_shape, s = _tp_serve(make_engine, prompts, tiers, mesh,
+                                                        continuous, profiles)
+            equal = [bool(np.array_equal(got[u], want[u])) for u in range(len(prompts))]
+            want_launch, want_shape = _expected_launches(CONFIG, eng.stats, tp)
+            ok_launch = launches == want_launch and by_shape == want_shape
+            if not continuous:  # the same batches as the unsharded serve
+                ok_launch = ok_launch and launches == {r: tp * c for r, c in l1.items()}
+            st = eng.stats
+            log("tp_serve", config=CONFIG.name, layers=CONFIG.n_layers, tp=tp, discipline=name,
+                requests=len(got), tokens_equal_unsharded=equal, launches=launches,
+                unsharded_launches=l1,
+                launches_by_shape={f"{r}:{k}x{n}": c for (r, k, n), c in sorted(by_shape.items())},
+                forwards=st["batches"] + st["decode_steps"], flush_ms=s * 1e3,
+                unsharded_flush_ms=s1 * 1e3,
+                ms_per_forward=s * 1e3 / (st["batches"] + st["decode_steps"]),
+                generated_tokens_per_s=st["tokens_generated"] / s,
+                unsharded_tokens_per_s=eng1.stats["tokens_generated"] / s1, card=card())
+            if not (all(equal) and ok_launch):
+                raise AssertionError(f"tp={tp} {name}: equal {equal}, launches {launches} vs "
+                                     f"{want_launch} ({l1} unsharded), by shape {by_shape} vs "
+                                     f"{want_shape}")
+            for r in am.ROUTES:
+                total[r] += launches[r]
+            if not continuous:
+                step_engines[tp] = eng
+    # attach_mesh with a request in flight is refused; drained, it attaches
+    eng = step_engines[max(sizes)]
+    eng.submit(prompts[0], max_new_tokens=TP_GEN, **tiers[0])
+    try:
+        eng.attach_mesh(make_mesh_for_devices(1))
+        refused = False
+    except ValueError:
+        refused = True
+    eng.flush()
+    log("tp_attach", refused_in_flight=refused, card=card())
+    if not refused:
+        raise AssertionError("attach_mesh with a request in flight did not raise")
+    step_tiers = [t.get("n_repeats", 1) for t in tiers]
+    for tp, eng in sorted(step_engines.items()):
+        phase_steps(eng, prompts, step_tiers, n_steps=TP_STEPS)
+    return total
+
+
+def phase_int8(make_engine, prompts, CONFIG=None):
+    """The int8 digital tier and the bf16 digital tier on one analog engine
+    (granite-3-8b at full size): the bytes of both trees (int8 < 0.62x),
+    the int8 prefill logits of the first batch against bf16 (within 0.25
+    max|logit|, top-1 agreement >= 0.5: the reference test's bound), a
+    serve of the 8 prompts on each tier with its peak memory, tokens/s, a
+    request alone equal to its batch and its decode steps' sites on the
+    decode route (no noise), the decode step of each (ms, device ms, idle
+    share) and the int8 energy a token (30,000 aJ a MAC). Then the bf16
+    tier's serve and decode step with its digital sites as one batched
+    matmul a site (the hook swapped for those runs only), and one gate/up
+    site on the route, as one matmul and as one matmul a request: what the
+    decode route buys."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.energy import DIGITAL_INT8_AJ_PER_MAC, total_macs
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+    from repro_torch.models import lm
+    from repro_torch.models.hooks import MatmulHook, ServingMatmulHook
+    from repro_torch.quant.weights import param_bytes
+    from repro_torch.serving import DigitalTier, Int8DigitalTier
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    engine = make_engine("auto", seq_buckets=(64,), max_wait=0.0, max_gen=TP_GEN)
+    tiers = {"bf16": DigitalTier(engine), "int8": Int8DigitalTier(engine)}
+    for t in tiers.values():
+        engine.register_tier(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = tiers["int8"].params
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    gib = {"bf16": param_bytes(engine.params) / 2**30, "int8": param_bytes(qparams) / 2**30}
+
+    fb = _first_batch(engine, prompts, ["int8"] * len(prompts))
+    cache_len = fb["sb"] + TP_GEN
+    logits = {name: t.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len)[1]
+              for name, t in tiers.items()}
+    n = len(fb["first"])
+    l8, l16 = logits["int8"][:n], logits["bf16"][:n]
+    rel = float((l8 - l16).abs().max()) / float(l16.abs().max())
+    agree = float((l8.argmax(-1) == l16.argmax(-1)).float().mean())
+
+    def serve_tier(name):
+        """The 8 prompts on tier ``name``: (tokens by prompt, one summary)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = engine.stats["decode_steps"]
+        for i, p in enumerate(prompts):
+            engine.submit(p, tier=name, max_new_tokens=TP_GEN, key=fold_in(PRNGKey(0), i))
+        results, s, launches = _drain(engine)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {r: 0 for r in launches}
+        want["decode"] = forward_sites(CONFIG) * (engine.stats["decode_steps"] - steps)
+        tokens = [results[min(results) + i] for i in range(len(prompts))]
+        solo_uid = engine.submit(prompts[fb["first"][-1]], tier=name, max_new_tokens=TP_GEN)
+        solo = engine.flush()[solo_uid]
+        return tokens, dict(tokens_per_s=TP_GEN * len(results) / s, flush_ms=s * 1e3,
+                            peak_gib=peak, launches=launches, decode_route_launches=want,
+                            solo_equals_batched=bool(np.array_equal(solo,
+                                                                    tokens[fb["first"][-1]])),
+                            tokens_ok=all(_tokens_ok(r, TP_GEN, CONFIG.vocab_size)
+                                          for r in results.values()))
+
+    serve = {}
+    for name in tiers:
+        tokens, serve[name] = serve_tier(name)
+        if name == "bf16":
+            bf16_tokens = tokens
+    # the bf16 tier again with the digital sites as one batched matmul a
+    # site, as before the decode route (a request alone may differ from its
+    # batch); the hook swapped for this serve and its step only
+    served = ServingMatmulHook.__call__
+    ServingMatmulHook.__call__ = MatmulHook.__call__
+    try:
+        tokens, gemm = serve_tier("bf16")
+        gemm["tokens_equal_decode_route"] = [bool(np.array_equal(a, b))
+                                             for a, b in zip(tokens, bf16_tokens)]
+        phase_steps(engine, prompts, ["bf16"] * len(prompts), variant="one batched matmul a site")
+    finally:
+        ServingMatmulHook.__call__ = served
+    macs = float(total_macs(lm.energy_macs(CONFIG, 1)))
+    aj = engine.tier_energy_per_token("int8")
+    # one gate/up decode site with 4 rows: cuBLAS's rows against a row alone,
+    # and the site's ms on the decode route, as one GEMM and a GEMM a request
+    x = torch.randn((4, 1, 4096), device="cuda", dtype=torch.bfloat16)
+    w = torch.randn((4096, 12800), device="cuda", dtype=torch.bfloat16) * 4096**-0.5
+    gemm_rows_equal = bool(torch.equal(torch.matmul(x, w)[:1], torch.matmul(x[:1], w)))
+    hook = ServingMatmulHook()
+    site_ms = {"decode route": cuda_ms(lambda: hook("mlp0_up", x, w), 10),
+               "one matmul": cuda_ms(lambda: torch.matmul(x, w), 10),
+               "one matmul a request": cuda_ms(
+                   lambda: torch.cat([torch.matmul(x[i:i + 1], w) for i in range(4)]), 10)}
+    # the route against its plain version (an f32 product): the bf16 rounding of the output
+    plain = torch.matmul(x.float(), w.float())
+    route_err = float((hook("mlp0_up", x, w).float() - plain).abs().max())
+    route_tol = 2.0**-8 * float(plain.abs().max())
+    log("int8", config=CONFIG.name, layers=CONFIG.n_layers, param_gib=gib,
+        ratio=gib["int8"] / gib["bf16"], quantize_s=quantize_s, prefill_requests=fb["first"],
+        logit_rel_err=rel, top1_agreement=agree, serve=serve,
+        aj_per_token=aj, macs_per_token=macs, aj_per_mac=DIGITAL_INT8_AJ_PER_MAC,
+        gate_up_batched_rows_equal_solo=gemm_rows_equal, bf16_one_batched_matmul_a_site=gemm,
+        gate_up_site_ms=site_ms, gate_up_route_max_abs_err_vs_f32=route_err,
+        gate_up_route_tol=route_tol, card=card())
+    if not (gib["int8"] < 0.62 * gib["bf16"] and rel < 0.25 and agree >= 0.5
+            and all(v["solo_equals_batched"] and v["tokens_ok"]
+                    and v["launches"] == v["decode_route_launches"] for v in serve.values())
+            and aj == DIGITAL_INT8_AJ_PER_MAC * macs and route_err <= route_tol):
+        raise AssertionError(f"int8: bytes {gib}, logits {rel} / {agree}, serve {serve}, {aj}, "
+                             f"route {route_err} > {route_tol}")
+    for name in tiers:
+        phase_steps(engine, prompts, [name] * len(prompts))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3133,7 +3552,8 @@ def main() -> int:
                          "step, solo and whole-path phases, serve_granite20 granite20_long too, "
                          "serve_bert calibrate and search; serve_xlstm its step, solo, "
                          "whole-path and continuous phases and xlstm_long; serve_grok its "
-                         "step, pad and whole-path phases); "
+                         "step, pad and whole-path phases; tp and int8 run on granite-3-8b's "
+                         "weights, tp then on recurrentgemma-2b's); "
                          "default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
@@ -3156,9 +3576,13 @@ def main() -> int:
     run |= set(BERT_FOLLOWERS) if run & {"serve_bert", *BERT_FOLLOWERS} else set()
     run |= set(XLSTM_FOLLOWERS) if "serve_xlstm" in run else set()
 
+    _watch_engines()
+
     def timed(name, fn, *args):
         t = time.perf_counter()
+        _PHASE[0] = name
         out = fn(*args)
+        _no_contained_faults()  # engines of every phase so far, fault phases aside
         log("phase_seconds", of=name, seconds=round(time.perf_counter() - t, 3))
         return out
 
@@ -3178,10 +3602,12 @@ def main() -> int:
     entries = counted("kernels", phase_kernels) if "kernels" in run else None
     if "routes" in run:
         counted("routes", phase_routes)
+    if "tp_routes" in run:
+        counted("tp_routes", phase_tp_routes)
     site_rows = counted("site_time", phase_site_time, draw_ps) if "site_time" in run else None
     if "sweep" in run:
         timed("sweep", phase_sweep)
-    if run & {"serve", *SERVE_FOLLOWERS}:
+    if run & {"serve", *SERVE_FOLLOWERS, "tp", "int8"}:
         from repro_torch.configs.granite_3_8b import CONFIG
 
         make_engine = timed("weights", phase_weights)
@@ -3200,7 +3626,11 @@ def main() -> int:
         by_path["continuous"] = timed("continuous", phase_continuous, make_engine, prompts)
     if "resilience" in run:
         by_path["resilience"] = timed("resilience", phase_resilience, make_engine, prompts, tiers)
-    if run & {"serve_griffin", *GRIFFIN_FOLLOWERS}:
+    if "tp" in run:
+        by_path["tp"] = timed("tp", phase_tp, make_engine, prompts)
+    if "int8" in run:
+        timed("int8", phase_int8, make_engine, prompts)
+    if run & {"serve_griffin", *GRIFFIN_FOLLOWERS, "tp"}:
         import gc
 
         from repro_torch.configs.recurrentgemma_2b import CONFIG as GRIFFIN
@@ -3228,6 +3658,9 @@ def main() -> int:
         by_path["griffin_continuous"] = timed(
             "griffin_continuous", phase_continuous, make_griffin, gprompts, GRIFFIN,
             ({"n_repeats": 1},))
+    if "tp" in run:
+        by_path["tp_griffin"] = timed("tp_griffin", phase_tp, make_griffin, gprompts, GRIFFIN,
+                                      (2,), TP_GRIFFIN_TIERS, (False,))
     make_engine = make_griffin = engine = results = fb = None  # the earlier weights go
 
     def serve_dense(arch, phase, tag):

@@ -16,6 +16,11 @@ for a whole forward at once by ``site_seed_table``. The ``"torch"``
 backend seeds one generator per request from its words on the host: the
 model builds its seed table on the CPU for that backend, so no site waits
 for a device-to-host copy.
+
+Under an ambient tensor-parallel mesh (``models/sharding.use_mesh``) the
+analog matmul runs column-parallel (``_maybe_sharded_analog_dot``): shard
+r draws its noise at the global column offset ``r N / tp``, so the
+gathered output is bit-identical to the unsharded call.
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from repro_torch.kernels import prng
 from repro_torch.kernels.dispatch import (
     BACKENDS,
     CUDA,
+    TILING_INVARIANT,
     TORCH,
+    active_mesh,
     fused_dot,
     resolve_backend,
     tile_dot,
@@ -261,6 +268,55 @@ def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_r
     return y
 
 
+def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, seed,
+                              sq: Optional[SiteQuant], n_repeats: int) -> Optional[torch.Tensor]:
+    """Column-parallel analog matmul under the ambient mesh, or None to
+    fall back to the unsharded call.
+
+    Shard r holds columns ``[r N / tp, (r + 1) N / tp)`` and draws its
+    noise at that global column offset (its seed table's col0 word plus
+    ``r N / tp``), so, Threefry being counter-based, it computes exactly
+    its tile of the unsharded stream; only N is split (K stays whole: no
+    partial sums to add across shards), and the gather is data movement,
+    so the result equals the unsharded one bit for bit. Stacked
+    per-request seeds stay per request. The local mesh runs the shards one
+    after another and concatenates them; the distributed one computes this
+    rank's shard and ``all_gather``s them.
+
+    Falls back, as the reference does, without a mesh or at tp <= 1, for
+    calibrated quantizers, a weight that is not 2-D, N not divisible by
+    tp, a per-channel energy, or a backend that is not tiling-invariant
+    (``"torch"``); the fallback is the unsharded computation itself.
+    """
+    mesh = active_mesh()
+    if mesh is None or mesh.tp <= 1:
+        return None
+    tp = mesh.tp
+    if sq is not None or w.dim() != 2 or w.shape[1] % tp != 0:
+        return None
+    if (energy.dim() if torch.is_tensor(energy) else np.ndim(energy)) != 0:
+        return None  # per-channel energy columns would need co-sharding
+    if backend not in TILING_INVARIANT:
+        return None
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+    from repro_torch.kernels.ref import analog_matmul_ref_raw
+
+    if backend == CUDA:
+        raw, kw = analog_matmul_raw, dict(plan_n=w.shape[1])
+    else:
+        raw, kw = analog_matmul_ref_raw, {}
+    outs = ops.analog_matmul_shards(raw, x, w, energy=energy, seed=seed, cfg=cfg,
+                                    n_repeats=n_repeats, tp=tp, shards=mesh.shards(), **kw)
+    if mesh.distributed:
+        import torch.distributed as dist
+
+        mine = outs[0].contiguous()
+        outs = [torch.empty_like(mine) for _ in range(tp)]
+        dist.all_gather(outs, mine, group=mesh.group)
+    return torch.cat(outs, dim=-1)
+
+
 def analog_dot(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -306,13 +362,17 @@ def analog_dot(
             f"stacked seed batch {seed.shape[0]} does not match x leading dim {tuple(x.shape)}"
         )
     backend = resolve_backend(cfg, x)
+    if backend == CUDA and torch.is_grad_enabled() and (
+            x.requires_grad or (torch.is_tensor(energy) and energy.requires_grad)):
+        raise RuntimeError(
+            'analog_dot on backend="cuda": x or the energy requires grad, and the kernel '
+            'has no backward; take the gradient on backend="torch" or "tile", or run '
+            "under torch.no_grad()")
+    y = _maybe_sharded_analog_dot(x, w, backend=backend, cfg=cfg, energy=energy, seed=seed,
+                                  sq=sq, n_repeats=n_repeats)
+    if y is not None:
+        return y
     if backend == CUDA:
-        if torch.is_grad_enabled() and (
-                x.requires_grad or (torch.is_tensor(energy) and energy.requires_grad)):
-            raise RuntimeError(
-                'analog_dot on backend="cuda": x or the energy requires grad, and the kernel '
-                'has no backward; take the gradient on backend="torch" or "tile", or run '
-                "under torch.no_grad()")
         return fused_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)
     if backend == TORCH:
         # the generators' seeds are host words: a CPU table costs no copy

@@ -26,6 +26,11 @@ interface with ``ctypes``:
 ``select_route`` picks the route from the call's shapes and flags alone,
 never from the batch size, and every route's tiling depends on (K, N)
 only, so a request's rows are the same bits alone or in any batch.
+Every route reads the weight through its row stride, so a column shard
+``w[:, c0:c1]`` of a tensor-parallel call is a view, never a copy; with
+``plan_n`` = the whole weight's N the decode and weight routes split K as
+the whole call does (the tc route's K order never depends on N), so a
+shard at seed col0 = c0 gives exactly columns c0:c1 of the whole call.
 ``analog_matmul_raw`` keeps the reference's signature plus a leading
 request axis: for a CPU tensor it runs the plain version
 (``kernels/ref.py``); for a CUDA tensor it launches its route or raises.
@@ -147,8 +152,10 @@ def route_takes(route: str, m: int, k: int, n: int, dtype: torch.dtype, noise_ki
     return route == "decode" or (route == "weight" and m <= M_DECODE) or not (quant_x or quant_w)
 
 
-def decode_plan(k: int, n: int, rows: int) -> dict:
-    """Launch plan of the decode route for B * M = ``rows``.
+def decode_plan(k: int, n: int, rows: int, plan_n=None) -> dict:
+    """Launch plan of the decode route for B * M = ``rows`` over ``n``
+    columns; the split of K follows ``plan_n`` (default ``n``): a column
+    shard passes the whole weight's N and sums in the whole call's order.
 
     The split of K is a function of (K, N) alone: ``kc`` rows of K a block
     (a multiple of ``DECODE_STEP``), ``splits`` slices cover K exactly (the
@@ -160,7 +167,7 @@ def decode_plan(k: int, n: int, rows: int) -> dict:
     64-128 accumulator registers a thread), ``col_tiles`` of 32 * ``cpt``
     columns.
     """
-    want = max(1, DECODE_TARGET_BLOCKS // _cdiv(n, DECODE_BN))
+    want = max(1, DECODE_TARGET_BLOCKS // _cdiv(plan_n or n, DECODE_BN))
     kc = min(DECODE_KC_MAX, max(DECODE_STEP, _cdiv(_cdiv(k, want), DECODE_STEP) * DECODE_STEP))
     rt = 4 if rows <= 4 else 8 if rows <= 8 else 16
     cpt = 8 if rt == 4 else 4
@@ -168,8 +175,10 @@ def decode_plan(k: int, n: int, rows: int) -> dict:
                 col_tiles=_cdiv(n, 32 * cpt))
 
 
-def weight_plan(k: int, n: int, rows: int) -> dict:
-    """Launch plan of the weight route for ``rows`` = M rows a request.
+def weight_plan(k: int, n: int, rows: int, plan_n=None) -> dict:
+    """Launch plan of the weight route for ``rows`` = M rows a request over
+    ``n`` columns; the split of K follows ``plan_n`` (default ``n``), as in
+    ``decode_plan``.
 
     The split of K is a function of (K, N) alone: ``splits`` slices of
     ``kc`` rows (a multiple of ``WEIGHT_STEP``, at most ``WEIGHT_KC_MAX``;
@@ -179,10 +188,9 @@ def weight_plan(k: int, n: int, rows: int) -> dict:
     the decode kernel (M <= ``M_DECODE``), else that many tiles of 64 rows
     of each request take the tensor-core one.
     """
-    col_tiles = _cdiv(n, WEIGHT_BN)
-    want = _cdiv(WEIGHT_TARGET_BLOCKS, col_tiles)
+    want = _cdiv(WEIGHT_TARGET_BLOCKS, _cdiv(plan_n or n, WEIGHT_BN))
     kc = min(WEIGHT_KC_MAX, max(WEIGHT_STEP, k // want // WEIGHT_STEP * WEIGHT_STEP))
-    return dict(kc=kc, splits=_cdiv(k, kc), col_tiles=col_tiles,
+    return dict(kc=kc, splits=_cdiv(k, kc), col_tiles=_cdiv(n, WEIGHT_BN),
                 row_tiles=0 if rows <= M_DECODE else _cdiv(rows, WEIGHT_BM))
 
 
@@ -258,21 +266,21 @@ def library(route: str) -> ctypes.CDLL:
         common = [p, p, p, p, i, p, p, p, p]  # x, w, rs, cs, cs_stride, wq, sc, seed, out
         if route == "simt":
             lib.analog_matmul_launch.argtypes = [
-                p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p,
+                p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p,
             ]
             lib.analog_matmul_launch.restype = i
             lib.threefry_words.argtypes = [u32, u32, u32, u32, i, i, p, p]
             lib.threefry_words.restype = i
         elif route == "decode":
-            lib.analog_decode_launch.argtypes = common + [p] + [i] * 9 + [f] + [i] * 5 + [p]
+            lib.analog_decode_launch.argtypes = common + [p] + [i] * 10 + [f] + [i] * 5 + [p]
             lib.analog_decode_launch.restype = i
         elif route == "weight":
-            lib.analog_weight_launch.argtypes = common + [p] + [i] * 8 + [f] + [i] * 4 + [p]
+            lib.analog_weight_launch.argtypes = common + [p] + [i] * 9 + [f] + [i] * 4 + [p]
             lib.analog_weight_launch.restype = i
             lib.weight_draw_sum.argtypes = [u32, u32, i, i, i, f, i, p, p]
             lib.weight_draw_sum.restype = i
         else:
-            lib.analog_tc_launch.argtypes = common + [i] * 7 + [f, i, i, p]
+            lib.analog_tc_launch.argtypes = common + [i] * 8 + [f, i, i, p]
             lib.analog_tc_launch.restype = i
         _libs[route] = lib
     return _libs[route]
@@ -289,10 +297,11 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a fresh copy when its storage is not 16-byte aligned (a view
-    at an odd offset): the decode, tc and weight routes read 16 bytes at a
-    time."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    """``t``, or a fresh contiguous copy when its start or its row stride is
+    not a multiple of 16 bytes (a view at an odd offset): the decode, tc and
+    weight routes read 16 bytes at a time (TMA: 16-byte strides)."""
+    ok = t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size()) % 16 == 0
+    return t if ok else torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
 
 def analog_matmul_raw(
@@ -310,6 +319,7 @@ def analog_matmul_raw(
     quant_out: bool = False,
     n_repeats: int = 1,
     route: str = "auto",
+    plan_n=None,
 ) -> torch.Tensor:
     """(B, M, K) @ (K, N) -> (B, M, N) float32, one request per leading row.
 
@@ -321,11 +331,18 @@ def analog_matmul_raw(
     the epilogue (or the weight load, for weight noise). ``route`` "auto"
     takes ``select_route``'s; naming one forces it (for checks and
     timings) and raises if that route does not compute such a call.
+
+    ``w`` may be a column view of a wider weight (unit column stride, rows
+    ``w.stride(0)`` elements apart): a tensor-parallel shard, read in place.
+    ``col_scale`` may be such a view too. ``plan_n``: the whole weight's N,
+    from which the decode and weight routes take their split of K (default
+    N), so a shard sums in the whole call's order.
     """
     _require(x.dim() == 3 and w.dim() == 2, f"x must be (B, M, K), w (K, N): {x.shape} {w.shape}")
     b, m, k = x.shape
     _require(w.shape[0] == k, f"contract mismatch {tuple(x.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
+    _require(plan_n is None or plan_n >= n, f"plan_n={plan_n} < N={n}")
     _require(n_repeats >= 1, f"n_repeats must be >= 1, got {n_repeats}")
     _require(noise_kind in NOISE_KINDS, f"bad noise_kind {noise_kind!r}")
     _require(route == "auto" or route in ROUTES, f"bad route {route!r}")
@@ -353,7 +370,10 @@ def analog_matmul_raw(
     for name, t in (("w", w), ("row_scale", row_scale), ("col_scale", col_scale),
                     ("wq", wq), ("scalars", scalars), ("seed", seed)):
         _require(t.device == dev, f"{name} is on {t.device}, x on {dev}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+        _require(name in ("w", "col_scale") or t.is_contiguous(), f"{name} must be contiguous")
+    _require(w.stride(1) == 1 and w.stride(0) >= n,
+             f"w must have unit column stride and rows >= N apart, got strides {w.stride()}")
+    _require(col_scale.stride(2) == 1, "col_scale must have unit column stride")
     _require(x.is_contiguous(), "x must be contiguous")
     _require(
         x.dtype == w.dtype and x.dtype in (torch.float32, torch.bfloat16),
@@ -363,12 +383,12 @@ def analog_matmul_raw(
                     ("wq", wq), ("scalars", scalars)):
         _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
     _require(seed.dtype == torch.int32, f"seed must be int32 (uint32 bits), got {seed.dtype}")
-    _require(b * m < 2**31 and k * n < 2**31, "problem too large for int32 indexing")
+    _require(b * m < 2**31 and k * w.stride(0) < 2**31, "problem too large for int32 indexing")
 
     out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    cs_stride = n if col_scale.shape[0] == b and b > 1 else 0
+    cs_stride = col_scale.stride(0) if col_scale.shape[0] == b and b > 1 else 0
     inv_k = float(np.float32(1.0 / n_repeats))
     stream = torch.cuda.current_stream(dev).cuda_stream
     kind = NOISE_KINDS[noise_kind]
@@ -377,33 +397,34 @@ def analog_matmul_raw(
             x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
             row_scale.data_ptr(), col_scale.data_ptr(), cs_stride,
             wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr(),
-            b, m, k, n, kind, int(quant_x), int(quant_w), int(quant_out), int(n_repeats),
-            inv_k, stream,
+            b, m, k, n, w.stride(0), kind, int(quant_x), int(quant_w), int(quant_out),
+            int(n_repeats), inv_k, stream,
         )
     else:
         x, w = _aligned(x), _aligned(w)
+        ldw = w.stride(0)
         ptrs = (x.data_ptr(), w.data_ptr(), row_scale.data_ptr(), col_scale.data_ptr(),
                 cs_stride, wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr())
         if route == "decode":
-            plan = decode_plan(k, n, b * m)
+            plan = decode_plan(k, n, b * m, plan_n)
             ws = torch.empty((plan["splits"], b * m, n), dtype=torch.float32, device=dev)
             err = library("decode").analog_decode_launch(
-                *ptrs, ws.data_ptr(), b, m, k, n, kind, int(quant_x), int(quant_w),
+                *ptrs, ws.data_ptr(), b, m, k, n, ldw, kind, int(quant_x), int(quant_w),
                 int(quant_out), int(n_repeats), inv_k, plan["kc"], plan["splits"], plan["rt"],
                 plan["row_groups"], plan["col_tiles"], stream,
             )
         elif route == "weight":
-            plan = weight_plan(k, n, m)
+            plan = weight_plan(k, n, m, plan_n)
             ws = torch.empty((plan["splits"], b * m, n), dtype=torch.float32, device=dev)
             err = library("weight").analog_weight_launch(
-                *ptrs, ws.data_ptr(), b, m, k, n, int(quant_x), int(quant_w), int(quant_out),
+                *ptrs, ws.data_ptr(), b, m, k, n, ldw, int(quant_x), int(quant_w), int(quant_out),
                 int(n_repeats), inv_k, plan["kc"], plan["splits"], plan["col_tiles"],
                 plan["row_tiles"], stream,
             )
         else:
             plan = tc_plan(b * m, k, n)
             err = library("tc").analog_tc_launch(
-                *ptrs, b, m, k, n, kind, int(quant_out), int(n_repeats), inv_k,
+                *ptrs, b, m, k, n, ldw, kind, int(quant_out), int(n_repeats), inv_k,
                 plan["grid_m"], plan["grid_n"], stream,
             )
     _check(err, f"analog_matmul ({route})")

@@ -36,6 +36,8 @@ struct Params {
   const uint32_t* seed;   // (B, 4)
   float* out;             // (B * M, N)
   int B, M, K, N;
+  int ldw;                // row stride of w in elements: N, or the whole
+                          // weight's N for a column shard (a view)
   int cs_stride;          // N, or 0 when the col scale is shared
   int noise_kind;
   int quant_x, quant_w, quant_out;
@@ -45,7 +47,8 @@ struct Params {
 
 inline Params make_params(const void* x, const void* w, const float* rs, const float* cs,
                           int cs_stride, const float* wq, const float* sc, const uint32_t* seed,
-                          float* out, int B, int M, int K, int N, int noise_kind, int quant_x,
+                          float* out, int B, int M, int K, int N, int ldw, int noise_kind,
+                          int quant_x,
                           int quant_w, int quant_out, int n_repeats, float inv_k) {
   Params p;
   p.x = x;
@@ -60,6 +63,7 @@ inline Params make_params(const void* x, const void* w, const float* rs, const f
   p.M = M;
   p.K = K;
   p.N = N;
+  p.ldw = ldw;
   p.cs_stride = cs_stride;
   p.noise_kind = noise_kind;
   p.quant_x = quant_x;

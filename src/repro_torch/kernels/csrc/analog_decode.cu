@@ -22,7 +22,8 @@
 //   * the K dimension is spread over the 8 warps of a block (k lanes) and
 //     over blocks (split-K, `splits` slices of `kc` rows), so one wave of
 //     about 4 blocks a SM covers the card at every site shape; the plan
-//     depends on (K, N) only (analog_matmul.py decode_plan);
+//     depends on (K, N) only (analog_matmul.py decode_plan), N being the
+//     whole weight's for a column shard, which so sums as the whole does;
 //   * the block stages its x slice (RT rows x kc) in shared memory as f32,
 //     quant_x applied on load; quant_w is applied to each loaded weight;
 //   * the k lanes of a block are added in shared memory in lane order, the
@@ -129,8 +130,8 @@ __global__ void __launch_bounds__(D_THREADS)
     for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
   __syncthreads();
 
-  const LT* wp = reinterpret_cast<const LT*>(w + (size_t)k_begin * p.N + (col_ok ? col : 0));
-  const size_t row_stride = (size_t)p.N / CPT;  // in loads
+  const LT* wp = reinterpret_cast<const LT*>(w + (size_t)k_begin * p.ldw + (col_ok ? col : 0));
+  const size_t row_stride = (size_t)p.ldw / CPT;  // in loads
   for (int k0 = tk; k0 < klen; k0 += D_KL * D_U) {
     LT v[D_U];
 #pragma unroll
@@ -217,16 +218,18 @@ cudaError_t launch_partial_q(const Params& p, int kc, int splits, int row_groups
 }  // namespace
 
 // Launch on `stream`; returns the first CUDA error (0 on success). x and w
-// bf16, K % 8 == 0, N % 8 == 0, w 16-byte aligned. The plan (kc, splits,
+// bf16, K % 8 == 0, N % 8 == 0, w 16-byte aligned with rows ldw elements
+// apart (ldw % 8 == 0: N, or the whole weight's N for a column shard, whose
+// split of K the plan takes from the whole N). The plan (kc, splits,
 // rt rows a block, row_groups, col_tiles) comes from decode_plan in
 // analog_matmul.py; ws holds splits * B * M * N floats.
 extern "C" int analog_decode_launch(const void* x, const void* w, const float* rs, const float* cs,
                                     int cs_stride, const float* wq, const float* sc,
                                     const uint32_t* seed, float* out, float* ws, int B, int M,
-                                    int K, int N, int noise_kind, int quant_x, int quant_w,
+                                    int K, int N, int ldw, int noise_kind, int quant_x, int quant_w,
                                     int quant_out, int n_repeats, float inv_k, int kc, int splits,
                                     int rt, int row_groups, int col_tiles, void* stream) {
-  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N,
+  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N, ldw,
                                noise_kind, quant_x, quant_w, quant_out, n_repeats, inv_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

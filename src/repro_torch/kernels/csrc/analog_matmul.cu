@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(THREADS) analog_mm_kernel(const Params p) {
       const int j = col_base + jj, k = k0 + kk;
       float v = 0.0f;
       if (j < p.N && k < p.K) {
-        v = to_f32(w[(size_t)k * p.N + j]);
+        v = to_f32(w[(size_t)k * p.ldw + j]);
         if (p.quant_w) v = fake_quant(v, p.wq[j], p.wq[p.N + j], p.wq[2 * p.N + j]);
         if (per_req) {
           const float xi = repeat_gaussian(wk0, wk1, (uint32_t)k, wcol0 + (uint32_t)j,
@@ -168,13 +168,14 @@ __global__ void threefry_words_kernel(uint32_t k0, uint32_t k1, uint32_t row0, u
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// x and w are both bf16 (bf16 != 0) or both f32.
+// x and w are both bf16 (bf16 != 0) or both f32; w's rows are ldw elements
+// apart (N for a whole weight, the full N for a column shard).
 extern "C" int analog_matmul_launch(const void* x, const void* w, int bf16, const float* rs,
                                     const float* cs, int cs_stride, const float* wq, const float* sc, const uint32_t* seed,
-                                    float* out, int B, int M, int K, int N, int noise_kind,
+                                    float* out, int B, int M, int K, int N, int ldw, int noise_kind,
                                     int quant_x, int quant_w, int quant_out, int n_repeats,
                                     float inv_k, void* stream) {
-  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N,
+  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N, ldw,
                                noise_kind, quant_x, quant_w, quant_out, n_repeats, inv_k);
   const bool per_req = noise_kind == NOISE_WEIGHT;
   const dim3 grid((N + BN - 1) / BN, per_req ? (M + BM - 1) / BM : (B * M + BM - 1) / BM,

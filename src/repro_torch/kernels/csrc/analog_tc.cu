@@ -237,13 +237,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 2-D bf16 map of a row-major (outer, inner) array, box (box_outer, 64)
-// with the 128-byte swizzle; out-of-bounds elements read as zero.
-bool make_map(CUtensorMap* map, const void* base, int outer, int inner, int box_outer) {
+// 2-D bf16 map of a row-major (outer, inner) array whose rows are `ld`
+// elements apart (ld >= inner: a column shard of a wider array), box
+// (box_outer, 64) with the 128-byte swizzle; out-of-bounds elements (past
+// `inner` too) read as zero.
+bool make_map(CUtensorMap* map, const void* base, int outer, int inner, int ld, int box_outer) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
@@ -254,17 +256,19 @@ bool make_map(CUtensorMap* map, const void* base, int outer, int inner, int box_
 }  // namespace
 
 // Launch on `stream`; returns the first CUDA error (0 on success). x and w
-// bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned. grid_m row tiles
+// bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned, w's rows ldw
+// elements apart (ldw % 8 == 0; a column shard's K order is the whole
+// weight's: every 64-deep K tile in order). grid_m row tiles
 // and grid_n column tiles of 128 come from tc_plan in analog_matmul.py.
 extern "C" int analog_tc_launch(const void* x, const void* w, const float* rs, const float* cs,
                                 int cs_stride, const float* wq, const float* sc,
                                 const uint32_t* seed, float* out, int B, int M, int K, int N,
-                                int noise_kind, int quant_out, int n_repeats, float inv_k,
+                                int ldw, int noise_kind, int quant_out, int n_repeats, float inv_k,
                                 int grid_m, int grid_n, void* stream) {
-  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N,
+  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N, ldw,
                                noise_kind, 0, 0, quant_out, n_repeats, inv_k);
   CUtensorMap map_x, map_w;
-  if (!make_map(&map_x, x, B * M, K, T_BM) || !make_map(&map_w, w, K, N, T_BK))
+  if (!make_map(&map_x, x, B * M, K, K, T_BM) || !make_map(&map_w, w, K, N, ldw, T_BK))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e =
       cudaFuncSetAttribute(tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);

@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(W_THREADS, W_MIN_BLOCKS)
     for (int c = 0; c < W_CPT; ++c) acc[r][c] = 0.0f;
   __syncthreads();
 
-  const size_t nq = (size_t)p.N / W_CPT;  // a weight row in 16-byte loads
+  const size_t nq = (size_t)p.ldw / W_CPT;  // a weight row's stride in 16-byte loads
   const uint4* wp = wg + (size_t)k_begin * nq + (col_ok ? col / W_CPT : 0);
   uint4 next = (col_ok && tk < klen) ? __ldg(wp + (size_t)tk * nq) : make_uint4(0, 0, 0, 0);
   for (int kk = tk; kk < klen; kk += W_KL) {
@@ -324,7 +324,7 @@ __global__ void __launch_bounds__(W_THREADS, W_MIN_BLOCKS)
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 
-  const size_t kq = (size_t)p.K / 8, nq = (size_t)p.N / W_CPT;
+  const size_t kq = (size_t)p.K / 8, nq = (size_t)p.ldw / W_CPT;
   const uint4 zero = make_uint4(0, 0, 0, 0);
   // weight chunk of the tile's row r0 + 16 j (zero beyond the slice or N)
   auto w_chunk = [&](int k0, int j) {
@@ -436,7 +436,9 @@ cudaError_t launch_decode(const Params& p, int kc, int splits, int col_tiles, fl
 }  // namespace
 
 // Launch on `stream`; returns the first CUDA error (0 on success). x and w
-// bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned, kc <= 2048. The
+// bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned, w's rows ldw
+// elements apart (ldw % 8 == 0; a column shard's split of K is the whole
+// weight's), kc <= 2048. The
 // plan (kc, splits, col_tiles of 64, row_tiles of 64 rows; row_tiles == 0
 // takes the decode kernel, for M <= 2) comes from weight_plan in
 // analog_matmul.py; ws holds splits * B * M * N floats. quant_x and quant_w
@@ -444,10 +446,10 @@ cudaError_t launch_decode(const Params& p, int kc, int splits, int col_tiles, fl
 extern "C" int analog_weight_launch(const void* x, const void* w, const float* rs,
                                     const float* cs, int cs_stride, const float* wq,
                                     const float* sc, const uint32_t* seed, float* out, float* ws,
-                                    int B, int M, int K, int N, int quant_x, int quant_w,
+                                    int B, int M, int K, int N, int ldw, int quant_x, int quant_w,
                                     int quant_out, int n_repeats, float inv_k, int kc, int splits,
                                     int col_tiles, int row_tiles, void* stream) {
-  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N,
+  const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N, ldw,
                                NOISE_WEIGHT, quant_x, quant_w, quant_out, n_repeats, inv_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kc <= 0 || kc > W_KC_MAX) return (int)cudaErrorInvalidValue;

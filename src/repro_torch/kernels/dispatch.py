@@ -18,6 +18,16 @@ Port of ``repro/kernels/dispatch.py``:
 
 The kernel has no backward; ``analog_dot`` refuses a ``"cuda"`` call that
 autograd would have to differentiate.
+
+Under an ambient tensor-parallel mesh (``models/sharding.use_mesh``,
+``active_mesh`` below) resolution is unchanged: ``"auto"`` keeps the CUDA
+routes on the card (they honour a shard's global column offset, as the
+reference's Pallas path does) and ``"tile"`` on the CPU, both of them
+tiling-invariant, so ``analog_dot`` runs them column-sharded. With no
+shape threshold in the port the shard's N decides nothing here; the
+route of each shard call is chosen from its own (K, N / tp). ``"torch"``
+is not tiling-invariant and is never sharded, as the reference's
+``"jnp"``.
 """
 from __future__ import annotations
 
@@ -28,6 +38,15 @@ CUDA = "cuda"
 TILE = "tile"
 TORCH = "torch"
 BACKENDS = (AUTO, CUDA, TILE, TORCH)
+#: backends whose noise is a pure function of global (row, col): shardable
+TILING_INVARIANT = (CUDA, TILE)
+
+
+def active_mesh():
+    """The ambient tensor-parallel mesh, or None (``models/sharding.use_mesh``)."""
+    from repro_torch.models import sharding
+
+    return sharding.get_mesh()
 
 
 def resolve_backend(cfg, x: torch.Tensor) -> str:

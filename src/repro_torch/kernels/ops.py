@@ -7,11 +7,12 @@ version. It works on a leading request axis: x is (B, M, K) and each
 request gets what the reference computes for its own ``vmap`` row — its
 own thermal ``x_range`` (over its whole (M, K) slab, pad positions
 included, when no calibrated ``xqp`` is given), its own shot row norms and
-its own seed words.
+its own seed words. ``analog_matmul_shards`` runs column shards of one
+call (tensor parallelism), each at its global column offset.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -125,21 +126,70 @@ def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq
     )
 
 
-def _run(raw, x, w, energy, seed, cfg, sq, n_repeats) -> torch.Tensor:
-    """``x`` (B, ..., K) with a (B, 4) seed table, or (..., K) with one (4,) seed."""
+def _requests(x, seed):
+    """(lead dims, x as (B, M, K), seed as (B, 4)): ``x`` (B, ..., K) with a
+    (B, 4) seed table, or (..., K) with one (4,) seed."""
     if seed.dim() == 1:
-        lead, x3, seed = x.shape[:-1], x.reshape(1, -1, x.shape[-1]), seed.reshape(1, 4)
+        return x.shape[:-1], x.reshape(1, -1, x.shape[-1]), seed.reshape(1, 4)
+    return x.shape[:-1], x.reshape(x.shape[0], -1, x.shape[-1]), seed
+
+
+#: (device, tp, n_local) -> the (tp, 1, 4) int64 col0 offsets of the shards
+_COL_OFFSETS: dict = {}
+
+
+def shard_seeds(seed: torch.Tensor, tp: int, n_local: int) -> torch.Tensor:
+    """(tp, B, 4) int32 seed tables: shard r's is the requests' (B, 4)
+    table with its col0 word increased by ``r * n_local`` as a uint32."""
+    key = (seed.device, tp, n_local)
+    off = _COL_OFFSETS.get(key)
+    if off is None:
+        off = torch.zeros((tp, 1, 4), dtype=torch.int64)
+        off[:, 0, 3] = torch.arange(tp, dtype=torch.int64) * n_local
+        off = _COL_OFFSETS[key] = off.to(seed.device)
+    # summed in int64 from the sign-extended words; the cast keeps the low
+    # 32 bits, so col0 wraps as the uint32 counter does
+    return (seed.to(torch.int64)[None] + off).to(torch.int32)
+
+
+def analog_matmul_shards(raw, x, w, *, energy, seed, cfg, n_repeats: int, tp: int,
+                         shards: Sequence[int], sq=None, **raw_kw):
+    """Column shards of one analog matmul ``(..., K) @ (K, N)``: shard r is
+    columns ``[r N / tp, (r + 1) N / tp)`` drawn at its global col0, a list
+    of (..., N / tp) outputs for ``shards``. Site quantizers (``sq``) only
+    at tp = 1, the whole call.
+
+    The operands are prepared once over the whole weight (one pass of the
+    column norms or ranges, which each shard slices) and every shard reads
+    its columns of the weight in place. ``raw`` is ``analog_matmul_raw``
+    (``raw_kw``: its ``plan_n``) or the plain version.
+    """
+    if tp > 1 and sq is not None:
+        raise ValueError("column shards take no site quantizers (the sharded path falls back)")
+    lead, x3, seed = _requests(x, seed)
+    o = prepare_operands(x3, w, energy=energy, seed=seed, cfg=cfg, sq=sq)
+    nl = w.shape[1] // tp
+    if tp == 1:
+        seeds, wq = o["seed"][None], o["wq"]
     else:
-        lead, x3 = x.shape[:-1], x.reshape(x.shape[0], -1, x.shape[-1])
-    ops = prepare_operands(x3, w, energy=energy, seed=seed, cfg=cfg, sq=sq)
-    kind = ops.pop("noise_kind")
-    qx, qw, qo = ops.pop("quant_x"), ops.pop("quant_w"), ops.pop("quant_out")
-    y = raw(
-        ops["x"], ops["w"], ops["row_scale"], ops["col_scale"], ops["wq"],
-        ops["scalars"], ops["seed"], noise_kind=kind, quant_x=qx, quant_w=qw,
-        quant_out=qo, n_repeats=n_repeats,
-    )
-    return y.reshape(*lead, w.shape[1])
+        # no weight quantizer: every shard's (3, nl) table is ones
+        seeds = shard_seeds(o["seed"], tp, nl)
+        wq = torch.ones((3, nl), dtype=F32, device=x3.device)
+    outs = []
+    for r in shards:
+        cols = slice(r * nl, (r + 1) * nl)
+        y = raw(o["x"], o["w"][:, cols], o["row_scale"], o["col_scale"][..., cols], wq,
+                o["scalars"], seeds[r], noise_kind=o["noise_kind"], quant_x=o["quant_x"],
+                quant_w=o["quant_w"], quant_out=o["quant_out"], n_repeats=n_repeats, **raw_kw)
+        outs.append(y.reshape(*lead, nl))
+    return outs
+
+
+def _run(raw, x, w, energy, seed, cfg, sq, n_repeats) -> torch.Tensor:
+    """The whole call: ``analog_matmul_shards``' one shard at tp = 1."""
+    (y,) = analog_matmul_shards(raw, x, w, energy=energy, seed=seed, cfg=cfg, sq=sq,
+                                n_repeats=n_repeats, tp=1, shards=(0,))
+    return y
 
 
 def analog_matmul(

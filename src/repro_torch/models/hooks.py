@@ -1,6 +1,7 @@
 """Matmul hooks: where analog execution plugs into the model.
 
-Port of ``repro/models/hooks.py``. ``MatmulHook`` runs plain matmuls;
+Port of ``repro/models/hooks.py``. ``MatmulHook`` runs plain matmuls
+(``ServingMatmulHook``: the served digital forward's, batch-invariant);
 ``AnalogHook`` runs each named site through ``analog_dot`` with that
 site's energy and noise stream and casts the float32 result back to the
 activation dtype; ``PrefixHook`` namespaces the sites of a repeated
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.analog import AnalogConfig, analog_dot
+from repro_torch.kernels.analog_matmul import analog_matmul_raw, select_route
 
 
 class MatmulHook:
@@ -103,6 +105,55 @@ class AnalogHook(MatmulHook):
             for e in range(n_e)
         ])
         return y.to(x.dtype)
+
+
+#: (device, B, M, N) -> the noise-free operands of ``ServingMatmulHook``'s
+#: decode-route call: row scales 1, column scales 0, no quantizers, seeds 0
+_DIGITAL_OPERANDS: dict = {}
+
+
+def _digital_operands(b: int, m: int, n: int, dev) -> tuple:
+    key = (dev, b, m, n)
+    ops = _DIGITAL_OPERANDS.get(key)
+    if ops is None:
+        f32 = torch.float32
+        ops = _DIGITAL_OPERANDS[key] = (
+            torch.ones((b, m, 1), dtype=f32, device=dev),
+            torch.zeros((1, 1, n), dtype=f32, device=dev),
+            torch.ones((3, n), dtype=f32, device=dev),
+            torch.tensor([[1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 0.0, 0.0]], dtype=f32, device=dev),
+            torch.zeros((b, 4), dtype=torch.int32, device=dev),
+        )
+    return ops
+
+
+class ServingMatmulHook(MatmulHook):
+    """Digital execution of served requests (the serving tiers pass it to
+    ``lm.prefill``/``decode_step``): a request's tokens must not depend on
+    its batch. On the card a site of at most ``M_DECODE`` rows a request
+    (a decode step) takes the analog matmul's decode route with no noise,
+    whose order of summation is fixed by (K, N) and which reads the weight
+    once for the batch; f32 sums rounded once to the activation dtype, as
+    a bf16 GEMM rounds. A longer site, or operands that route does not
+    take, runs one matmul a request: cuBLAS picks its kernel, and so the
+    order of a sum, by the row count (alone and in its batch a request
+    shares its seq bucket, so its own matmul has one shape in both). On
+    the CPU plain matmuls."""
+
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        w = w.to(x.dtype)
+        if not x.is_cuda or x.dim() < 3:
+            return torch.matmul(x, w)
+        b, k, n = x.shape[0], x.shape[-1], w.shape[-1]
+        m = x[0].numel() // k
+        if (w.dim() == 2 and w.stride(1) == 1 and w.stride(0) >= n
+                and select_route(b, m, k, n, x.dtype, "none") == "decode"):
+            y = analog_matmul_raw(x.reshape(b, m, k).contiguous(), w,
+                                  *_digital_operands(b, m, n, x.device), noise_kind="none")
+            return y.to(x.dtype).reshape(*x.shape[:-1], n)
+        if b == 1:
+            return torch.matmul(x, w)
+        return torch.cat([torch.matmul(x[i:i + 1], w) for i in range(b)])
 
 
 @dataclasses.dataclass

@@ -71,6 +71,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.quant.weights import Int8Params, Int8Weight, dequantize_params, dequantize_weight
 from repro_torch.tree import map_leaves
 
 F32 = torch.float32
@@ -744,8 +745,12 @@ def drifted_energies(energies, noise_scale: torch.Tensor):
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
-               analog: Optional[AnalogSpec], lengths=None):
+               analog: Optional[AnalogSpec], lengths=None, hook: Optional[MatmulHook] = None):
     """The layer groups, then griffin's tail layers.
+
+    ``hook``: the matmul hook of a digital forward (``analog`` None),
+    ``MatmulHook`` by default; the serving tiers pass their own. A tree of
+    ``quantize_params`` is dequantized one layer slice at a time.
 
     ``lengths`` (B,): per-row true lengths. In prefill, positions past a
     row's length are padding; in decode, a row of length 0 is batch
@@ -793,7 +798,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
         """One hook per layer of a group (``sub`` "groups") or a tail layer;
         xlstm's block j takes entry j of the mLSTM sites' (m,) energies."""
         if analog is None:
-            return [MatmulHook()] * len(ks)
+            return [hook or MatmulHook()] * len(ks)
         energies = {s: energy_tree[sub][s][idx] for s in names}
         row = {s: seeds[idx, i] for i, s in enumerate(names)}
         ex = None if sub != "groups" or experts is None else {
@@ -807,9 +812,11 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                                       rows_per_key=analog.rows_per_key, expert_seeds=ex))
         return out
 
+    # int8 serving: the int8 tree stays resident, each bf16 layer is transient
+    deq = dequantize_params if isinstance(params, Int8Params) else (lambda tree: tree)
     gcache = None if cache is None else cache["groups"]
     for gi in range(g):
-        gp = map_leaves(lambda _p, a: a[gi], params["blocks"])
+        gp = deq(map_leaves(lambda _p, a: a[gi], params["blocks"]))
         layer_hooks = hooks("groups", gi, sites, table, rows[gi])
         if cfg.family == "xlstm":
             lc = None if gcache is None else {k: v[gi] for k, v in gcache.items()}
@@ -835,7 +842,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                           rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
                           lengths=lengths)
     for j in range(tail):
-        tp = map_leaves(lambda _p, a: a[j], params["tail"])
+        tp = deq(map_leaves(lambda _p, a: a[j], params["tail"]))
         (hook,) = hooks("tail", j, TAIL_SITES, tail_table, (tail_ks[j],))
         lc = None if cache is None else (cache["tail"]["h0"][j], cache["tail"]["conv0"][j])
         ffn = lambda y, hook=hook, tp=tp: mlp(y, tp["mlp"], hook, prefix="mlp0",
@@ -864,14 +871,15 @@ def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return h
 
 
-def forward_hidden(params, h, cfg: ModelConfig, *, cache=None, analog=None, lengths=None):
+def forward_hidden(params, h, cfg: ModelConfig, *, cache=None, analog=None, lengths=None,
+                   hook=None):
     """Prefill trunk: embedded inputs h (B, T, d) (``_embed_inputs``) ->
     normed hidden (B, T, d); writes every leaf of ``cache``, or keeps no
     cache when it is None (the reference's ``mode="train"`` forward, which
-    calibration differentiates)."""
+    calibration differentiates). ``hook``: a digital forward's matmul hook."""
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stack(params, h, cfg, mode="prefill", cache=cache, pos=None,
-                   positions=positions, analog=analog, lengths=lengths)
+                   positions=positions, analog=analog, lengths=lengths, hook=hook)
     return rms_norm(h, params["final_ln"], cfg.norm_eps)
 
 
@@ -883,7 +891,10 @@ def hidden(params, batch, cfg: ModelConfig, analog=None) -> torch.Tensor:
 
 
 def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    head = params["lm_head"]
+    return dequantize_weight(head) if isinstance(head, Int8Weight) else head
 
 
 def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -898,7 +909,7 @@ def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
-            lengths: Optional[torch.Tensor] = None):
+            lengths: Optional[torch.Tensor] = None, hook: Optional[MatmulHook] = None):
     """Run the prompt; returns (cache, last hidden (B, 1, d)).
 
     ``batch``: ``{"tokens"}``, ``{"embeds"}`` or ``{"tokens",
@@ -913,7 +924,8 @@ def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
     recurrences treat pad steps as the identity, and MoE routing leaves
     pad tokens out of expert capacity. Length 0 marks a batch-padding row.
     Without ``cache_len`` the cache holds the prompt (a ring cache: the
-    whole window, as the reference sizes it).
+    whole window, as the reference sizes it). ``hook``: the matmul hook of
+    a digital forward (``analog`` None; default plain matmuls).
     """
     h = _embed_inputs(params, batch, cfg)
     b, t = h.shape[:2]
@@ -921,7 +933,7 @@ def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
         w = _window(cfg)
         cache_len = t if w is None else max(t, w)
     cache = init_cache(cfg, b, cache_len, device=h.device)
-    h = forward_hidden(params, h, cfg, cache=cache, analog=analog, lengths=lengths)
+    h = forward_hidden(params, h, cfg, cache=cache, analog=analog, lengths=lengths, hook=hook)
     if lengths is None:
         return cache, h[:, -1:]
     idx = torch.clamp(lengths.to(h.device).long() - 1, 0, t - 1)
@@ -929,15 +941,15 @@ def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
 
 
 def decode_step(params, cache, batch, pos: torch.Tensor, cfg: ModelConfig, analog=None,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None, hook: Optional[MatmulHook] = None):
     """One step: ``{"tokens": (B, 1)}`` (or the bare tensor) or, under
     ``frames``, ``{"embeds": (B, 1, d)}``, at per-row positions ``pos``
     (B,). Under ``patch`` a step reads plain tokens (the image prefix is
     prefill's). ``lengths`` (B,): the rows' true prompt lengths; a row of
     length 0 is batch padding, left out of MoE capacity and of the expert
     sites' noise key, and its xlstm state is not advanced (every other op
-    is row-independent). Returns (logits (B, 1, n_codebooks, V), cache),
-    the cache updated in place."""
+    is row-independent). ``hook``: as in ``prefill``. Returns (logits (B,
+    1, n_codebooks, V), cache), the cache updated in place."""
     batch = _as_batch(batch)
     if cfg.frontend == "patch" and "patch_embeds" not in batch:
         h = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
@@ -945,6 +957,6 @@ def decode_step(params, cache, batch, pos: torch.Tensor, cfg: ModelConfig, analo
         h = _embed_inputs(params, batch, cfg)
     pos = pos.to(h.device).long().reshape(-1).expand(h.shape[0])
     h = _run_stack(params, h, cfg, mode="decode", cache=cache, pos=pos,
-                   positions=pos[:, None], analog=analog, lengths=lengths)
+                   positions=pos[:, None], analog=analog, lengths=lengths, hook=hook)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return logits_last(params, h, cfg), cache

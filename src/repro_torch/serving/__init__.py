@@ -6,8 +6,7 @@ precision-tiered scheduling, persistent per-tier decode slot pools
 streaming ``MetricsFeed`` (faults.py, monitor.py), the SLA precision
 governor (policy.py), a replicated cluster router with health-checked
 failover and hedged dispatch (cluster.py), and the engine tying them to
-``models/lm.py``. The reference's executable cache and int8 tier are not
-ported."""
+``models/lm.py``. The reference's executable cache is not ported."""
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.serving.bucketing import (
     DEFAULT_BATCH_BUCKETS,
@@ -45,6 +44,7 @@ from repro_torch.serving.tiers import (
     AnalogProfileTier,
     DigitalTier,
     ExecutionTier,
+    Int8DigitalTier,
     TierRegistry,
     UniformKTier,
 )
@@ -63,6 +63,7 @@ __all__ = [
     "ExecutionTier",
     "Failed",
     "FaultPlan",
+    "Int8DigitalTier",
     "LoadSignals",
     "MetricsFeed",
     "NoiseDriftWatchdog",

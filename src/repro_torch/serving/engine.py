@@ -1,6 +1,6 @@
 """Bucket-batched analog serving engine.
 
-Port of ``repro/serving/engine.py`` (without meshes and the int8 tier):
+Port of ``repro/serving/engine.py``:
 
   submit -> TierScheduler groups same-tier requests        (scheduler.py)
          -> pad into a power-of-two (batch, seq) bucket    (bucketing.py)
@@ -42,8 +42,9 @@ request; a ``FaultPlan`` (faults.py) injects drift, stalled pool steps,
 transient call faults and poisoned rows at the engine's seams. A call
 fault raises before any launch and before a cache is touched; the
 faulted batch retries once from scratch at its tier's promoted rung
-(``max_retries``) or resolves to ``Failed``. Only the plan's injected
-``TransientExecutableFault`` is caught: any other exception propagates.
+(``max_retries``) or resolves to ``Failed``. Any other exception a call
+raises is contained the same way and counted in ``stats["exe_errors"]``
+(the reference's ``exe_error`` path).
 The noise-std drift factor (``set_noise_scale``, or the plan's
 ``DriftRamp``) is a 0-d float32 tensor operand of every forward, served
 as energies ``E / d**2``; at 1.0 the tokens are bit-identical to serving
@@ -52,12 +53,20 @@ without it. ``promote_tiers``/``recalibrate`` are the drift response, a
 between tiers under load, and a ``MetricsFeed`` (monitor.py,
 ``metrics=``) takes one sample a poll or pump round.
 
+Tensor parallelism (``mesh=``, ``attach_mesh``): every tensor the engine
+holds stays replicated, and the analog matmuls of its forwards run as
+column shards of the mesh (``core.analog._maybe_sharded_analog_dot``),
+each drawing its noise at its global column offset, so the tokens are
+bit-identical to the unsharded engine's. The dense and griffin families
+serve under a mesh; moe and xlstm do not yet.
+
 The engine runs on ``device`` (default ``"cuda"``; it raises without a
 card unless the caller passes ``device="cpu"``). ``params`` and
 ``energies`` must already live there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Union
@@ -69,7 +78,7 @@ from repro_torch.core.analog import AnalogConfig, raw_key
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import PRNGKey, fold_in
-from repro_torch.models import lm
+from repro_torch.models import lm, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.bucketing import (
     DEFAULT_BATCH_BUCKETS,
@@ -152,6 +161,8 @@ class ServingEngine:
     drift response climb. ``fault_log`` keeps the last ``fault_log_maxlen``
     fault and policy events. ``policy`` builds a ``PrecisionGovernor``;
     ``metrics`` (a ``MetricsFeed``) is sampled once a poll or pump round.
+    ``mesh``: a ``launch.mesh.Mesh`` to serve tensor-parallel over
+    (``attach_mesh``).
 
     The engine serves token prompts: a config with a ``frames`` or
     ``patch`` frontend is refused (its inputs are embeddings, which the
@@ -184,6 +195,7 @@ class ServingEngine:
         fault_log_maxlen: Optional[int] = 4096,
         policy: Optional[PolicyConfig] = None,
         metrics=None,
+        mesh=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -241,6 +253,8 @@ class ServingEngine:
         self._base_key = PRNGKey(seed)
         self._uid = 0
         self._clock: Optional[str] = None  # "real" | "virtual", set on first use
+        #: the attached tensor-parallel mesh (None: unsharded)
+        self._mesh = None
         #: the realized noise-std drift factor (1.0 nominal) and its 0-d
         #: float32 operand on the device, refilled in place when it changes
         self._noise_scale = 1.0
@@ -267,6 +281,7 @@ class ServingEngine:
             "retried": 0,  # fault-triggered resubmissions
             "stalled_steps": 0,  # pool decode steps lost to injected stalls
             "exe_faults": 0,  # injected call faults absorbed
+            "exe_errors": 0,  # unexpected exceptions of a call contained
             "poisoned_rows": 0,  # corrupted decode rows detected and retired
             "cancelled": 0,  # requests withdrawn by cancel()
             "promotions": 0,  # drift responses switched on
@@ -287,6 +302,8 @@ class ServingEngine:
         self.governor: Optional[PrecisionGovernor] = None
         if policy is not None:
             self.governor = PrecisionGovernor(self, policy)
+        if mesh is not None:
+            self.attach_mesh(mesh)
 
     def _note_dropped_events(self, n: int) -> None:
         self.stats["dropped_events"] += n
@@ -630,6 +647,43 @@ class ServingEngine:
             self._scale_filled = self._noise_scale
         return self._scale_t
 
+    # -- mesh attach / resize ------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The attached tensor-parallel mesh (None: unsharded serving)."""
+        return self._mesh
+
+    def attach_mesh(self, mesh) -> None:
+        """Attach (or resize to) a tensor-parallel mesh; ``None`` detaches.
+
+        Everything the engine holds stays replicated on its device: the
+        analog matmuls of its forwards run as the mesh's column shards,
+        whose noise is drawn at global column offsets, so the tokens equal
+        the unsharded engine's bit for bit. Refused while requests are in
+        flight (their decode state belongs to the old mesh); the pools
+        are dropped and rebuilt lazily. The moe and xlstm families are not
+        served under a mesh yet.
+        """
+        if self.n_in_flight:
+            raise ValueError(
+                f"cannot attach/resize a mesh with {self.n_in_flight} requests in flight "
+                "(their decode state belongs to the current mesh); drain with flush() first")
+        if mesh is not None and self.model_cfg.family in ("moe", "xlstm"):
+            raise NotImplementedError(
+                f"tensor-parallel serving of the {self.model_cfg.family} family is not ported "
+                "(ROADMAP A.6 left moe and xlstm under a mesh for later); serve it without "
+                "a mesh")
+        self._mesh = mesh
+        self._pools.clear()  # rebuilt lazily under the new mesh
+
+    def _mesh_ctx(self):
+        """The attached mesh as the ambient mesh of a forward (every
+        analog matmul inside runs column-parallel); no-op unmeshed."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return sharding.use_mesh(self._mesh)
+
     def _guard(self, phase: str, tier, *shape) -> None:
         """The injection point of a prefill, decode or insert call: raises
         the plan's ``TransientExecutableFault`` before any launch (``tier``
@@ -680,6 +734,12 @@ class ServingEngine:
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(reqs, "exe_fault", str(f))
+        except Exception as e:  # noqa: BLE001 - serving must not crash
+            # any other exception of the call is contained the same way: the
+            # batch retires into the bounded-retry path (Failed once retries
+            # run out), never a crashed loop with requests stranded
+            self.stats["exe_errors"] += 1
+            return self._fault_requeue(reqs, "exe_error", repr(e))
         toks = [tok]
         stop_sets = [r.stop_set for r in reqs]
         has_stops = any(stop_sets)
@@ -699,14 +759,19 @@ class ServingEngine:
             self._sync_noise_scale()
             try:
                 self._guard("decode", tier_id, bb, cache_len)
+                logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths,
+                                            noise_scale=self._scale_arr())
             except TransientExecutableFault as f:
                 # raised before the step: the batch retries from scratch
                 self.stats["exe_faults"] += 1
                 self.stats["decode_steps"] += steps_run
                 self.stats["decode_slot_steps"] += steps_run * bb
                 return self._fault_requeue(reqs, "exe_fault", str(f))
-            logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths,
-                                        noise_scale=self._scale_arr())
+            except Exception as e:  # noqa: BLE001 - serving must not crash
+                self.stats["exe_errors"] += 1
+                self.stats["decode_steps"] += steps_run
+                self.stats["decode_slot_steps"] += steps_run * bb
+                return self._fault_requeue(reqs, "exe_error", repr(e))
             tok = torch.argmax(logits, dim=-1)
             toks.append(tok)
             steps_run += 1
@@ -812,6 +877,10 @@ class ServingEngine:
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(reqs, "exe_fault", str(f))
+        except Exception as e:  # noqa: BLE001 - serving must not crash
+            # no slot is taken yet: the wave retires into the retry path
+            self.stats["exe_errors"] += 1
+            return self._fault_requeue(reqs, "exe_error", repr(e))
         tok0 = tok.cpu().numpy()  # admission needs the first tokens on the host
         slots = pool.take(len(reqs))
         # batch-padding rows aim past the pool and are dropped
@@ -819,12 +888,18 @@ class ServingEngine:
         slot_ids[: len(reqs)] = slots
         try:
             self._guard("insert", None, pool.slots, pool.cache_len, bb)
+            lm.scatter_cache_rows(self.model_cfg, pool.cache, src_cache, slot_ids)
         except TransientExecutableFault as f:
             for s in slots:
                 pool.release(s)
             self.stats["exe_faults"] += 1
             return self._fault_requeue(reqs, "exe_fault", str(f))
-        lm.scatter_cache_rows(self.model_cfg, pool.cache, src_cache, slot_ids)
+        except Exception as e:  # noqa: BLE001 - serving must not crash
+            # the taken slots go back before the requeue: nothing leaks
+            for s in slots:
+                pool.release(s)
+            self.stats["exe_errors"] += 1
+            return self._fault_requeue(reqs, "exe_error", repr(e))
         self.stats["admitted"] += len(reqs)
         out: Dict[int, RequestResult] = {}
         for i, (r, s) in enumerate(zip(reqs, slots)):
@@ -868,13 +943,19 @@ class ServingEngine:
             return {}
         try:
             self._guard("decode", pool.tier, pool.slots, pool.cache_len)
+            self._sync_noise_scale()
+            tok_dev = torch.from_numpy(pool.tok.astype(np.int64)).to(self.device,
+                                                                     non_blocking=True)
+            logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys,
+                                                       pool.lengths, noise_scale=self._scale_arr())
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(self._retire_all(pool), "exe_fault", str(f))
-        self._sync_noise_scale()
-        tok_dev = torch.from_numpy(pool.tok.astype(np.int64)).to(self.device, non_blocking=True)
-        logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys,
-                                                   pool.lengths, noise_scale=self._scale_arr())
+        except Exception as e:  # noqa: BLE001 - serving must not crash
+            # every active row retires (slots freed, never aliased) into the
+            # bounded-retry path
+            self.stats["exe_errors"] += 1
+            return self._fault_requeue(self._retire_all(pool), "exe_error", repr(e))
         tok = torch.argmax(logits, dim=-1)
         t_read = time.perf_counter()
         tok_np = tok.cpu().numpy()  # retiring rows needs this step's tokens

@@ -1,5 +1,5 @@
 """Execution tiers; port of ``repro/serving/tiers.py`` (uniform K, per-layer
-profiles and digital tiers; the int8 tier is not ported).
+profiles, digital tiers and the weight-only int8 digital tier).
 
 A tier is one servable execution configuration: how a batch's prefill and
 decode steps run (``analog_spec``: the noise model of the forward, or
@@ -11,8 +11,10 @@ kernel); ``AnalogProfileTier`` is its per-layer form, a registered
 each row's position into the row's key, so every generated token draws
 fresh noise. Analog tiers price a token through the engine's energy tree
 (``sum_l K_l * E_l * MACs_l``); ``DigitalTier`` through a per-MAC digital
-constant. The ``TierRegistry`` maps tier ids (K ints, profile names,
-registered custom ids) to tiers.
+constant; ``Int8DigitalTier`` serves a quantized copy of the engine's
+weights (``quant/weights.py``) at the int8 constant. The
+``TierRegistry`` maps tier ids (K ints, profile names, registered custom
+ids) to tiers.
 
 Each tier also carries its place on the degradation ladder: ``accuracy``
 (the precision governor's coordinate), ``promote()`` (the tier a fault
@@ -33,9 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.analog import fold_key
-from repro_torch.core.energy import DIGITAL_BF16_AJ_PER_MAC, total_macs
+from repro_torch.core.energy import DIGITAL_BF16_AJ_PER_MAC, DIGITAL_INT8_AJ_PER_MAC, total_macs
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.models import lm
+from repro_torch.models.hooks import ServingMatmulHook
+from repro_torch.quant.weights import quantize_params
+
+
+#: the matmul hook of every served digital forward: a request's tokens do
+#: not depend on its batch
+SERVED_DIGITAL = ServingMatmulHook()
 
 
 def _next_rung(k: int, ladder: Tuple[int, ...]) -> int:
@@ -58,6 +67,11 @@ class ExecutionTier:
         self.engine = engine
         self.tier_id = tier_id
         self.accuracy = None if accuracy is None else float(accuracy)
+
+    @property
+    def params(self):
+        """The parameter tree this tier's forwards read: the engine's."""
+        return self.engine.params
 
     def analog_spec(self, keys: np.ndarray, pos=None, noise_scale=None):
         """AnalogSpec of this tier's forwards (None: digital). ``keys`` are
@@ -82,12 +96,14 @@ class ExecutionTier:
                 noise_scale=None):
         """Prefill a bucket batch -> (cache, last-token logits (B, V) f32)."""
         eng = self.engine
-        cache, h_last = lm.prefill(
-            eng.params, tokens, eng.model_cfg,
-            analog=self.analog_spec(keys, noise_scale=noise_scale),
-            cache_len=cache_len, lengths=lengths,
-        )
-        logits = lm.logits_last(eng.params, h_last, eng.model_cfg)
+        params = self.params
+        with eng._mesh_ctx():
+            cache, h_last = lm.prefill(
+                params, tokens, eng.model_cfg,
+                analog=self.analog_spec(keys, noise_scale=noise_scale),
+                cache_len=cache_len, lengths=lengths, hook=SERVED_DIGITAL,
+            )
+        logits = lm.logits_last(params, h_last, eng.model_cfg)
         return cache, logits[:, 0, 0].to(torch.float32)
 
     def decode(self, cache, tok: torch.Tensor, pos: np.ndarray, keys: np.ndarray,
@@ -98,11 +114,13 @@ class ExecutionTier:
         and whose xlstm state stays as it was); None: every row is real."""
         eng = self.engine
         pos_dev = torch.as_tensor(pos, dtype=torch.int64).to(eng.device, non_blocking=True)
-        logits, cache = lm.decode_step(
-            eng.params, cache, tok[:, None], pos_dev, eng.model_cfg,
-            analog=self.analog_spec(keys, pos=pos, noise_scale=noise_scale),
-            lengths=None if lengths is None else torch.as_tensor(lengths, dtype=torch.int64),
-        )
+        with eng._mesh_ctx():
+            logits, cache = lm.decode_step(
+                self.params, cache, tok[:, None], pos_dev, eng.model_cfg,
+                analog=self.analog_spec(keys, pos=pos, noise_scale=noise_scale),
+                lengths=None if lengths is None else torch.as_tensor(lengths, dtype=torch.int64),
+                hook=SERVED_DIGITAL,
+            )
         return logits[:, 0, 0].to(torch.float32), cache
 
 
@@ -205,6 +223,31 @@ class DigitalTier(ExecutionTier):
             raise ValueError("digital engine: no energy tree to account")
         macs = float(total_macs(lm.energy_macs(self.engine.model_cfg, 1)))
         return self.aj_per_mac * macs
+
+
+class Int8DigitalTier(DigitalTier):
+    """Weight-only int8 digital execution (``quant/weights.py``): the
+    forwards read a quantized copy of the engine's parameter tree (int8
+    codes and f32 per-output-channel scales, dequantized a layer slice at
+    a time in ``lm._run_stack``), made at first use and made again
+    whenever ``engine.params`` is swapped. Priced at the int8 per-MAC
+    constant, never the analog energy tree; accuracy 1.0 by default."""
+
+    def __init__(self, engine, tier_id="int8", *,
+                 aj_per_mac: Optional[float] = DIGITAL_INT8_AJ_PER_MAC,
+                 accuracy: Optional[float] = 1.0):
+        super().__init__(engine, tier_id, aj_per_mac=aj_per_mac, accuracy=accuracy)
+        self._src = None
+        self._qparams = None
+
+    @property
+    def params(self):
+        src = self.engine.params
+        if self._qparams is None or self._src is not src:
+            self._qparams = None  # the old copy goes before the new one is made
+            self._qparams = quantize_params(src)
+            self._src = src
+        return self._qparams
 
 
 class TierRegistry:

@@ -221,3 +221,62 @@ def test_recurrent_and_moe_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_dev
     alone = moe.moe_block(xm[:2], pe, mcfg, _RowHook(), pad_mask=pad[:2])
     padded = moe.moe_block(xm, pe, mcfg, _RowHook(), pad_mask=pad)
     assert torch.equal(alone[~pad[:2]], padded[:2][~pad[:2]])
+
+
+#: (route, (B, M, K, N)) of the shard checks: N / tp a multiple of 8 at tp = 2, 4
+SHARD_CASES = [("decode", (3, 1, 256, 128)), ("tc", (3, 9, 256, 128)),
+               ("simt", (2, 9, 72, 64)), ("weight", (3, 1, 256, 128)),
+               ("weight", (3, 9, 256, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,shape", SHARD_CASES,
+                         ids=[f"{r}-{'x'.join(map(str, s))}" for r, s in SHARD_CASES])
+def test_route_shard_equals_its_slice_on_card(route, shape, cuda_device):
+    """A tensor-parallel shard (a column view of the weight, its seed's col0
+    at the shard's first column, the whole weight's launch plan) is the
+    same bits as its columns of the unsharded call."""
+    import functools
+
+    b, m, k, n = shape
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((b, m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(np.float32))
+    cfg, e = (AnalogConfig.weight(0.1), 5.0) if route == "weight" else (AnalogConfig.shot(), 10.0)
+    seed = torch.from_numpy(np.arange(4 * b, dtype=np.int32).reshape(b, 4)).to(cuda_device)
+    xb, wb = x.to(torch.bfloat16).to(cuda_device), w.to(torch.bfloat16).to(cuda_device)
+    energy = torch.tensor(e, device=cuda_device)
+    raw = functools.partial(am.analog_matmul_raw, route=route)
+    for reps in (1, 4):
+        (whole,) = ops.analog_matmul_shards(raw, xb, wb, energy=energy, seed=seed, cfg=cfg,
+                                            n_repeats=reps, tp=1, shards=[0])
+        for tp in (2, 4):
+            nl = n // tp
+            shards = ops.analog_matmul_shards(raw, xb, wb, energy=energy, seed=seed, cfg=cfg,
+                                              n_repeats=reps, tp=tp, shards=range(tp), plan_n=n)
+            for r, y in enumerate(shards):
+                assert torch.equal(y, whole[..., r * nl:(r + 1) * nl]), (tp, r, reps)
+
+
+@pytest.mark.cuda
+def test_digital_hook_same_bits_alone_as_in_a_batch_on_card(cuda_device):
+    """A served forward's digital sites: a decode step (1 row a request)
+    takes the decode route with no noise, within the f32 rule of the plain
+    matmul; a prefill runs one matmul a request. Either way a request's
+    rows are the same bits alone as in a batch of 4."""
+    from repro_torch.models.hooks import ServingMatmulHook
+
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.standard_normal((512, 1280)).astype(np.float32) * 0.05)
+    w = w.to(torch.bfloat16).to(cuda_device)
+    hook = ServingMatmulHook()
+    for t in (1, 64):
+        x = torch.from_numpy(rng.standard_normal((4, t, 512)).astype(np.float32))
+        x = x.to(torch.bfloat16).to(cuda_device)
+        before = am.LAUNCHES["decode"]
+        batched = hook("mlp0_up", x, w)
+        assert am.LAUNCHES["decode"] - before == (t == 1)
+        want = torch.matmul(x.float(), w.float())
+        assert float((batched.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+        for i in range(4):
+            assert torch.equal(hook("mlp0_up", x[i:i + 1], w)[0], batched[i]), (t, i)

@@ -83,8 +83,8 @@ def engine_kw(**kw):
     kw.setdefault("max_gen", 8)
     kw.setdefault("max_wait", 0.0)  # instant admission on the virtual clock
     kw.setdefault("pool_slots", 2)
-    return dict(max_batch=4, batch_buckets=(1, 2, 4), seq_buckets=(SB,), continuous=True,
-                k_ladder=(1, 2, 4), **kw)
+    kw.setdefault("continuous", True)
+    return dict(max_batch=4, batch_buckets=(1, 2, 4), seq_buckets=(SB,), k_ladder=(1, 2, 4), **kw)
 
 
 def port_engine(env, *, analog=True, plan=None, cfg=CFG, **kw):
