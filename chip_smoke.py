@@ -71,7 +71,8 @@ configuration's weights at a time: granite-20b (GELU with biases, MQA;
 ``serve_granite20``) and qwen2.5-14b (QKV bias; ``serve_qwen14``) through
 the same serve, solo and whole-path checks, launches by route and by site
 shape asserted; granite-20b's 12,000-token prompt in a 16,384 bucket
-through chunked prefill attention, with its peak memory (``granite20_long``);
+through chunked prefill attention at 26 of its 52 layers, with its peak
+memory (``granite20_long``);
 qwen2.5-32b at the deepest depth its weights fit beside the reckoned
 transients (``qwen32_fit``: a prefill and four decode steps); bert-base's
 serve and its energy a token with the GELU sites (``serve_bert``); and
@@ -91,15 +92,28 @@ depth (``serve_xlstm``: the serve, a request alone against its batch, the
 whole path kernels against plain block by block (at the logits random
 weights make float order alone O(1)), and the eight prompts at K=1 and
 K=4 through 4-slot pools against batch-synchronous batches;
-``xlstm_long``: a 2,048-token prompt whose chunk scan carries the state
-across 4 chunks, its blocks against the plain path and, in float32, each
-decode step against a cache-free prefill); grok-1 at 4 of its 64 layers,
+``xlstm_long``, at 24 of its 48 layers: a 2,048-token prompt whose chunk
+scan carries the state across 4 chunks, its blocks against the plain
+path and, in float32, each decode step against a cache-free prefill);
+grok-1 at 4 of its 64 layers,
 full width (``serve_grok``: 12 requests batch-synchronously, the same
 batch again, the padding rows' keys and count, and the whole path with
 its routing flips counted and the plain path's routing pinned to the
 kernels'); and llama4-maverick at 2 of its 48 layers (``llama4_fit``: a
-prefill and 4 decode steps over 128 experts). Every phase
-that fails raises; each prints its seconds. The last line is ``{"ok":
+prefill and 4 decode steps over 128 experts). Under a mesh, the last
+two families (``tp_families``): xlstm-1.3b's serve at tp = 2 and grok-1's
+at tp = 2 and 4, tokens equal to the unsharded engine's. Then training:
+granite-3-8b at full width and the deepest depth whose training state
+fits 80 % of the card (``train``: the attention backward against plain at
+one layer's shape, six steps of 4 x 2,048 tokens with bf16 weights and
+moments and remat, the loss falling, two repeated steps bit-equal, ms a
+step, device ms, tokens/s, peak memory and the model-FLOPs share); the
+Eq.-14 calibration at LM scale on the same weights and depth on the
+"torch" backend (``calibrate_lm``, no kernel launched); and demo-100m
+through the fault-tolerant driver with two simulated failures, bit-equal
+to a clean run, with its checkpoints' bytes and seconds
+(``train_driver``). Every phase that fails raises; each prints its
+seconds. The last line is ``{"ok":
 true, "device": {...}}``; without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -107,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -182,6 +197,10 @@ LONG_PROMPT, LONG_BUCKET, LONG_GEN = 3000, 4096, 8
 #: granite-20b's long prompt: 12,000 tokens in a 16,384 bucket, 4 new tokens
 #: (global attention: one (B, H, T, T) f32 score tensor would be 51.5 GB)
 DENSE_LONG_PROMPT, DENSE_LONG_BUCKET, DENSE_LONG_GEN = 12000, 16384, 4
+#: ... at 26 of granite-20b's 52 layers (the first 26 of its own weights'
+#: depth; cut to keep the whole run inside its time: each of the phase's
+#: nine 12,000-token prefills costs ~0.24 s a layer)
+DENSE_LONG_LAYERS = 26
 #: qwen2.5-32b's fit: decode steps after the 4 x 64 prefill, and what the
 #: reckoning holds back besides the weights: init_params' f32 scratch for the
 #: largest leaf drawn whole (the 5120 x 152,064 lm_head, 3.1 GB) and 4 GB for
@@ -207,6 +226,9 @@ GRAD_CHECK_REL = 1e-3
 #: xlstm-1.3b's long prompt (one bucket of its length: 4 chunks of 512 carry
 #: the recurrent state) and its new tokens
 XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 2048, 4
+#: ... at 24 of xlstm-1.3b's 48 layers (cut to keep the whole run inside its
+#: time)
+XLSTM_LONG_LAYERS = 24
 #: the MoE models' depths: grok-1 at 4 of its 64 layers, llama4-maverick at
 #: 2 of its 48 (one dense and one MoE layer); full depth does not fit one card
 GROK_LAYERS, LLAMA4_LAYERS = 4, 2
@@ -226,7 +248,8 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "griffin_long",
           "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
-          "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
+          "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
+          "calibrate_lm", "train_driver")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -251,7 +274,7 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: route's launches in the phases that hold it against the plain version.
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
-TP_PATHS = ("tp", "tp_griffin")
+TP_PATHS = ("tp", "tp_griffin", "tp_xlstm", "tp_grok")
 MAIN_PATHS = {"decode": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
               + FAMILY_PATHS + TP_PATHS,
               "tc": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
@@ -607,7 +630,10 @@ HEADLINE = {"decode": "shot K=1 decode gate/up", "tc": "shot K=1 prefill gate/up
 
 
 def phase_kernels() -> dict:
-    """Each route vs plain; returns the headline entries of the kernels line."""
+    """Each route vs plain; returns the headline entries of the kernels line.
+    The decode entry also times the route's noise-free use (the served
+    digital sites', ``hooks.ServingMatmulHook``) beside ``torch.matmul`` on
+    the same inputs, the library call that computes that function."""
     import torch
 
     from repro_torch.kernels import analog_matmul as am
@@ -643,6 +669,13 @@ def phase_kernels() -> dict:
                 bound_ms=bound, bound_by=by, library_ms=None, shape=[b, m, k, n],
                 noise=o["noise_kind"], n_repeats=reps, bound_terms_ms=detail,
             )
+            if taken == "decode":  # the served digital sites' use: no noise
+                quiet = dict(o, noise_kind="none")
+                entries[taken]["noise_free"] = dict(
+                    ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1, route="decode"), 10,
+                               flush),
+                    library="torch.matmul",
+                    library_ms=cuda_ms(lambda: torch.matmul(o["x"], o["w"]), 10, flush))
     if min(seen.values()) == 0 or set(entries) != set(am.ROUTES):
         raise AssertionError(f"a route was not checked: {seen}")
     return entries
@@ -980,11 +1013,9 @@ def site_launches(cfg) -> dict:
 
 def forward_sites(cfg, tp: int = 1) -> int:
     """Kernel launches of one forward's analog sites: every group's and
-    every tail layer's, ``tp`` launches a site on a mesh of ``tp`` shards."""
-    from repro_torch.models import lm
-
-    return tp * (sum(site_launches(cfg).values()) * lm.group_structure(cfg)[0]
-                 + len(lm.TAIL_SITES) * lm.n_tail(cfg))
+    every tail layer's, ``tp`` launches a site on a mesh of ``tp`` shards
+    (one where the site runs whole: ``forward_shapes``)."""
+    return sum(forward_shapes(cfg, tp).values())
 
 
 def layer_sites(cfg) -> list:
@@ -1022,15 +1053,20 @@ _FAMILY_LEAF = {"mlstm_z": ("mlstm", "w_z"), "mlstm_q": ("mlstm", "w_q"),
 def forward_shapes(cfg, tp: int = 1) -> dict:
     """(K, N) of every analog site launch of one forward -> its count, from
     the weight leaves the sites read; on a mesh of ``tp`` shards each site
-    launches ``tp`` times at (K, N / tp)."""
+    launches ``tp`` times at (K, N / tp), unless its shard would take
+    another route than the whole call (``shard_keeps_route``: grok's
+    router), which then launches once at (K, N)."""
+    from repro_torch.kernels.analog_matmul import shard_keeps_route
     from repro_torch.models import lm
 
     leaves = lm.param_leaves(cfg)
     count = {}
 
     def add(leaf, times):
-        kn = (leaf.shape[-2], leaf.shape[-1] // tp)
-        count[kn] = count.get(kn, 0) + times * tp
+        k, n = leaf.shape[-2], leaf.shape[-1]
+        split = n % tp == 0 and shard_keeps_route(k, n, tp, cfg.compute_dtype)
+        kn, t = ((k, n // tp), tp) if split else ((k, n), 1)
+        count[kn] = count.get(kn, 0) + times * t
 
     g = lm.group_structure(cfg)[0]
     for site, n in site_launches(cfg).items():
@@ -2187,7 +2223,8 @@ def phase_dense_long(make_engine, CONFIG):
         ctrl.append(_rel(lo, want, 1))
         tok = torch.argmax(lg, dim=-1)
     peak = torch.cuda.max_memory_allocated()
-    log("granite20_long", config=CONFIG.name, prompt_len=DENSE_LONG_PROMPT,
+    log("granite20_long", config=CONFIG.name, layers=CONFIG.n_layers,
+        prompt_len=DENSE_LONG_PROMPT,
         bucket=DENSE_LONG_BUCKET, new_tokens=DENSE_LONG_GEN, tokens=results[uid].tolist(),
         attn_chunks=[CONFIG.attn_q_chunk, CONFIG.attn_kv_chunk], launches=launches,
         expected_launches=expected, flush_ms=flush_s * 1e3, prefill_ms=kernel_ms,
@@ -2905,7 +2942,8 @@ def phase_xlstm_long(make_engine, CONFIG):
         errs.append(_rel(lg[:, 0, 0], want, 1))
         ctrl.append(_rel(lo[:, 0, 0], want, 1))
         nxt = torch.argmax(lg[:, 0, 0], dim=-1)
-    log("xlstm_long", config=CONFIG.name, prompt_len=XLSTM_LONG_PROMPT,
+    log("xlstm_long", config=CONFIG.name, layers=CONFIG.n_layers,
+        prompt_len=XLSTM_LONG_PROMPT,
         chunks=-(-XLSTM_LONG_PROMPT // min(CONFIG.attn_kv_chunk, 512)), new_tokens=XLSTM_LONG_GEN,
         tokens=results[uid].tolist(), launches=launches, expected_launches=expected,
         flush_ms=flush_s * 1e3, prefill_ms=kernel_ms, block_rel=blocks, block_rel_tol=tol,
@@ -3172,6 +3210,326 @@ def phase_llama4_fit():
     return launches
 
 # ---------------------------------------------------------------------------
+# training and the LM calibration
+# ---------------------------------------------------------------------------
+
+#: the train phase (granite-3-8b at full width, bf16 weights, ``TrainConfig()``
+#: defaults: bf16 moments, clip 1.0; remat): rows and positions a step, the
+#: steps (the first untimed), the least depth, the share of the card's memory
+#: the reckoned depth may fill, and what the reckoning holds back beside the
+#: weights, gradients, moments and the layers' saved inputs: one layer's
+#: recompute, a loss chunk's logits and the allocator's slack
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_MIN_LAYERS = 4, 2048, 6, 8
+TRAIN_PEAK_SHARE, TRAIN_RESERVE_BYTES = 0.8, 10 * 2**30
+#: the attention backward's check at one layer's shape (B, T, H, KH, D), f32
+#: with TF32 off, against autograd through a plain masked softmax
+ATTN_CHECK, ATTN_GRAD_REL = (1, 2048, 32, 8, 128), 1e-4
+#: the driver phase (demo-100m of the training entry point, its optimizer):
+#: steps, checkpoint interval, the steps that fail, positions and rows
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAILS = 24, 8, (5, 17)
+DRIVER_T, DRIVER_B = 256, 8
+#: the LM calibration (the train phase's weights and depth, shot noise on the
+#: "torch" backend): rows, positions, steps, the budget in aJ/MAC, and the
+#: calibration example's penalty weight, learning rate and start (4x budget)
+CAL_LM_B, CAL_LM_T, CAL_LM_STEPS, CAL_LM_TARGET = 4, 512, 4, 2.0
+CAL_LM_LAM, CAL_LM_LR, CAL_LM_INIT_MULT = 20.0, 0.05, 4.0
+
+
+def train_depth(CONFIG) -> int:
+    """The most layers of ``CONFIG`` whose training state fits
+    ``TRAIN_PEAK_SHARE`` of the card: 8 bytes a parameter (bf16 weights,
+    gradients and two moments), each layer's saved input (B T d bf16,
+    remat) and ``TRAIN_RESERVE_BYTES``; reckoned before any weight is made.
+    Raises below ``TRAIN_MIN_LAYERS``."""
+    import torch
+
+    from repro_torch.configs import reduced_depth
+
+    _, total = torch.cuda.mem_get_info()
+    one, two = (reduced_depth(CONFIG, n_layers=n, name=CONFIG.name) for n in (1, 2))
+    per_layer = two.param_count() - one.param_count()
+    fixed = one.param_count() - per_layer + (CONFIG.padded_vocab - CONFIG.vocab_size) * 2 * \
+        CONFIG.d_model
+    saved = TRAIN_B * TRAIN_T * CONFIG.d_model * 2
+    depth = int((TRAIN_PEAK_SHARE * total - TRAIN_RESERVE_BYTES - 8 * fixed)
+                // (8 * per_layer + saved))
+    if depth < TRAIN_MIN_LAYERS:
+        raise AssertionError(f"training {CONFIG.name} fits {depth} layers, under "
+                             f"{TRAIN_MIN_LAYERS}")
+    return min(CONFIG.n_layers, depth)
+
+
+def _attention_backward_check(cfg):
+    """``layers.chunked_attention``'s backward (the flash Function) at one
+    layer's shape against autograd through a plain masked-softmax
+    attention on the same f32 inputs: dq, dk, dv within ``ATTN_GRAD_REL``
+    max|g|; the peak bytes each takes above its inputs, and the ms of a
+    forward and backward (median of 3)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    b, t, h, kh, d = ATTN_CHECK
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda")
+                   for sh in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d), (b, t, h, d)))
+    mask = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+
+    def flash():
+        qq, kk, vv = (a.detach().requires_grad_() for a in (q, k, v))
+        out = layers.chunked_attention(qq, kk, vv, q_chunk=cfg.attn_q_chunk,
+                                       kv_chunk=cfg.attn_kv_chunk)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
+
+    def plain():
+        qq, kk, vv = (a.detach().requires_grad_() for a in (q, k, v))
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qq.reshape(b, t, kh, h // kh, d), kk) / d**0.5
+        p = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, vv).reshape(b, t, h, d)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
+
+    peaks = {}
+    for name, fn in (("flash", flash), ("plain", plain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base, grads)
+    errs = [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(peaks["flash"][1], peaks["plain"][1])]
+    row = dict(shape=list(ATTN_CHECK), chunks=[cfg.attn_q_chunk, cfg.attn_kv_chunk],
+               rel_err_dq_dk_dv=errs, bound=ATTN_GRAD_REL,
+               flash_peak_bytes=peaks["flash"][0], plain_peak_bytes=peaks["plain"][0],
+               flash_ms=cuda_ms(flash, 3), plain_ms=cuda_ms(plain, 3))
+    log("attention_backward", **row, card=card())
+    if max(errs) > ATTN_GRAD_REL:
+        raise AssertionError(f"attention backward vs plain: {errs} > {ATTN_GRAD_REL}")
+    return row
+
+
+def phase_train(CONFIG=None):
+    """granite-3-8b trained at full width: the depth ``train_depth``
+    reckons, bf16 weights from seed 0, ``TrainConfig()``, remat; the
+    attention backward checked first (``_attention_backward_check``). Then
+    ``TRAIN_STEPS`` steps of ``markov_batch`` at ``TRAIN_B`` x ``TRAIN_T``:
+    the loss finite at every step and lower at the last; ms a step (median
+    of steps 2 on, unprofiled), one more step profiled (device ms, idle
+    share), tokens/s, the peak against the card's memory, and the
+    model-FLOPs share (6 N tokens + the attention's matmuls over the step's
+    seconds at the bf16 spec peak). Then two steps again from the same
+    weights and a fresh optimizer: the parameters equal those after the
+    first run's second step bit for bit. Returns the depth-cut config."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import reduced_depth
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    attn = _attention_backward_check(CONFIG)
+    depth = train_depth(CONFIG)
+    cfg = reduced_depth(CONFIG, n_layers=depth, name=CONFIG.name)
+    tcfg = TrainConfig()
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B,
+                           seed=7)
+    batches = [markov_batch(data, i) for i in range(TRAIN_STEPS + 1)]
+    step = make_train_step(cfg, None, tcfg)
+
+    def fresh():
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        return params, make_opt_init(cfg, None, tcfg)(params)
+
+    _free()
+    t0 = time.perf_counter()
+    state = list(fresh())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, norms, ms, after_two = [], [], [], None
+    for i in range(TRAIN_STEPS):
+        def one(i=i):
+            state[0], state[1], m = step(state[0], state[1], batches[i])
+            return m
+        m, wall = _wall_ms(one)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(wall)
+        if i == 1:  # the state the repeat below must reproduce
+            after_two = [p.to("cpu", copy=True) for p in leaves(state[0])]
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = _profile(lambda: step(state[0], state[1], batches[TRAIN_STEPS]))
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN_B * TRAIN_T
+    n_matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model  # the embedding is a gather
+    attn_flops = 6 * TRAIN_B * cfg.n_heads * cfg.head_dim * TRAIN_T**2 * cfg.n_layers
+    flops = 6 * n_matmul * tokens + attn_flops
+    _, total = torch.cuda.mem_get_info()
+    state = None
+    _free()
+    params, opt = fresh()
+    for i in range(2):
+        params, opt, _ = step(params, opt, batches[i])
+    equal = [bool(torch.equal(p, a.to("cuda"))) for p, a in zip(leaves(params), after_two)]
+    params = opt = after_two = None
+    _free()
+    row = dict(config=cfg.name, layers=cfg.n_layers, of_layers=CONFIG.n_layers,
+               params=cfg.param_count(), batch=[TRAIN_B, TRAIN_T], losses=losses,
+               grad_norms=norms, step_ms=ms, ms_a_step=step_ms, init_s=init_s,
+               device_ms=prof["device_ms"], idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               profiled_wall_ms=prof["profiled_wall_ms"], top=prof["top"],
+               tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak / 2**30,
+               card_gib=total / 2**30, peak_share=peak / total, model_flops=flops,
+               mfu_of_bf16_spec_peak=flops / (step_ms / 1e3 * BF16_FLOPS_S),
+               repeat_equal=equal, attention=attn, card=card())
+    log("train", **row)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses}")
+    if not all(equal):
+        raise AssertionError(f"train: two runs of 2 steps differ at leaves {equal}")
+    if peak > TRAIN_PEAK_SHARE * total:
+        raise AssertionError(f"train: peak {peak} bytes over {TRAIN_PEAK_SHARE} of {total}")
+    return cfg
+
+
+def phase_train_driver():
+    """demo-100m of the training entry point (its optimizer, f32 moments)
+    through ``TrainDriver`` at ``DRIVER_B`` x ``DRIVER_T``:
+    ``DRIVER_STEPS`` steps with async checkpoints every
+    ``DRIVER_CKPT_EVERY``, once clean and once with ``SimulatedFailure`` at
+    ``DRIVER_FAILS``: 2 restarts, the final parameters and moments equal
+    the clean run's bit for bit, the loss falls (its mean over the last 4
+    steps below the first 4's). Then one blocking save of
+    the final state and its restore, timed: the checkpoint's bytes and
+    seconds. Checkpoints go under a temporary directory, removed after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.store import restore_checkpoint, save_checkpoint
+    from repro_torch.data.pipeline import TokenTaskConfig
+    from repro_torch.runtime.driver import DriverConfig, SimulatedFailure, TrainDriver
+    from repro_torch.runtime.train_lm import MODELS, TRAIN_CFG
+    from repro_torch.tree import leaves
+
+    cfg = MODELS["100m"]
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=DRIVER_T, global_batch=DRIVER_B,
+                           seed=7)
+    dcfg = DriverConfig(max_steps=DRIVER_STEPS, ckpt_every=DRIVER_CKPT_EVERY, ckpt_async=True,
+                        log_every=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for name in ("clean", "faulty"):
+            fails = set(DRIVER_FAILS) if name == "faulty" else set()
+
+            def hook(step, fails=fails):
+                if step in fails:
+                    fails.discard(step)
+                    raise SimulatedFailure(f"crash at step {step}")
+
+            drv = TrainDriver(cfg, data, ckpt_dir=os.path.join(root, name), train_cfg=TRAIN_CFG,
+                              driver_cfg=dcfg, failure_hook=hook)
+            t0 = time.perf_counter()
+            out = drv.run()
+            torch.cuda.synchronize()
+            runs[name] = (drv, out, time.perf_counter() - t0)
+            shutil.rmtree(os.path.join(root, name))
+        (clean, c_out, c_s), (faulty, f_out, f_s) = runs["clean"], runs["faulty"]
+        state = f_out["state"]
+        equal = all(torch.equal(a, b) for a, b in zip(
+            leaves(c_out["state"]["params"]) + leaves(c_out["state"]["opt"].mu),
+            leaves(state["params"]) + leaves(state["opt"].mu)))
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(root, "timed"), DRIVER_STEPS, state)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+        t0 = time.perf_counter()
+        _, back = restore_checkpoint(os.path.join(root, "timed"), template=state)
+        restore_s = time.perf_counter() - t0
+        raw = sum(t.numel() * t.element_size() for t in leaves(back["params"])
+                  + leaves(back["opt"].mu) + leaves(back["opt"].nu))
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(leaves(state["params"]),
+                                                           leaves(back["params"])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [m["loss"] for m in c_out["metrics"]]
+    log("train_driver", config=cfg.name, params=cfg.param_count(), batch=[DRIVER_B, DRIVER_T],
+        steps=DRIVER_STEPS, fails_at=list(DRIVER_FAILS), restarts=faulty.restarts,
+        final_equal_clean=equal, losses=losses, faulty_losses=[m["loss"] for m in f_out["metrics"]],
+        step_ms=[m["dt"] * 1e3 for m in c_out["metrics"]], clean_s=c_s, faulty_s=f_s,
+        ckpt_bytes=ckpt_bytes, raw_bytes=raw, save_s=save_s,
+        restore_s=restore_s, restored_equal=same, straggler_flags=len(faulty.monitor.flags),
+        card=card())
+    falls = sum(losses[-4:]) < sum(losses[:4])  # the last 4 steps' mean below the first 4's
+    if not (equal and same and faulty.restarts == len(DRIVER_FAILS) and falls):
+        raise AssertionError(f"train_driver: equal {equal}, restored {same}, restarts "
+                             f"{faulty.restarts}, losses {losses}")
+
+
+def phase_calibrate_lm(cfg):
+    """Eq. 14 at LM scale on the train phase's config (its depth, bf16
+    weights from seed 0): ``make_calibrate_step`` with shot noise on the
+    "torch" backend (the kernel has no backward), ``CAL_LM_STEPS`` steps
+    of ``markov_batch`` at ``CAL_LM_B`` x ``CAL_LM_T`` from a uniform start
+    at ``CAL_LM_INIT_MULT`` x the budget: NLL and loss finite, the penalty
+    falling, no kernel route launched; ms a step, peak GiB, the mean
+    energy a MAC after each step."""
+    import torch
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.energy import avg_energy_per_mac, to_energy, uniform_log_energies
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels import prng
+    from repro_torch.launch.steps import make_calibrate_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.tree import map_leaves
+
+    _free()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    step = make_calibrate_step(cfg, analog_cfg=AnalogConfig.shot(backend="torch"),
+                               seq_len=CAL_LM_T, target_e_per_mac=CAL_LM_TARGET, lam=CAL_LM_LAM,
+                               lr=CAL_LM_LR)
+    log_e = map_leaves(lambda _p, t: t.cuda(),
+                       uniform_log_energies(step.macs, CAL_LM_INIT_MULT * CAL_LM_TARGET))
+    opt = adam_init(log_e, AdamConfig(lr=CAL_LM_LR))
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=CAL_LM_T, global_batch=CAL_LM_B,
+                           seed=7)
+    batches = [markov_batch(data, i) for i in range(CAL_LM_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(am.LAUNCHES)
+    nll, loss, e_mac, ms = [], [], [], []
+    for i in range(CAL_LM_STEPS):
+        (log_e, opt, m), wall = _wall_ms(
+            lambda i=i: step(log_e, opt, params, batches[i], prng.fold_in(prng.PRNGKey(0), i)))
+        nll.append(float(m["nll"]))
+        loss.append(float(m["loss"]))
+        ms.append(wall)
+        with torch.no_grad():
+            e_mac.append(float(avg_energy_per_mac(to_energy(log_e), step.macs)))
+    launched = _launch_delta(before)
+    penalty = [a - b for a, b in zip(loss, nll)]
+    log("calibrate_lm", config=cfg.name, layers=cfg.n_layers, batch=[CAL_LM_B, CAL_LM_T],
+        target_e_per_mac=CAL_LM_TARGET, nll=nll, loss=loss, penalty=penalty,
+        e_per_mac_after_step=e_mac, step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        kernel_launches=launched, card=card())
+    params = None
+    _free()
+    if not (all(map(math.isfinite, nll + loss)) and penalty[-1] < penalty[0]):
+        raise AssertionError(f"calibrate_lm: nll {nll}, loss {loss}")
+    if any(launched.values()):
+        raise AssertionError(f"calibrate_lm launched kernel routes {launched}")
+
+
+# ---------------------------------------------------------------------------
 # contained faults, tensor parallelism, the int8 tier
 # ---------------------------------------------------------------------------
 
@@ -3234,6 +3592,11 @@ TP_GEN = 8
 TP_STEPS = 5
 TP_TIERS = ({"n_repeats": 1},) * 3 + ({"n_repeats": 4},) * 3 + ({"profile": "edge4"},) * 2
 TP_GRIFFIN_TIERS = ({"n_repeats": 1},) * 2 + ({"n_repeats": 4},) * 2
+#: tp_families: grok-1's serve (``MOE_REQUESTS`` requests at K=1) at tp = 2
+#: and 4, and xlstm-1.3b's serve (4 at K=1, 4 at K=4) at tp = 2,
+#: batch-synchronous (MoE has no pools)
+TP_GROK_TIERS = ({"n_repeats": 1},) * MOE_REQUESTS
+TP_XLSTM_TIERS = ({"n_repeats": 1},) * 4 + ({"n_repeats": 4},) * 4
 #: the sites of tp_routes: granite-3-8b's and recurrentgemma-2b's
 TP_ROUTE_SITES = [("granite-3-8b " + s, k, n) for s, k, n in SITES] + [
     ("recurrentgemma-2b " + s, k, n) for s, k, n in GRIFFIN_SITES]
@@ -3355,15 +3718,17 @@ def _tp_serve(make_engine, prompts, tiers, mesh, continuous, profiles):
 
 
 def phase_tp(make_engine, prompts, CONFIG=None, sizes=TP_SIZES, tiers=TP_TIERS,
-             disciplines=(False, True)):
+             disciplines=(False, True), time_steps=True):
     """Tensor-parallel serving on one card (a local mesh: the shards run
     one after another): the traffic at each tp of ``sizes``, batch-
     synchronous and through 4-slot pools (``disciplines``), equals the
     unsharded batch-synchronous engine's tokens bit for bit (at one seq
     bucket pooled == sync, as ``continuous`` holds), with tp times its
-    launches by route, at N / tp; an ``attach_mesh`` with a request in
-    flight raises; then the ms a decode step (``TP_STEPS`` timed), device
-    ms and idle share of the first batch at tp = 1 and each of ``sizes``.
+    launches by route, at N / tp (a site whose shard would change route
+    runs whole: ``forward_shapes``); an ``attach_mesh`` with a request in
+    flight raises; then, with ``time_steps``, the ms a decode step
+    (``TP_STEPS`` timed), device ms and idle share of the first batch at
+    tp = 1 and each of ``sizes``.
     Returns the launches by route of the sharded serves."""
     import numpy as np
 
@@ -3388,8 +3753,9 @@ def phase_tp(make_engine, prompts, CONFIG=None, sizes=TP_SIZES, tiers=TP_TIERS,
             equal = [bool(np.array_equal(got[u], want[u])) for u in range(len(prompts))]
             want_launch, want_shape = _expected_launches(CONFIG, eng.stats, tp)
             ok_launch = launches == want_launch and by_shape == want_shape
-            if not continuous:  # the same batches as the unsharded serve
-                ok_launch = ok_launch and launches == {r: tp * c for r, c in l1.items()}
+            if not continuous:  # the same forwards as the unsharded serve
+                ok_launch = ok_launch and want_launch == _expected_launches(
+                    CONFIG, eng1.stats, tp)[0]
             st = eng.stats
             log("tp_serve", config=CONFIG.name, layers=CONFIG.n_layers, tp=tp, discipline=name,
                 requests=len(got), tokens_equal_unsharded=equal, launches=launches,
@@ -3421,7 +3787,7 @@ def phase_tp(make_engine, prompts, CONFIG=None, sizes=TP_SIZES, tiers=TP_TIERS,
     if not refused:
         raise AssertionError("attach_mesh with a request in flight did not raise")
     step_tiers = [t.get("n_repeats", 1) for t in tiers]
-    for tp, eng in sorted(step_engines.items()):
+    for tp, eng in sorted(step_engines.items()) if time_steps else ():
         phase_steps(eng, prompts, step_tiers, n_steps=TP_STEPS)
     return total
 
@@ -3553,8 +3919,8 @@ def main() -> int:
                          "serve_bert calibrate and search; serve_xlstm its step, solo, "
                          "whole-path and continuous phases and xlstm_long; serve_grok its "
                          "step, pad and whole-path phases; tp and int8 run on granite-3-8b's "
-                         "weights, tp then on recurrentgemma-2b's); "
-                         "default all")
+                         "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
+                         "and grok-1's; calibrate_lm on train's config); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -3682,9 +4048,15 @@ def main() -> int:
         return make, cfg
 
     if run & {"serve_granite20", *GRANITE20_FOLLOWERS}:
+        from repro_torch.configs import reduced_depth
+
         make, cfg = serve_dense("granite-20b", "serve_granite20", "granite20")
         if "granite20_long" in run:
-            timed("granite20_long", phase_dense_long, make, cfg)
+            make = None
+            _free()
+            long_cfg = reduced_depth(cfg, n_layers=DENSE_LONG_LAYERS, name=cfg.name)
+            make = timed("granite20_long_weights", phase_weights, long_cfg)
+            timed("granite20_long", phase_dense_long, make, long_cfg)
         make = None
     if "serve_qwen14" in run:
         serve_dense("qwen2.5-14b", "serve_qwen14", "qwen14")
@@ -3698,7 +4070,7 @@ def main() -> int:
         make = cal = None
     if "frontends" in run:
         by_path["frontends"] = timed("frontends", phase_frontends)
-    if run & {"serve_xlstm", *XLSTM_FOLLOWERS}:
+    if run & {"serve_xlstm", *XLSTM_FOLLOWERS, "tp_families"}:
         from repro_torch.configs import get_config
 
         _free()
@@ -3715,24 +4087,51 @@ def main() -> int:
             "xlstm_continuous", phase_continuous, make_xlstm, xprompts, XLSTM,
             ({"n_repeats": 1}, {"n_repeats": 4}))
         engine = results = fb = None
+    if "tp_families" in run:
+        by_path["tp_xlstm"] = timed("tp_xlstm", phase_tp, make_xlstm, xprompts, XLSTM, (2,),
+                                    TP_XLSTM_TIERS, (False,), False)
     if "xlstm_long" in run:
-        by_path["xlstm_long"] = timed("xlstm_long", phase_xlstm_long, make_xlstm, XLSTM)
+        from repro_torch.configs import reduced_depth
+
+        make_xlstm = None
+        _free()
+        long_cfg = reduced_depth(XLSTM, n_layers=XLSTM_LONG_LAYERS, name=XLSTM.name)
+        make_xlstm = timed("xlstm_long_weights", phase_weights, long_cfg)
+        by_path["xlstm_long"] = timed("xlstm_long", phase_xlstm_long, make_xlstm, long_cfg)
     make_xlstm = None
-    if "serve_grok" in run:
+    if run & {"serve_grok", "tp_families"}:
         from repro_torch.configs import get_config, reduced_depth
 
         _free()
         GROK = reduced_depth(get_config("grok-1-314b"), n_layers=GROK_LAYERS)
         make_grok = timed("grok_weights", phase_weights, GROK)
+        gprompts, gtiers = _moe_traffic(GROK)
+    if "serve_grok" in run:
         engine, by_path["serve_grok"], gprompts, gtiers = timed(
             "serve_grok", phase_serve_grok, make_grok, GROK)
         timed("grok_step", phase_steps, engine, gprompts, gtiers)
         timed("grok_pad", phase_moe_pad, make_grok, GROK, gprompts)
         timed("grok_whole_path", phase_whole_path_moe, make_grok, engine, gprompts, gtiers)
-        make_grok = engine = None
+        engine = None
+    if "tp_families" in run:
+        by_path["tp_grok"] = timed("tp_grok", phase_tp, make_grok, gprompts, GROK, TP_SIZES,
+                                   TP_GROK_TIERS, (False,))
+    make_grok = None
     if "llama4_fit" in run:
         _free()
         by_path["llama4_fit"] = timed("llama4_fit", phase_llama4_fit)
+    if run & {"train", "calibrate_lm"}:
+        from repro_torch.configs import reduced_depth
+        from repro_torch.configs.granite_3_8b import CONFIG as GRANITE
+
+        _free()
+        trained = (timed("train", phase_train) if "train" in run else
+                   reduced_depth(GRANITE, n_layers=train_depth(GRANITE), name=GRANITE.name))
+    if "calibrate_lm" in run:
+        timed("calibrate_lm", phase_calibrate_lm, trained)
+    if "train_driver" in run:
+        _free()
+        timed("train_driver", phase_train_driver)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))

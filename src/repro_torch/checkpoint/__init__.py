@@ -1,0 +1,10 @@
+"""Checkpoints of the port (``repro/checkpoint``): atomic, validated,
+async saves of parameter and optimizer trees."""
+from repro_torch.checkpoint.store import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
     return ModelConfig(
         name="bert-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256, mlp_type="gelu",
-        attn_q_chunk=32, attn_kv_chunk=32,
+        attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

@@ -24,5 +24,5 @@ def smoke_config() -> ModelConfig:
     return ModelConfig(
         name="granite20-smoke", family="dense", n_layers=4, d_model=64,
         n_heads=4, n_kv_heads=1, head_dim=16, d_ff=256, vocab_size=256,
-        mlp_type="gelu", attn_q_chunk=32, attn_kv_chunk=32,
+        mlp_type="gelu", attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

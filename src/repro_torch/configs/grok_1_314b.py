@@ -29,5 +29,5 @@ def smoke_config() -> ModelConfig:
         name="grok1-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256, mlp_type="swiglu",
         n_experts=4, top_k=2, moe_every=1, capacity_factor=2.0,
-        moe_group_size=64, attn_q_chunk=32, attn_kv_chunk=32,
+        moe_group_size=64, attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

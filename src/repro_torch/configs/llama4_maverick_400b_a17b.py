@@ -35,5 +35,5 @@ def smoke_config() -> ModelConfig:
         n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256, mlp_type="swiglu",
         n_experts=4, top_k=1, moe_every=2, n_shared_experts=1,
         capacity_factor=2.0, moe_group_size=64,
-        attn_q_chunk=32, attn_kv_chunk=32,
+        attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
         name="qwen32-smoke", family="dense", n_layers=4, d_model=64,
         n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
         mlp_type="swiglu", qkv_bias=True,
-        attn_q_chunk=32, attn_kv_chunk=32,
+        attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

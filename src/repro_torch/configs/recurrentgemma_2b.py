@@ -31,4 +31,5 @@ def smoke_config() -> ModelConfig:
         name="rgemma-smoke", family="griffin", n_layers=8, d_model=64,
         n_heads=4, n_kv_heads=1, head_dim=16, d_ff=128, vocab_size=256,
         mlp_type="swiglu", rnn_width=64, conv_width=4, local_window=32,
+        attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

@@ -27,5 +27,5 @@ def smoke_config() -> ModelConfig:
     return ModelConfig(
         name="xlstm-smoke", family="xlstm", n_layers=4, d_model=64,
         n_heads=4, n_kv_heads=4, head_dim=16, d_ff=0, vocab_size=256,
-        slstm_ratio=2, attn_q_chunk=32, attn_kv_chunk=32,
+        slstm_ratio=2, attn_q_chunk=32, attn_kv_chunk=32, loss_chunk=32,
     )

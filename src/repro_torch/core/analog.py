@@ -286,7 +286,10 @@ def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, 
     Falls back, as the reference does, without a mesh or at tp <= 1, for
     calibrated quantizers, a weight that is not 2-D, N not divisible by
     tp, a per-channel energy, or a backend that is not tiling-invariant
-    (``"torch"``); the fallback is the unsharded computation itself.
+    (``"torch"``); the fallback is the unsharded computation itself. On the
+    card it also falls back where a shard would take another route than
+    the whole call (``shard_keeps_route``: grok-1's 8-column router at tp
+    = 2 and 4), so the shards' sums run in the whole call's order.
     """
     mesh = active_mesh()
     if mesh is None or mesh.tp <= 1:
@@ -299,8 +302,11 @@ def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, 
     if backend not in TILING_INVARIANT:
         return None
     from repro_torch.kernels import ops
-    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw, shard_keeps_route
     from repro_torch.kernels.ref import analog_matmul_ref_raw
+
+    if backend == CUDA and not shard_keeps_route(w.shape[0], w.shape[1], tp, x.dtype):
+        return None
 
     if backend == CUDA:
         raw, kw = analog_matmul_raw, dict(plan_n=w.shape[1])

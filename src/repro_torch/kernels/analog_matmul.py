@@ -122,6 +122,15 @@ def _bf16_rows(k: int, n: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
 
 
+def shard_keeps_route(k: int, n: int, tp: int, dtype: torch.dtype) -> bool:
+    """Whether a column shard of ``n // tp`` columns takes the route of the
+    whole (K, N) call: a shard whose rows are no longer 16-byte multiples
+    would leave the decode, tc or weight route for simt, whose sums run in
+    another order, and the gathered shards would not be the whole call's
+    bits."""
+    return _bf16_rows(k, n, dtype) == _bf16_rows(k, n // tp, dtype)
+
+
 def select_route(b: int, m: int, k: int, n: int, dtype: torch.dtype, noise_kind: str,
                  quant_x: bool = False, quant_w: bool = False, quant_out: bool = False) -> str:
     """The route that computes a (b, m, k) @ (k, n) call on the card.

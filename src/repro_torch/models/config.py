@@ -1,6 +1,6 @@
 """Model configuration; port of ``repro/models/config.py`` (the fields the
-dense, griffin, xlstm and moe families read, with the reference's
-defaults)."""
+dense, griffin, xlstm and moe families and the train loss read, with the
+reference's defaults)."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +31,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    #: recompute each layer group's activations in the backward of the
+    #: train loss (``torch.utils.checkpoint``), as the reference's scan does
+    remat: bool = True
+    #: sequence positions a chunk of the cross-entropy (``chunked_xent``)
+    loss_chunk: int = 1024
 
     # --- MoE ---------------------------------------------------------------
     n_experts: int = 0

@@ -1,4 +1,5 @@
-"""Model layers: RMS norm, RoPE, attention and the SwiGLU and GELU MLPs.
+"""Model layers: RMS norm, RoPE, attention, the SwiGLU and GELU MLPs and
+the chunked cross-entropy.
 
 Port of the dense and windowed functions of ``repro/models/layers.py``.
 Attention is plain tensor code in float32, computed the way the reference
@@ -8,12 +9,15 @@ softmax for decode), with the KV heads grouped rather than expanded, so
 the numbers follow the reference rather than a fused library kernel.
 Attention runs one request at a time and norms sum in fixed stages
 (``repro_torch.reduce``), so a request's bits do not depend on its batch.
+Where a gradient is taken, prefill attention is the reference's flash
+attention with its two-pass recompute backward (``_FlashAttention``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.hooks import MatmulHook
 from repro_torch.reduce import row_norm, row_sum
@@ -79,10 +83,168 @@ def _chunk(n: int, chunk: int) -> int:
     return c if c >= min(chunk, n) // 8 else min(chunk, n)
 
 
+def _visible_blocks(t: int, s: int, qc: int, kc: int, window: Optional[int]):
+    """The (q-chunk x kv-chunk) blocks the causal and ``window`` masks leave
+    any pair in: ``[(q_lo, qn, [(k_lo, kn, partial), ...]), ...]`` per query
+    chunk, ``partial`` when the masks cut the block (else every pair in it
+    is visible). A skipped block leaves the online softmax as it is (p = 0,
+    correction 1) and adds zero to every gradient, so the numbers are the
+    same as over every block."""
+    out = []
+    for q_lo in range(0, t, qc):
+        qn = min(qc, t - q_lo)
+        q_hi = q_lo + qn - 1
+        ks = []
+        for k_lo in range(0, s, kc):
+            kn = min(kc, s - k_lo)
+            k_hi = k_lo + kn - 1
+            if k_lo > q_hi:
+                break  # this block and every later one are after every query
+            if window is not None and q_lo - k_hi >= window:
+                continue  # every key is a window or more behind every query
+            ks.append((k_lo, kn, k_hi > q_lo or (window is not None and q_hi - k_lo >= window)))
+        out.append((q_lo, qn, ks))
+    return out
+
+
+def _block_scores(qblk, kblk, q_lo, qn, k_lo, kn, partial, window, scale, shape):
+    """Scaled scores of one block, (B, KH, G, qn, kn), masked where the
+    block is ``partial``. qblk (B, KH, G*qn, D), kblk (B, KH, kn, D)."""
+    sc = torch.matmul(qblk, kblk.transpose(-1, -2)).view(shape).mul_(scale)
+    if partial:
+        dev = qblk.device
+        qp = torch.arange(q_lo, q_lo + qn, device=dev)[:, None]
+        kp = torch.arange(k_lo, k_lo + kn, device=dev)[None, :]
+        mask = qp >= kp
+        if window is not None:
+            mask &= (qp - kp) < window
+        sc.masked_fill_(~mask, NEG_INF)
+    return sc
+
+
+def _grouped(q, k, v):
+    """q (B, T, H, D) -> (B, KH, G, T, D); k, v (B, S, KH, D) -> (B, KH, S,
+    D); all float32: the block products are batched matmuls."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    q5 = q.reshape(b, t, kh, h // kh, d).permute(0, 2, 3, 1, 4).to(F32)
+    return q5, k.permute(0, 2, 1, 3).to(F32), v.permute(0, 2, 1, 3).to(F32)
+
+
+def _online_softmax(q, k, v, qc: int, kc: int, window: Optional[int]):
+    """The forward's blocks: per query chunk (q_lo, qn, normalised output
+    (B, KH, G, qn, D) f32, running max m and sum l (B, KH, G, qn))."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / (d**0.5)
+    q5, kt, vt = _grouped(q, k, v)
+    for q_lo, qn, ks in _visible_blocks(t, s, qc, kc, window):
+        m = torch.full((b, kh, g, qn), NEG_INF, dtype=F32, device=q.device)
+        l = torch.zeros((b, kh, g, qn), dtype=F32, device=q.device)
+        acc = torch.zeros((b, kh, g, qn, d), dtype=F32, device=q.device)
+        qblk = q5[:, :, :, q_lo:q_lo + qn].reshape(b, kh, g * qn, d)
+        for k_lo, kn, partial in ks:
+            sc = _block_scores(qblk, kt[:, :, k_lo:k_lo + kn], q_lo, qn, k_lo, kn, partial,
+                               window, scale, (b, kh, g, qn, kn))
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.matmul(p.view(b, kh, g * qn, kn), vt[:, :, k_lo:k_lo + kn])
+            acc = acc * corr[..., None] + pv.view(b, kh, g, qn, d)
+            m = m_new
+        yield q_lo, qn, acc / torch.clamp_min(l, 1e-30)[..., None], m, l
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Chunked causal attention with the reference's flash backward
+    (``_flash_attention``'s custom VJP): the forward is the serving
+    forward's block loop, the whole batch at once, and saves only (q, k,
+    v, out, lse); the backward recomputes each block's probabilities from
+    (q, k, lse) in two passes, dq over the KV blocks of each query chunk,
+    then dk and dv over the query chunks of each KV block. No tensor
+    larger than one block of scores is held, and the KV heads stay grouped
+    (their gradients sum over the G query heads of the group)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qc: int, kc: int, window: Optional[int]):
+        b, t, h, d = q.shape
+        kh = k.shape[2]
+        out = torch.empty((b, kh, h // kh, t, d), dtype=F32, device=q.device)
+        lse = torch.empty((b, kh, h // kh, t), dtype=F32, device=q.device)
+        for q_lo, qn, blk, m, l in _online_softmax(q, k, v, qc, kc, window):
+            out[:, :, :, q_lo:q_lo + qn] = blk
+            lse[..., q_lo:q_lo + qn] = m + torch.log(torch.clamp_min(l, 1e-30))
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (qc, kc, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        qc, kc, window = ctx.cfg
+        b, t, h, d = q.shape
+        s, kh = k.shape[1], k.shape[2]
+        g = h // kh
+        scale = 1.0 / (d**0.5)
+        q5, kt, vt = _grouped(q, k, v)
+        do5 = do.to(F32).reshape(b, t, kh, g, d).permute(0, 2, 3, 1, 4)
+        delta = torch.sum(do5 * out.reshape(b, t, kh, g, d).permute(0, 2, 3, 1, 4), dim=-1)
+        blocks = _visible_blocks(t, s, qc, kc, window)
+
+        def chunk(q_lo, qn):
+            rows = slice(q_lo, q_lo + qn)
+            return (q5[:, :, :, rows].reshape(b, kh, g * qn, d),
+                    do5[:, :, :, rows].reshape(b, kh, g * qn, d),
+                    lse[..., rows, None], delta[..., rows, None])
+
+        def probs(qblk, doblk, lse_c, dlt, q_lo, qn, k_lo, kn, partial):
+            """(p, ds) of one block, (B, KH, G*qn, kn)."""
+            shape = (b, kh, g, qn, kn)
+            sc = _block_scores(qblk, kt[:, :, k_lo:k_lo + kn], q_lo, qn, k_lo, kn, partial,
+                               window, scale, shape)
+            p = torch.exp(sc - lse_c)
+            dp = torch.matmul(doblk, vt[:, :, k_lo:k_lo + kn].transpose(-1, -2)).view(shape)
+            ds = p * (dp - dlt)
+            return p.view(b, kh, g * qn, kn), ds.view(b, kh, g * qn, kn)
+
+        # pass 1: dq, query chunk by query chunk
+        dq = torch.empty((b, kh, g, t, d), dtype=F32, device=q.device)
+        for q_lo, qn, ks in blocks:
+            qblk, doblk, lse_c, dlt = chunk(q_lo, qn)
+            acc = torch.zeros((b, kh, g * qn, d), dtype=F32, device=q.device)
+            for k_lo, kn, partial in ks:
+                _, ds = probs(qblk, doblk, lse_c, dlt, q_lo, qn, k_lo, kn, partial)
+                acc = acc + torch.matmul(ds, kt[:, :, k_lo:k_lo + kn]) * scale
+            dq[:, :, :, q_lo:q_lo + qn] = acc.view(b, kh, g, qn, d)
+        # pass 2: dk and dv, KV block by KV block
+        dk = torch.zeros((b, kh, s, d), dtype=F32, device=q.device)
+        dv = torch.zeros((b, kh, s, d), dtype=F32, device=q.device)
+        by_kv = {}
+        for q_lo, qn, ks in blocks:
+            for k_lo, kn, partial in ks:
+                by_kv.setdefault((k_lo, kn), []).append((q_lo, qn, partial))
+        for (k_lo, kn), qs in sorted(by_kv.items()):
+            dk_c = torch.zeros((b, kh, kn, d), dtype=F32, device=q.device)
+            dv_c = torch.zeros((b, kh, kn, d), dtype=F32, device=q.device)
+            for q_lo, qn, partial in qs:
+                qblk, doblk, lse_c, dlt = chunk(q_lo, qn)
+                p, ds = probs(qblk, doblk, lse_c, dlt, q_lo, qn, k_lo, kn, partial)
+                dv_c = dv_c + torch.matmul(p.transpose(-1, -2), doblk)
+                dk_c = dk_c + torch.matmul(ds.transpose(-1, -2), qblk) * scale
+            dk[:, :, k_lo:k_lo + kn] = dk_c
+            dv[:, :, k_lo:k_lo + kn] = dv_c
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+        return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+                dv.permute(0, 2, 1, 3).to(v.dtype), None, None, None)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_chunk: int,
                       kv_chunk: int, window: Optional[int] = None) -> torch.Tensor:
     """Causal prefill attention in (q-chunk x kv-chunk) blocks with an
-    online softmax: the forward of the reference's ``chunked_attention``.
+    online softmax: the reference's ``chunked_attention``.
 
     q: (B, T, H, D); k/v: (B, S, KH, D), grouped (not expanded to the query
     heads): queries run as (B, T, KH, G, D). The chunks are the largest
@@ -95,51 +257,21 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_ch
     resets it at the first visible block (correction 0), so the numbers are
     the same. No tensor larger than one (B, KH, G, q-chunk, kv-chunk) block
     of scores is built.
+
+    Without a gradient to take (serving) each request runs alone, so its
+    bits do not depend on its batch. When q, k or v requires grad the
+    whole batch runs through ``_FlashAttention``, whose backward is the
+    reference's two recompute passes.
     """
     b, t, h, d = q.shape
+    qc, kc = _chunk(t, q_chunk), _chunk(k.shape[1], kv_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, qc, kc, window).to(q.dtype)
     if b > 1:
         return _per_request(chunked_attention, q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
                             window=window)
-    s, kh = k.shape[1], k.shape[2]
-    g = h // kh
-    qc, kc = _chunk(t, q_chunk), _chunk(s, kv_chunk)
-    scale = 1.0 / (d**0.5)
-    # (B, KH, G, T, D) and (B, KH, S, D): the block products are batched matmuls
-    q5 = q.reshape(b, t, kh, g, d).permute(0, 2, 3, 1, 4).to(F32)
-    kt, vt = k.permute(0, 2, 1, 3).to(F32), v.permute(0, 2, 1, 3).to(F32)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    for q_lo in range(0, t, qc):
-        qn = min(qc, t - q_lo)
-        q_hi = q_lo + qn - 1
-        qp = torch.arange(q_lo, q_lo + qn, device=q.device)[:, None]
-        m = torch.full((b, kh, g, qn), NEG_INF, dtype=F32, device=q.device)
-        l = torch.zeros((b, kh, g, qn), dtype=F32, device=q.device)
-        acc = torch.zeros((b, kh, g, qn, d), dtype=F32, device=q.device)
-        qblk = q5[:, :, :, q_lo:q_lo + qn].reshape(b, kh, g * qn, d)
-        for k_lo in range(0, s, kc):
-            kn = min(kc, s - k_lo)
-            k_hi = k_lo + kn - 1
-            if k_lo > q_hi:
-                break  # this block and every later one are after every query
-            if window is not None and q_lo - k_hi >= window:
-                continue  # every key is a window or more behind every query
-            sc = torch.matmul(qblk, kt[:, :, k_lo:k_lo + kn].transpose(-1, -2))
-            sc = sc.view(b, kh, g, qn, kn).mul_(scale)
-            if k_hi > q_lo or (window is not None and q_hi - k_lo >= window):
-                kp = torch.arange(k_lo, k_lo + kn, device=q.device)[None, :]
-                mask = qp >= kp
-                if window is not None:
-                    mask &= (qp - kp) < window
-                sc.masked_fill_(~mask, NEG_INF)
-            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
-            # not in place: amax's backward reads sc
-            p = torch.exp(sc - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            pv = torch.matmul(p.view(b, kh, g * qn, kn), vt[:, :, k_lo:k_lo + kn])
-            acc = acc * corr[..., None] + pv.view(b, kh, g, qn, d)
-            m = m_new
-        blk = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B, KH, G, qn, D)
+    for q_lo, qn, blk, _m, _l in _online_softmax(q, k, v, qc, kc, window):
         out[:, q_lo:q_lo + qn] = blk.permute(0, 3, 1, 2, 4).reshape(b, qn, h, d).to(q.dtype)
     return out
 
@@ -237,3 +369,48 @@ def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
     if "b_out" in p:
         y = y + p["b_out"].to(y.dtype)
     return y
+
+
+def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *, chunk: int,
+                 vocab: int, n_codebooks: int = 1, hook: Optional[MatmulHook] = None,
+                 ignore_label: int = -1) -> torch.Tensor:
+    """Mean token NLL without materialising (B, T, V) logits; port of the
+    reference's ``chunked_xent``.
+
+    h: (B, T, d); lm_head: (d, n_codebooks * vocab_padded), the pad
+    columns beyond ``vocab`` masked out of the logsumexp; labels (B, T) or
+    (B, T, n_codebooks), ``ignore_label`` entries counted in neither the
+    sum nor the mean. The sequence runs in chunks of the largest divisor
+    of T not above ``chunk``; each chunk's logits (``hook("lm_head", ...)``,
+    float32) are recomputed in the backward (``torch.utils.checkpoint``),
+    so no chunk's logits outlive its forward.
+    """
+    b, t, _ = h.shape
+    hook = hook or MatmulHook()
+    chunk = _divisor_chunk(t, chunk)
+    vocab_padded = lm_head.shape[-1] // n_codebooks
+    if labels.dim() == 2:
+        labels = labels[..., None]
+
+    def chunk_nll(hc, lc):
+        logits = hook("lm_head", hc, lm_head).to(F32)
+        logits = logits.reshape(b, chunk, n_codebooks, vocab_padded)
+        if vocab_padded != vocab:
+            pad = torch.arange(vocab_padded, device=logits.device) < vocab
+            logits = logits.masked_fill(~pad, NEG_INF)
+        logz = torch.logsumexp(logits, dim=-1)
+        lbl = torch.clamp(lc, 0, vocab - 1).long()
+        gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+        mask = (lc != ignore_label).to(F32)
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    tot = torch.zeros((), dtype=F32, device=h.device)
+    cnt = torch.zeros((), dtype=F32, device=h.device)
+    for lo in range(0, t, chunk):
+        hc, lc = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if torch.is_grad_enabled() and hc.requires_grad:
+            t_, c_ = torch.utils.checkpoint.checkpoint(chunk_nll, hc, lc, use_reentrant=False)
+        else:
+            t_, c_ = chunk_nll(hc, lc)
+        tot, cnt = tot + t_, cnt + c_
+    return tot / torch.clamp_min(cnt, 1.0)

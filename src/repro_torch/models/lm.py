@@ -1,4 +1,5 @@
-"""Language model; port of ``repro/models/lm.py`` (every family, the forward).
+"""Language model; port of ``repro/models/lm.py`` (every family: the forward;
+the dense family: the train loss).
 
 Families:
 
@@ -35,7 +36,8 @@ of the forward's seed table (``core.analog.site_seed_table``: the whole
 (groups, sites, requests) key chain is folded on the host and copied to
 the card once per forward; the MoE expert sites' batch-level keys come
 from ``core.analog.expert_seed_table``). The ``lm_head`` stays a digital
-matmul (the transposed embedding under ``tie_embeddings``). Under a
+matmul (the transposed embedding under ``tie_embeddings``), except in the
+analog train loss (``train_loss``), where it is a site of its own. Under a
 ``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
 ``energy_macs`` and ``profile_token_energy`` price that schedule.
 
@@ -52,8 +54,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.core.analog import AnalogConfig, expert_seed_table, site_seed_table
+from repro_torch.core.analog import (
+    AnalogConfig,
+    expert_seed_table,
+    fold_key,
+    key_seed,
+    site_key,
+    site_seed_table,
+)
 from repro_torch.core.energy import apply_repeats, total_energy
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.device import resolve_device
@@ -61,10 +71,11 @@ from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.hooks import MatmulHook, PrefixHook, hook_for_layer
+from repro_torch.models.hooks import AnalogHook, MatmulHook, PrefixHook, hook_for_layer
 from repro_torch.models.layers import (
     apply_rope,
     chunked_attention,
+    chunked_xent,
     decode_attention,
     local_attention,
     mlp,
@@ -745,8 +756,13 @@ def drifted_energies(energies, noise_scale: torch.Tensor):
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
-               analog: Optional[AnalogSpec], lengths=None, hook: Optional[MatmulHook] = None):
+               analog: Optional[AnalogSpec], lengths=None, hook: Optional[MatmulHook] = None,
+               remat: bool = False):
     """The layer groups, then griffin's tail layers.
+
+    ``remat``: each layer group runs under ``torch.utils.checkpoint``
+    (non-reentrant), its activations recomputed in the backward, as the
+    reference's train-mode scan body is (``cfg.remat``).
 
     ``hook``: the matmul hook of a digital forward (``analog`` None),
     ``MatmulHook`` by default; the serving tiers pass their own. A tree of
@@ -815,13 +831,13 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     # int8 serving: the int8 tree stays resident, each bf16 layer is transient
     deq = dequantize_params if isinstance(params, Int8Params) else (lambda tree: tree)
     gcache = None if cache is None else cache["groups"]
-    for gi in range(g):
+
+    def group(h, gi):
         gp = deq(map_leaves(lambda _p, a: a[gi], params["blocks"]))
         layer_hooks = hooks("groups", gi, sites, table, rows[gi])
         if cfg.family == "xlstm":
             lc = None if gcache is None else {k: v[gi] for k, v in gcache.items()}
-            h = _xlstm_group(h, gp, cfg, layer_hooks, mode=mode, cache=lc, pad_mask=pad_mask)
-            continue
+            return _xlstm_group(h, gp, cfg, layer_hooks, mode=mode, cache=lc, pad_mask=pad_mask)
         for i, kind in enumerate(_kinds(cfg)):
             hook = layer_hooks[i]
             if gcache is None:
@@ -841,6 +857,13 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
             h = _sublayer(h, cfg, hook, i, kind, gp[f"ln1_{i}"], gp[f"ln2_{i}"], mix, ffn,
                           rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
                           lengths=lengths)
+        return h
+
+    for gi in range(g):
+        if remat:  # the group's activations are recomputed in the backward
+            h = torch.utils.checkpoint.checkpoint(group, h, gi, use_reentrant=False)
+        else:
+            h = group(h, gi)
     for j in range(tail):
         tp = deq(map_leaves(lambda _p, a: a[j], params["tail"]))
         (hook,) = hooks("tail", j, TAIL_SITES, tail_table, (tail_ks[j],))
@@ -872,14 +895,15 @@ def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_hidden(params, h, cfg: ModelConfig, *, cache=None, analog=None, lengths=None,
-                   hook=None):
+                   hook=None, remat: bool = False):
     """Prefill trunk: embedded inputs h (B, T, d) (``_embed_inputs``) ->
     normed hidden (B, T, d); writes every leaf of ``cache``, or keeps no
     cache when it is None (the reference's ``mode="train"`` forward, which
-    calibration differentiates). ``hook``: a digital forward's matmul hook."""
+    calibration and the train loss differentiate). ``hook``: a digital
+    forward's matmul hook; ``remat``: as in ``_run_stack``."""
     positions = torch.arange(h.shape[1], device=h.device)
     h = _run_stack(params, h, cfg, mode="prefill", cache=cache, pos=None,
-                   positions=positions, analog=analog, lengths=lengths, hook=hook)
+                   positions=positions, analog=analog, lengths=lengths, hook=hook, remat=remat)
     return rms_norm(h, params["final_ln"], cfg.norm_eps)
 
 
@@ -895,6 +919,38 @@ def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
         return params["embed"].T
     head = params["lm_head"]
     return dequantize_weight(head) if isinstance(head, Int8Weight) else head
+
+
+#: the reference's fold of the analog key for the lm_head of the train loss
+LM_HEAD_FOLD = 0x1A57
+
+
+def train_loss(params, batch, cfg: ModelConfig, analog: Optional[AnalogSpec] = None
+               ) -> torch.Tensor:
+    """Mean next-token NLL of a batch (``{"tokens", "labels"}``, or the
+    frontend's inputs with ``"labels"``): the cache-free forward
+    (``hidden``'s), each layer group recomputed in the backward when
+    ``cfg.remat``, then ``chunked_xent`` over the lm_head. Under
+    ``analog`` the lm_head is an analog site too, at ``analog.energies
+    ["lm_head"]`` with the key ``fold_key(analog.key, 0x1A57)``, as in the
+    reference. The dense family; the train-mode forwards of griffin, xlstm
+    and moe are not ported yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"train_loss of the {cfg.family} family is not ported (ROADMAP A: training of the "
+            "griffin, xlstm and moe families)")
+    batch = _as_batch(batch)
+    h = forward_hidden(params, _embed_inputs(params, batch, cfg), cfg, analog=analog,
+                       remat=cfg.remat)
+    hook = MatmulHook()
+    if analog is not None:
+        dev = "cpu" if analog.cfg.backend == "torch" else h.device
+        seed = key_seed(site_key(fold_key(analog.key, LM_HEAD_FOLD), "lm_head"), dev)
+        hook = AnalogHook(cfg=analog.cfg, energies={"lm_head": analog.energies["lm_head"]},
+                          seeds={"lm_head": seed}, rows_per_key=analog.rows_per_key,
+                          noise_scale=analog.noise_scale)
+    return chunked_xent(h, _lm_head(params, cfg), batch["labels"], chunk=cfg.loss_chunk,
+                        vocab=cfg.vocab_size, n_codebooks=cfg.n_codebooks, hook=hook)
 
 
 def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -46,29 +46,76 @@ def adam_init(params: Tree, cfg: AdamConfig) -> AdamState:
                      nu=map_leaves(zeros, params))
 
 
+def _bias_corrections(step: torch.Tensor, cfg: AdamConfig) -> tuple:
+    """``1 - b ** step`` for b1 and b2 in float32, as Python numbers (on
+    the host: no copy to the parameters' device)."""
+    c1 = float(1.0 - torch.tensor(cfg.b1, dtype=F32) ** step.to(F32))
+    c2 = float(1.0 - torch.tensor(cfg.b2, dtype=F32) ** step.to(F32))
+    return c1, c2
+
+
+def _update(g, m, v, p, c1: float, c2: float, cfg: AdamConfig):
+    """One leaf's (or slice's) update in float32: (new p, m, v), each in
+    its storage dtype."""
+    g32 = g.to(F32)
+    m32 = m.to(F32) * cfg.b1 + (1 - cfg.b1) * g32
+    v32 = v.to(F32) * cfg.b2 + (1 - cfg.b2) * g32 * g32
+    mhat = m32 / c1
+    vhat = v32 / c2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+    if cfg.weight_decay:
+        delta = delta + cfg.weight_decay * p.to(F32)
+    newp = p.to(F32) - cfg.lr * delta
+    return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+
 @torch.no_grad()
 def adam_update(grads: Tree, state: AdamState, params: Tree,
                 cfg: AdamConfig) -> tuple[Tree, AdamState]:
     """Returns (new_params, new_state). Decoupled weight decay (AdamW)."""
     step = state.step + 1
-    b1, b2 = cfg.b1, cfg.b2
-    # bias corrections in float32 on the host, as Python numbers (no copy
-    # to the parameters' device)
-    c1 = float(1.0 - torch.tensor(b1, dtype=F32) ** step.to(F32))
-    c2 = float(1.0 - torch.tensor(b2, dtype=F32) ** step.to(F32))
-
-    def upd(_path, g, m, v, p):
-        g32 = g.to(F32)
-        m32 = m.to(F32) * b1 + (1 - b1) * g32
-        v32 = v.to(F32) * b2 + (1 - b2) * g32 * g32
-        mhat = m32 / c1
-        vhat = v32 / c2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.to(F32)
-        newp = p.to(F32) - cfg.lr * delta
-        return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
-
-    out = map_leaves(upd, grads, state.mu, state.nu, params)
+    c1, c2 = _bias_corrections(step, cfg)
+    out = map_leaves(lambda _p, g, m, v, p: _update(g, m, v, p, c1, c2, cfg),
+                     grads, state.mu, state.nu, params)
     pick = lambda i: map_leaves(lambda _p, o: o[i], out)  # noqa: E731
     return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2))
+
+
+#: elements of a leaf taken at once by ``adam_update_`` (and
+#: ``clip.global_norm``): a larger leaf goes in slices along its leading
+#: axis, bounding the float32 temporaries (about eight copies of a slice)
+#: whatever the leaf's size
+SLICE_ELEMS = 1 << 25
+
+
+def leading_slices(t: torch.Tensor):
+    """Index tuples covering ``t`` in slices of its leading axis of at most
+    ``SLICE_ELEMS`` elements (one row at least; ``()`` for a 0-d tensor)."""
+    if t.dim() == 0:
+        return [()]
+    rows = t.shape[0]
+    per = max(1, SLICE_ELEMS // max(1, t.numel() // max(rows, 1)))
+    return [(slice(lo, lo + per),) for lo in range(0, rows, per)]
+
+
+@torch.no_grad()
+def adam_update_(grads: Tree, state: AdamState, params: Tree, cfg: AdamConfig,
+                 grad_scale: Optional[torch.Tensor] = None) -> tuple[Tree, AdamState]:
+    """``adam_update`` in place: the parameters and moments are overwritten
+    (the reference's train step donates them) and returned with the new
+    step. A leaf goes in ``leading_slices``; the update is elementwise, so
+    the bits are ``adam_update``'s. ``grad_scale``: a global-norm clip's
+    scale, applied to each slice of the gradient as
+    ``clip_by_global_norm`` applies it (float32 product, cast back)."""
+    step = state.step + 1
+    c1, c2 = _bias_corrections(step, cfg)
+
+    def upd(_path, g, m, v, p):
+        for sl in leading_slices(p):
+            gs = g[sl] if grad_scale is None else (g[sl].to(F32) * grad_scale).to(g.dtype)
+            new = _update(gs, m[sl], v[sl], p[sl], c1, c2, cfg)
+            for dst, src in zip((p, m, v), new):
+                dst[sl] = src
+
+    map_leaves(upd, grads, state.mu, state.nu, params)
+    return params, AdamState(step=step, mu=state.mu, nu=state.nu)

@@ -669,11 +669,6 @@ class ServingEngine:
             raise ValueError(
                 f"cannot attach/resize a mesh with {self.n_in_flight} requests in flight "
                 "(their decode state belongs to the current mesh); drain with flush() first")
-        if mesh is not None and self.model_cfg.family in ("moe", "xlstm"):
-            raise NotImplementedError(
-                f"tensor-parallel serving of the {self.model_cfg.family} family is not ported "
-                "(ROADMAP A.6 left moe and xlstm under a mesh for later); serve it without "
-                "a mesh")
         self._mesh = mesh
         self._pools.clear()  # rebuilt lazily under the new mesh
 

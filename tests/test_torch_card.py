@@ -280,3 +280,47 @@ def test_digital_hook_same_bits_alone_as_in_a_batch_on_card(cuda_device):
         assert float((batched.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
         for i in range(4):
             assert torch.equal(hook("mlp0_up", x[i:i + 1], w)[0], batched[i]), (t, i)
+
+
+@pytest.mark.cuda
+def test_attention_backward_and_train_step_on_card(cuda_device):
+    """The flash-attention Function's dq, dk, dv against autograd through a
+    plain masked-softmax attention (f32, TF32 off, within 1e-4 max|g|),
+    and two train steps of granite3-smoke from the same state giving the
+    same bits (what the driver's bit-exact restart needs)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.models import layers, lm
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    b, t, h, kh, d = 2, 96, 4, 2, 32
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+                   for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d), (b, t, h, d)))
+    q, k, v = (a.requires_grad_() for a in (q, k, v))
+    got = torch.autograd.grad(layers.chunked_attention(q, k, v, q_chunk=32, kv_chunk=32),
+                              (q, k, v), do)
+    q5 = q.reshape(b, t, kh, h // kh, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", q5, k) / d**0.5
+    mask = torch.ones((t, t), dtype=torch.bool, device=cuda_device).tril()
+    plain = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc.masked_fill(~mask, -1e30), -1),
+                         v).reshape(b, t, h, d)
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+    cfg = get_smoke_config("granite-3-8b")
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=3)
+    tcfg = TrainConfig()
+    runs = []
+    for _ in range(2):
+        params = lm.init_params(cfg, seed=0, device=cuda_device)
+        opt = make_opt_init(cfg, None, tcfg)(params)
+        step = make_train_step(cfg, None, tcfg)
+        for i in range(2):
+            params, opt, metrics = step(params, opt, markov_batch(data, i))
+        assert torch.isfinite(metrics["loss"])
+        runs.append(leaves(params))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*runs))

@@ -14,12 +14,14 @@ it computes exactly its tile of the unsharded stream. Held here:
   * ``analog_dot`` under a local mesh at tp = 2 and 4 equals the unsharded
     call bit for bit, and each reference fallback (N % tp, calibrated
     quantizers, a per-channel energy, the "torch" backend) is the
-    unsharded result; the decode and weight launch plans of a shard split
+    unsharded result, as is the port's own on the card (a shard that would
+    change route); the decode and weight launch plans of a shard split
     K as the whole call does;
   * engine tokens at tp = 2 and 4 equal the unsharded oracle for the
     reference's DENSE and GRIFFIN configs under the non-uniform profile,
     batch-synchronous and pooled; ``attach_mesh`` refuses in flight and
-    detaches; moe and xlstm under a mesh raise;
+    detaches; the moe and xlstm smoke configs' tokens at tp = 2 and 4 equal
+    the unsharded engine's, whose tokens equal the reference engine's;
   * a distributed mesh of 2 gloo ranks on the CPU (one shard a rank,
     ``all_gather``), each rank's tokens equal to the oracle.
 
@@ -28,6 +30,7 @@ sum in another order than the whole (seen at (4, 4096) @ (4096, 1024) with
 8 threads), and the bit-for-bit checks are of the sharding, not of the
 CPU GEMM's threading.
 """
+import dataclasses
 import json
 import os
 import socket
@@ -41,11 +44,14 @@ torch = pytest.importorskip("torch")
 # one thread: see the docstring (and xdist's workers share the cores)
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_smoke_config as jsmoke  # noqa: E402
 from repro.core.analog import AnalogConfig as JAnalogConfig  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import prng as jprng  # noqa: E402
+from repro.serving.engine import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.analog import AnalogConfig, SiteQuant, analog_dot, key_seed  # noqa: E402
@@ -214,6 +220,23 @@ def test_fallbacks_equal_unsharded(case, monkeypatch):
     assert torch.equal(got, want), name
 
 
+def test_a_shard_that_would_change_route_runs_whole():
+    """On the card a shard narrower than a 16-byte row would take simt
+    where the whole call takes decode or tc (grok-1's 8-column router at
+    tp = 2, 4): such a site falls back to the whole call."""
+    from repro_torch.core import analog as core_analog
+
+    bf = torch.bfloat16
+    assert am.shard_keeps_route(4096, 1024, 4, bf) and am.shard_keeps_route(6144, 8, 1, bf)
+    assert not am.shard_keeps_route(6144, 8, 2, bf) and not am.shard_keeps_route(6144, 8, 4, bf)
+    assert am.shard_keeps_route(64, 12, 2, bf) and am.shard_keeps_route(64, 8, 4, torch.float32)
+    x, w = torch.zeros((1, 2, 64), dtype=bf), torch.zeros((64, 8), dtype=bf)
+    with use_mesh(make_mesh_for_devices(2)):
+        assert core_analog._maybe_sharded_analog_dot(
+            x, w, backend="cuda", cfg=AnalogConfig.shot(), energy=torch.tensor(1.0),
+            seed=torch.zeros(4, dtype=torch.int32), sq=None, n_repeats=1) is None
+
+
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("k,n", [(4096, 12800), (4096, 4096), (12800, 4096), (4096, 1024),
                                  (2560, 256), (2560, 7680)])
@@ -317,11 +340,86 @@ def test_attach_mesh_refuses_in_flight_and_detaches():
     assert eng.mesh is None
 
 
+#: the moe and xlstm smoke configs at float32 (the reference engine's
+#: tokens are compared at float32, as tests/test_torch_moe.py does)
+FAMILIES = {arch: dataclasses.replace(get_smoke_config(arch), dtype="float32")
+            for arch in ("grok-1-314b", "xlstm-1.3b")}
+_FAMILY_TOKENS = {}
+
+
+def _family_tokens(arch, mesh=None, reference=False):
+    """Four requests at K = 2 with explicit keys (two batches of two: one
+    prefill and one decode shape, which the reference compiles once each)
+    through the port's engine, or the reference's (``reference``), on the
+    numpy weights of ``_env``; {i: tokens}."""
+    cfg = FAMILIES[arch]
+    env = _env(cfg)
+    kw = dict(max_gen=4, max_batch=2, max_wait=0.0, batch_buckets=(2,), seq_buckets=(SB,),
+              k_ladder=(2,))
+    if reference:
+        jcfg = dataclasses.replace(jsmoke(arch), dtype="float32")
+        to_np = lambda tree: {k: to_np(v) if isinstance(v, dict) else _np(v)  # noqa: E731
+                              for k, v in tree.items()}
+        eng = JServingEngine(jax_tree(to_np(env["params"])), jcfg,
+                             analog_cfg=JAnalogConfig.shot(backend="tile"),
+                             energies=jax_tree(to_np(env["energies"])), **kw)
+        fold = lambda i: jax.random.fold_in(jax.random.PRNGKey(0), 100 + i)  # noqa: E731
+    else:
+        eng = ServingEngine(env["params"], cfg, analog_cfg=AnalogConfig.shot(backend="tile"),
+                            energies=env["energies"], mesh=mesh, device="cpu", **kw)
+        fold = lambda i: prng.fold_in(prng.PRNGKey(0), 100 + i)  # noqa: E731
+    rng = np.random.default_rng(7)
+    uids = {}
+    for i in range(4):
+        prompt = rng.integers(0, cfg.vocab_size, 6 + 3 * i).astype(np.int32)
+        uids[i] = eng.submit(prompt, n_repeats=2, max_new_tokens=3, key=fold(i))
+    results = eng.flush()
+    return {i: np.asarray(results[u]).tolist() for i, u in uids.items()}
+
+
+def jax_tree(tree):
+    return {k: jax_tree(v) if isinstance(v, dict) else jnp.asarray(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_family_tokens_under_a_mesh_equal_unsharded(arch, tp):
+    """moe (every expert site one column-split analog_dot an expert: the
+    batch-level expert stream, shard by shard) and xlstm (the shared
+    mLSTM stream): tokens at tp equal the unsharded engine's bit for bit,
+    every analog site sharded."""
+    if arch not in _FAMILY_TOKENS:
+        _FAMILY_TOKENS[arch] = _family_tokens(arch)
+    calls = []
+    real = ops.analog_matmul_shards
+    try:
+        ops.analog_matmul_shards = lambda *a, **k: calls.append(k["tp"]) or real(*a, **k)
+        sharded = _family_tokens(arch, make_mesh_for_devices(tp))
+    finally:
+        ops.analog_matmul_shards = real
+    assert calls and set(calls) == {tp}
+    assert sharded == _FAMILY_TOKENS[arch]
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_family_unsharded_tokens_equal_reference(arch):
+    if arch not in _FAMILY_TOKENS:
+        _FAMILY_TOKENS[arch] = _family_tokens(arch)
+    assert _FAMILY_TOKENS[arch] == _family_tokens(arch, reference=True)
+
+
 @pytest.mark.parametrize("arch", ["grok-1-314b", "xlstm-1.3b"])
 def test_moe_and_xlstm_under_a_mesh_raise(arch):
+    """The refusal this test once held is gone: an engine of either family
+    takes a mesh, at construction and through ``attach_mesh``, and
+    detaches (its tokens: ``test_family_tokens_under_a_mesh_equal_unsharded``)."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine({}, cfg, mesh=make_mesh_for_devices(2), device="cpu")
+    eng = ServingEngine({}, cfg, mesh=make_mesh_for_devices(2), device="cpu")
+    assert eng.mesh.tp == 2
+    eng.attach_mesh(make_mesh_for_devices(4))
+    assert eng.mesh.tp == 4
+    eng.attach_mesh(None)
+    assert eng.mesh is None
 
 
 def test_mesh_shapes():
