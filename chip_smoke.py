@@ -53,6 +53,19 @@ against batched, ms a decode step, energy a token). Before the serves,
 recurrentgemma-2b's site shapes to their slices of the unsharded call,
 bit for bit. Every engine of a phase that injects no fault must contain
 none (``exe_errors``, ``exe_faults``, ``failed``, ``timed_out`` all 0).
+Every engine on the "cuda" backend serves through its executable cache,
+each step a CUDA graph captured at its first call and replayed after;
+each phase prints its engines' cache hits, misses and captures. On the
+same weights ``graphs`` holds the captured steps against the eager ones:
+the first batch of each tier through ``tier.build_prefill`` /
+``build_decode`` against ``tier.prefill`` / ``decode``, logits bit for bit
+over a prefill and 15 decode steps with the noise scale switched between
+two of them, decode ms a step, device ms and the idle share, prefill ms
+and peak memory, graphs against eager (recurrentgemma-2b and granite-20b
+at K=1 too, with their weights: ``graphs_griffin``, ``graphs_granite20``);
+and the engine's 8 prompts synchronously and through pools, cold then
+warm (no miss, 2 hits a batch synchronously, the same tokens), a noise
+scale served warm with no miss, a request alone equal to its batch.
 Then it frees granite's
 weights and serves recurrentgemma-2b (griffin: RG-LRU and local
 attention, 26 layers, 200 analog sites a forward) at full width and depth
@@ -71,7 +84,7 @@ configuration's weights at a time: granite-20b (GELU with biases, MQA;
 ``serve_granite20``) and qwen2.5-14b (QKV bias; ``serve_qwen14``) through
 the same serve, solo and whole-path checks, launches by route and by site
 shape asserted; granite-20b's 12,000-token prompt in a 16,384 bucket
-through chunked prefill attention at 26 of its 52 layers, with its peak
+through chunked prefill attention at 13 of its 52 layers, with its peak
 memory (``granite20_long``);
 qwen2.5-32b at the deepest depth its weights fit beside the reckoned
 transients (``qwen32_fit``: a prefill and four decode steps); bert-base's
@@ -92,7 +105,7 @@ depth (``serve_xlstm``: the serve, a request alone against its batch, the
 whole path kernels against plain block by block (at the logits random
 weights make float order alone O(1)), and the eight prompts at K=1 and
 K=4 through 4-slot pools against batch-synchronous batches;
-``xlstm_long``, at 24 of its 48 layers: a 2,048-token prompt whose chunk
+``xlstm_long``, at 16 of its 48 layers: a 2,048-token prompt whose chunk
 scan carries the state across 4 chunks, its blocks against the plain
 path and, in float32, each decode step against a cache-free prefill);
 grok-1 at 4 of its 64 layers,
@@ -173,6 +186,9 @@ LOGIT_REL_TOL = 5e-2
 #: reading beside every check.
 GRIFFIN_LOGIT_REL_TOL = 1e-1
 SERVE_MAX_GEN = 16
+#: tokens a request the whole-path checks serve on the plain backend (its
+#: eager steps are the run's slowest)
+WHOLE_PATH_GEN = 4
 WEIGHT_SERVE_GEN = 4
 #: rows a request of the weight-noise serve's prefill (its prompts fit the
 #: 32 bucket)
@@ -197,10 +213,10 @@ LONG_PROMPT, LONG_BUCKET, LONG_GEN = 3000, 4096, 8
 #: granite-20b's long prompt: 12,000 tokens in a 16,384 bucket, 4 new tokens
 #: (global attention: one (B, H, T, T) f32 score tensor would be 51.5 GB)
 DENSE_LONG_PROMPT, DENSE_LONG_BUCKET, DENSE_LONG_GEN = 12000, 16384, 4
-#: ... at 26 of granite-20b's 52 layers (the first 26 of its own weights'
+#: ... at 13 of granite-20b's 52 layers (the first 13 of its own weights'
 #: depth; cut to keep the whole run inside its time: each of the phase's
 #: nine 12,000-token prefills costs ~0.24 s a layer)
-DENSE_LONG_LAYERS = 26
+DENSE_LONG_LAYERS = 13
 #: qwen2.5-32b's fit: decode steps after the 4 x 64 prefill, and what the
 #: reckoning holds back besides the weights: init_params' f32 scratch for the
 #: largest leaf drawn whole (the 5120 x 152,064 lm_head, 3.1 GB) and 4 GB for
@@ -226,9 +242,9 @@ GRAD_CHECK_REL = 1e-3
 #: xlstm-1.3b's long prompt (one bucket of its length: 4 chunks of 512 carry
 #: the recurrent state) and its new tokens
 XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 2048, 4
-#: ... at 24 of xlstm-1.3b's 48 layers (cut to keep the whole run inside its
-#: time)
-XLSTM_LONG_LAYERS = 24
+#: ... at 16 of xlstm-1.3b's 48 layers, two of its groups (cut to keep the
+#: whole run inside its time)
+XLSTM_LONG_LAYERS = 16
 #: the MoE models' depths: grok-1 at 4 of its 64 layers, llama4-maverick at
 #: 2 of its 48 (one dense and one MoE layer); full depth does not fit one card
 GROK_LAYERS, LLAMA4_LAYERS = 4, 2
@@ -244,9 +260,10 @@ MOE_STEPS = 4
 #: route: another float order.)
 PAD_COUNT_CF = 6.0
 PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "sweep", "serve",
-          "serve_weight", "profile", "continuous", "resilience", "tp", "int8", "serve_griffin",
-          "griffin_long",
+          "serve_weight", "profile", "continuous", "resilience", "graphs", "tp", "int8",
+          "serve_griffin", "griffin_long", "graphs_griffin",
           "griffin_profile", "griffin_continuous", "serve_granite20", "granite20_long",
+          "graphs_granite20",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
           "calibrate_lm", "train_driver")
@@ -256,6 +273,8 @@ SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 GRIFFIN_FOLLOWERS = ("griffin_long", "griffin_profile", "griffin_continuous")
 #: phases that ``serve_granite20`` runs after its own (granite-20b's weights)
 GRANITE20_FOLLOWERS = ("granite20_long",)
+#: phases that ``graphs`` runs on the other models' weights
+GRAPHS_FOLLOWERS = ("graphs_griffin", "graphs_granite20")
 #: phases that ``serve_bert`` runs after its own (bert-base's weights); search
 #: starts from what calibrate learned
 BERT_FOLLOWERS = ("calibrate", "search")
@@ -275,10 +294,10 @@ REPLACES = "src/repro/kernels/analog_matmul.py:208"
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
 TP_PATHS = ("tp", "tp_griffin", "tp_xlstm", "tp_grok")
-MAIN_PATHS = {"decode": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
-              + FAMILY_PATHS + TP_PATHS,
-              "tc": ("serve", "resilience", "serve_griffin") + DENSE_PATHS + BERT_FOLLOWERS
-              + FAMILY_PATHS + TP_PATHS,
+MAIN_PATHS = {"decode": ("serve", "resilience", "graphs", "serve_griffin") + DENSE_PATHS
+              + BERT_FOLLOWERS + FAMILY_PATHS + TP_PATHS,
+              "tc": ("serve", "resilience", "graphs", "serve_griffin") + DENSE_PATHS
+              + BERT_FOLLOWERS + FAMILY_PATHS + TP_PATHS,
               "simt": (), "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "tp_routes", "site_time")
 
@@ -1315,58 +1334,65 @@ def _first_batch(engine, prompts, tiers):
                           batch_buckets=engine.batch_buckets, seq_buckets=engine.seq_buckets)
     tok_np, lengths_np = pad_to_bucket([prompts[i] for i in first], (bb, sb))
     return dict(first=first, keys=keys, bb=bb, sb=sb, k=tiers[first[0]], lengths_np=lengths_np,
-                tok=torch.from_numpy(tok_np).cuda(), lengths=torch.from_numpy(lengths_np).cuda(),
+                tok_np=tok_np, tok=torch.from_numpy(tok_np).cuda(),
+                lengths=torch.from_numpy(lengths_np).cuda(),
                 table=batch_keys(keys, bb))
 
 
 def phase_steps(engine, prompts, tiers, drift_ab=False, variant=None, n_steps=SERVE_MAX_GEN - 1):
-    """Prefill and decode of the first batch through the kernels, with the
-    engine's drift operand as the engine passes it: wall time of an
-    unprofiled prefill and of an unprofiled run of decode steps (one sync
-    at each end, as the engine runs them), then one profiled prefill and
-    decode step for the device's time by kernel. The idle share is
-    1 - profiled device time / unprofiled wall time; the profiler's own
+    """Prefill and decode of the first batch through the engine's served
+    steps (``tier.build_prefill`` / ``build_decode``: CUDA graphs on the
+    card, captured at their first call), with the drift operand as the
+    engine passes it: wall time of a prefill and of a run of decode steps
+    (one sync at each end, as the engine runs them), then one profiled
+    prefill and decode step for the device's time by kernel. The idle share
+    is 1 - profiled device time / unprofiled wall time; the profiler's own
     cost (profiled wall - unprofiled wall) is printed beside it.
 
-    ``drift_ab``: also time the decode steps without the drift operand
-    (the forward of an engine that has none) against with it, in turns
-    (off, on, on, off), and profile one step of each: what carrying the
-    drift as a runtime operand costs a step. ``variant`` names the run in
-    its lines; ``n_steps`` decode steps are timed."""
+    ``drift_ab``: also profile one eager decode step without the drift
+    operand (the forward of an engine that has none) and one with it: what
+    carrying the drift as a runtime operand costs a step in device time.
+    ``variant`` names the run in its lines; ``n_steps`` decode steps are
+    timed."""
     import torch
 
     fb = _first_batch(engine, prompts, tiers)
     tier = engine.tiers.get(fb["k"])
     cache_len = fb["sb"] + SERVE_MAX_GEN
-    scale = engine._scale_arr()
-    prefill = lambda: tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len,
-                                   noise_scale=scale)
-    (cache, logits), prefill_ms = _wall_ms(prefill)
+    prefill, decode = tier.build_prefill(fb["bb"], fb["sb"], cache_len), \
+        tier.build_decode(fb["bb"], cache_len)
+    cache = engine._batch_cache(fb["bb"], cache_len)
+    lengths = fb["lengths_np"]
+    engine._scale_arr()
 
-    def decode_run(d=scale):
-        c, tok = cache, torch.argmax(logits, dim=-1)
-        for t in range(n_steps):
-            lg, c = tier.decode(c, tok, fb["lengths_np"] + t, fb["table"], noise_scale=d)
-            tok = torch.argmax(lg, dim=-1)
-        return tok
+    def prefill_run():
+        tier.fill(prefill, fb["table"], tokens=fb["tok_np"], lengths=lengths)
+        _, tok = prefill(cache)
+        decode.static["tok"].copy_(tok)
 
+    def decode_run(n=n_steps):
+        for t in range(n):
+            tier.fill(decode, fb["table"], fold=lengths + t, pos=lengths + t, lengths=lengths)
+            _, nxt = decode(cache)
+            decode.static["tok"].copy_(nxt)
+
+    prefill_run()  # first calls: the captures
+    decode_run(1)
+    _, prefill_ms = _wall_ms(prefill_run)
     _, decode_ms = _wall_ms(decode_run)
     if drift_ab:
-        ms = {"off": [], "on": []}
-        for arm in ("off", "on", "on", "off"):
-            ms[arm].append(_wall_ms(lambda: decode_run(None if arm == "off" else scale))[1]
-                           / n_steps)
-        one = lambda d: lambda: tier.decode(cache, torch.argmax(logits, dim=-1),
-                                            fb["lengths_np"], fb["table"], noise_scale=d)
+        scale = engine._scale_arr()
+        cache_e, logits = tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len,
+                                       noise_scale=scale)
+        one = lambda d: lambda: tier.decode(cache_e, torch.argmax(logits, dim=-1), lengths,
+                                            fb["table"], noise_scale=d)
         prof = {arm: _profile(one(d))[1] for arm, d in (("off", None), ("on", scale))}
-        log("drift_operand", config=engine.model_cfg.name, steps_timed=n_steps,
-            ms_a_step_off=ms["off"], ms_a_step_on=ms["on"],
+        log("drift_operand", config=engine.model_cfg.name, eager=True,
             device_ms_off=prof["off"]["device_ms"], device_ms_on=prof["on"]["device_ms"],
             card=card())
-    (cache, logits), prefill_prof = _profile(prefill)
-    _, decode_prof = _profile(
-        lambda: tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"], fb["table"],
-                            noise_scale=scale))
+        cache_e = logits = None
+    _, prefill_prof = _profile(prefill_run)
+    _, decode_prof = _profile(lambda: decode_run(1))
     n_real = len(fb["first"])
     prompt_tokens = sum(len(prompts[i]) for i in fb["first"])
     step_ms = decode_ms / n_steps
@@ -1376,7 +1402,7 @@ def phase_steps(engine, prompts, tiers, drift_ab=False, variant=None, n_steps=SE
     ):
         log("step", config=engine.model_cfg.name, step=name, requests=fb["first"], tier=fb["k"],
             tp=1 if engine.mesh is None else engine.mesh.tp, variant=variant,
-            bucket=[fb["bb"], fb["sb"]],
+            graphs=engine.graphs, bucket=[fb["bb"], fb["sb"]],
             wall_ms=wall, tokens_per_s=rate, steps_timed=1 if name == "prefill" else n_steps,
             idle_share=max(0.0, 1.0 - prof["device_ms"] / wall),
             profiler_overhead_ms=prof["profiled_wall_ms"] - wall, **prof, card=card())
@@ -1395,7 +1421,8 @@ def _logit_tol(cfg) -> float:
 
 def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     """The first batch again on the plain ("tile") backend, on the card:
-    prefill logits and greedy tokens against the kernels', beside what
+    prefill logits and the first ``WHOLE_PATH_GEN`` greedy tokens against
+    the kernels', beside what
     faulty paths give against the same plain logits and what the plain
     path gives against itself when only the float order changes (each
     request alone against its row of the batch)."""
@@ -1416,7 +1443,7 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
     lt = prefill(tile, k, fb["table"])
     t = time.perf_counter()
     for i, key in zip(first, fb["keys"]):
-        tile.submit(prompts[i], n_repeats=k, max_new_tokens=SERVE_MAX_GEN, key=key)
+        tile.submit(prompts[i], n_repeats=k, max_new_tokens=WHOLE_PATH_GEN, key=key)
     tile_results = tile.flush()
     tile_s = time.perf_counter() - t
     float_order = [_rel(tile.tiers.get(k).prefill(fb["tok"][i:i + 1], fb["lengths"][i:i + 1],
@@ -1435,7 +1462,8 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
         "other_k": _rel(prefill(engine, 4 if k == 1 else 1, fb["table"]), lt, n),
         "no_noise": _rel(prefill(make_engine(None), 1, fb["table"]), lt, n),
     }
-    agree = [int((tile_results[j] == results[i]).sum()) for j, i in enumerate(first)]
+    agree = [int((tile_results[j] == results[i][:WHOLE_PATH_GEN]).sum())
+             for j, i in enumerate(first)]
     if not (rel <= tol and bool(torch.isfinite(lk).all())):
         raise AssertionError(f"prefill logits kernel vs plain: {rel} > {tol}")
     log("whole_path", config=engine.model_cfg.name, requests=first, tier=k,
@@ -1443,7 +1471,7 @@ def phase_whole_path(make_engine, engine, results, prompts, tiers, fb):
         plain_float_order=float_order, controls=controls,
         tol_below_controls=tol < min(controls.values()),
         first_token_equal=[bool(tile_results[j][0] == results[i][0]) for j, i in enumerate(first)],
-        tokens_agree=agree, tokens_per_request=SERVE_MAX_GEN, tile_serve_s=tile_s, card=card())
+        tokens_agree=agree, tokens_per_request=WHOLE_PATH_GEN, tile_serve_s=tile_s, card=card())
 
 
 def _edge4():
@@ -2135,6 +2163,213 @@ def phase_griffin_long(make_engine, CONFIG):
         card=card())
     if not ok:
         raise AssertionError(f"long decode vs cache-free prefill: {errs} > {tol}")
+
+
+#: decode steps each side of the graphs phase runs and times
+GRAPH_STEPS = 15
+#: the noise scale the graphs phase switches to between two decode steps
+GRAPH_SCALE = 1.5
+
+
+def _eager_steps(engine, tier, fb, cache_len, switch=None):
+    """The first batch's prefill and ``GRAPH_STEPS`` decode steps through the
+    tier's own eager steps (from host keys): the logits of each; the noise
+    scale goes to ``GRAPH_SCALE`` before step ``switch``."""
+    import torch
+
+    engine.set_noise_scale(1.0)
+    cache, logits = tier.prefill(fb["tok"], fb["lengths"], fb["table"], cache_len,
+                                 noise_scale=engine._scale_arr())
+    out = [logits]
+    for t in range(GRAPH_STEPS):
+        if t == switch:
+            engine.set_noise_scale(GRAPH_SCALE)
+        logits, cache = tier.decode(cache, torch.argmax(logits, dim=-1), fb["lengths_np"] + t,
+                                    fb["table"], fb["lengths_np"],
+                                    noise_scale=engine._scale_arr())
+        out.append(logits)
+    engine.set_noise_scale(1.0)
+    return out
+
+
+def _graph_steps(engine, tier, fb, cache_len, steps, switch=None):
+    """The same through the tier's captured steps ``steps`` = (prefill,
+    decode) (``build_prefill``/``build_decode``), refilled as the engine
+    refills them; the logits of each, copied out of the graphs' pool."""
+    prefill, decode = steps
+    engine.set_noise_scale(1.0)
+    engine._scale_arr()
+    lengths = fb["lengths_np"]
+    tier.fill(prefill, fb["table"], tokens=fb["tok_np"], lengths=lengths)
+    cache = engine._batch_cache(fb["bb"], cache_len)
+    logits, tok = prefill(cache)
+    out = [logits.clone()]
+    decode.static["tok"].copy_(tok)
+    for t in range(GRAPH_STEPS):
+        if t == switch:
+            engine.set_noise_scale(GRAPH_SCALE)
+        engine._scale_arr()
+        tier.fill(decode, fb["table"], fold=lengths + t, pos=lengths + t, lengths=lengths)
+        logits, nxt = decode(cache)
+        out.append(logits.clone())
+        decode.static["tok"].copy_(nxt)
+    engine.set_noise_scale(1.0)
+    return out
+
+
+def _serve_keys(engine, prompts, tiers, idx=None):
+    """``prompts[i]`` at ``tiers[i]`` for i in ``idx`` (all by default) under
+    the key ``fold_in(PRNGKey(0), i)``, drained in one window: (tokens by i,
+    seconds, launches, cache stats)."""
+    from repro_torch.kernels.prng import PRNGKey, fold_in
+
+    idx = range(len(prompts)) if idx is None else idx
+    uids = {i: engine.submit(prompts[i], n_repeats=tiers[i], max_new_tokens=SERVE_MAX_GEN,
+                             key=fold_in(PRNGKey(0), i)) for i in idx}
+    results, seconds, launches = _drain(engine)
+    return {i: results[u] for i, u in uids.items()}, seconds, launches, engine.cache_stats()
+
+
+def phase_graphs(make_engine, prompts, tiers, CONFIG, full=True):
+    """The executable cache on the card: every served step a CUDA graph.
+
+    Direct: the first batch of each tier (K = 1 and 4; K = 1 alone without
+    ``full``) through the tiers'
+    captured prefill and decode steps against their eager steps, logits bit
+    for bit at the prefill and ``GRAPH_STEPS`` decode steps, with the noise
+    scale set to ``GRAPH_SCALE`` between two steps (the output moves as the
+    eager step's does, and nothing is captured again); decode ms a step
+    (wall, unprofiled, the mean of ``GRAPH_STEPS``; turns eager, graphs,
+    graphs, eager), device ms of one profiled step and the idle share, the
+    prefill's ms, each graphs against eager, and the memory allocated above
+    the start at the peak of each run (the graphs' first run, whose first
+    calls run eagerly and capture, and a warm one).
+    Through the engine (``full``): the 8 prompts synchronously and through
+    4-slot pools, each cold then warm (the warm replay misses nothing, hits
+    2 x batches synchronously, and gives the cold tokens), a noise scale
+    served warm with no miss, a request alone equal to its batch, and each
+    entry's first-use seconds (warm-up plus capture). Returns the launches
+    by route of the warm synchronous serve."""
+    import numpy as np
+    import torch
+
+    rows = []
+
+    def peak_of(fn):
+        """(what fn returns, its ms, GiB allocated above the start at its peak)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = _wall_ms(fn)
+        return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    for k in sorted(set(tiers)) if full else [tiers[0]]:
+        engine = make_engine("auto")
+        if not engine.graphs:
+            raise AssertionError(f"{CONFIG.name}: the engine on the card does not capture")
+        fb = _first_batch(engine, prompts, [k] * len(prompts))
+        tier = engine.tiers.get(k)
+        cache_len = fb["sb"] + SERVE_MAX_GEN
+        steps = (tier.build_prefill(fb["bb"], fb["sb"], cache_len),
+                 tier.build_decode(fb["bb"], cache_len))
+        switch = GRAPH_STEPS // 2
+        eager, _, eager_peak = peak_of(lambda: _eager_steps(engine, tier, fb, cache_len, switch))
+        graph, first_ms, first_peak = peak_of(
+            lambda: _graph_steps(engine, tier, fb, cache_len, steps, switch))
+        equal = [bool(torch.equal(a, b)) for a, b in zip(graph, eager)]
+        captures = [len(s.capture_s) for s in steps]
+        if not all(equal) or captures != [1, 1]:
+            raise AssertionError(f"{CONFIG.name} K={k}: graph == eager by step {equal}, "
+                                 f"captures {captures}")
+        # timing, in turns: eager, graphs, graphs, eager (at scale 1: the first
+        # eager turn is the plain run the scale switch moved away from)
+        ms, peak, plain = {"eager": [], "graphs": []}, {}, None
+        for arm in ("eager", "graphs", "graphs", "eager"):
+            run = (lambda: _eager_steps(engine, tier, fb, cache_len)) if arm == "eager" else \
+                (lambda: _graph_steps(engine, tier, fb, cache_len, steps))
+            out, t, p = peak_of(run)
+            ms[arm].append(t)
+            peak.setdefault(arm, p)
+            plain = out if plain is None else plain
+        moved = [not torch.equal(a, b) for a, b in zip(eager, plain)]
+        if any(moved[:switch + 1]) or not moved[switch + 1]:
+            raise AssertionError(f"{CONFIG.name} K={k}: the scale moved steps {moved}")
+        cache = engine._batch_cache(fb["bb"], cache_len)
+        tier.fill(steps[0], fb["table"], tokens=fb["tok_np"], lengths=fb["lengths_np"])
+        prefill_ms = {"graphs": _wall_ms(lambda: steps[0](cache))[1]}
+        (cache_e, logits_e), prefill_ms["eager"] = _wall_ms(lambda: tier.prefill(
+            fb["tok"], fb["lengths"], fb["table"], cache_len, noise_scale=engine._scale_arr()))
+        tok_e = torch.argmax(logits_e, dim=-1)
+        decode = steps[1]
+        tier.fill(decode, fb["table"], fold=fb["lengths_np"], pos=fb["lengths_np"],
+                  lengths=fb["lengths_np"])
+        decode.static["tok"].copy_(tok_e)
+        prof = {"eager": _profile(lambda: tier.decode(cache_e, tok_e, fb["lengths_np"],
+                                                      fb["table"], fb["lengths_np"],
+                                                      noise_scale=engine._scale_arr()))[1],
+                "graphs": _profile(lambda: decode(cache))[1]}
+        # prefill once, then GRAPH_STEPS decode steps: the decode share of a run
+        step_ms = {a: (sum(v) / len(v) - prefill_ms[a]) / GRAPH_STEPS for a, v in ms.items()}
+        row = dict(config=CONFIG.name, k=k, bucket=[fb["bb"], fb["sb"]], cache_len=cache_len,
+                   steps=GRAPH_STEPS, logits_equal=True, scale_moved_from_step=switch + 1,
+                   first_run_ms=first_ms, capture_s=[s.capture_s[0] for s in steps],
+                   run_ms=ms, prefill_ms=prefill_ms, decode_ms=step_ms,
+                   device_ms={a: p["device_ms"] for a, p in prof.items()},
+                   idle_share={a: max(0.0, 1.0 - prof[a]["device_ms"] / step_ms[a])
+                               for a in prof},
+                   top_graphs=prof["graphs"]["top"][:4],
+                   peak_above_gib=dict(eager=eager_peak, graphs_first_run=first_peak,
+                                       graphs_warm=peak["graphs"]),
+                   reserved_gib=torch.cuda.memory_reserved() / 2**30, card=card())
+        log("graphs_steps", **row)
+        rows.append(row)
+        steps = cache = cache_e = decode = None
+        engine = None
+    if not full:
+        return None
+
+    # through the engine's cache
+    out = {}
+    for mode in ("sync", "pooled"):
+        kw = dict(continuous=True, pool_slots=POOL_SLOTS) if mode == "pooled" else {}
+        engine = make_engine("auto", **kw)
+        cold, cold_s, _, cold_st = _serve_keys(engine, prompts, tiers)
+        entries = [dict(phase=key[0], shape=list(key[1:-3] if key[0] != "insert" else key[1:]),
+                        tier=key[-3] if key[0] != "insert" else None,
+                        first_use_s=sum(step.capture_s), captures=len(step.capture_s))
+                   for key, step in engine.exe_cache.entries()]
+        engine.exe_cache.reset_stats()
+        batches = engine.stats["batches"]
+        warm, warm_s, launches, warm_st = _serve_keys(engine, prompts, tiers)
+        batches = engine.stats["batches"] - batches
+        same = all(np.array_equal(cold[i], warm[i]) for i in cold)
+        if warm_st["misses"] or not same:
+            raise AssertionError(f"{mode}: warm replay {warm_st}, tokens equal {same}")
+        if mode == "sync" and warm_st["hits"] != 2 * batches:
+            raise AssertionError(f"sync: {warm_st['hits']} hits for {batches} batches")
+        engine.set_noise_scale(GRAPH_SCALE)
+        scaled, _, _, scaled_st = _serve_keys(engine, prompts, tiers)
+        engine.set_noise_scale(1.0)
+        moved = sum(int((scaled[i] != warm[i]).sum()) for i in warm)
+        if scaled_st["misses"] or moved == 0:
+            raise AssertionError(f"{mode}: scale {GRAPH_SCALE}: {scaled_st}, tokens moved {moved}")
+        log("graphs_engine", config=CONFIG.name, mode=mode, requests=len(prompts),
+            cold_s=cold_s, warm_s=warm_s, cold_stats=cold_st, warm_stats=warm_st,
+            warm_batches=batches, warm_equals_cold=same, scaled_stats=scaled_st,
+            scaled_tokens_moved=moved, entries=entries, launches=launches,
+            generated_tokens_per_s_warm=len(prompts) * SERVE_MAX_GEN / warm_s, card=card())
+        out[mode] = dict(engine=engine, tokens=warm, launches=launches)
+    # a request alone equals its batch, under replay
+    engine = out["sync"]["engine"]
+    fb = _first_batch(engine, prompts, tiers)
+    uid = fb["first"][-1]
+    solo, _, _, solo_st = _serve_keys(engine, prompts, tiers, [uid])
+    equal = bool(np.array_equal(solo[uid], out["sync"]["tokens"][uid]))
+    log("graphs_solo", config=CONFIG.name, uid=uid, batch=fb["first"], solo_equals_batched=equal,
+        stats=solo_st, card=card())
+    if not equal:
+        raise AssertionError(f"request {uid} alone {solo[uid]} != batched")
+    return out["sync"]["launches"]
 
 
 def _free():
@@ -3535,6 +3770,8 @@ def phase_calibrate_lm(cfg):
 
 #: (phase, stats) of every ServingEngine the run builds (``_watch_engines``)
 _ENGINE_STATS: list = []
+#: phase -> its engines' step-cache hits, misses, captures and capture seconds
+_CACHE_TALLY: dict = {}
 #: the phase running now (set by ``main``'s ``timed``)
 _PHASE = ["start"]
 #: phases that inject faults on purpose: each holds its own engines
@@ -3559,6 +3796,31 @@ def _watch_engines() -> None:
 
     ServingEngine.__init__ = watched
 
+    # each phase's cache traffic: hits and misses of every engine's step
+    # cache, and the graphs captured with their seconds
+    from repro_torch.serving.cache import ExecutableCache
+
+    get, captured = ExecutableCache.get, ServingEngine._captured
+
+    def tallied_get(self, key, build):
+        hits, misses = self.hits, self.misses
+        exe = get(self, key, build)
+        tally = _CACHE_TALLY.setdefault(_PHASE[0], dict(hits=0, misses=0, captures=0,
+                                                         capture_s=0.0))
+        tally["hits"] += self.hits - hits
+        tally["misses"] += self.misses - misses
+        return exe
+
+    def tallied_capture(self, seconds):
+        captured(self, seconds)
+        tally = _CACHE_TALLY.setdefault(_PHASE[0], dict(hits=0, misses=0, captures=0,
+                                                         capture_s=0.0))
+        tally["captures"] += 1
+        tally["capture_s"] += seconds
+
+    ExecutableCache.get = tallied_get
+    ServingEngine._captured = tallied_capture
+
 
 def _no_contained_faults() -> None:
     """Every engine built outside ``FAULT_PHASES`` contained no exception
@@ -3571,14 +3833,16 @@ def _no_contained_faults() -> None:
 
 def _broken_tier_plan(broken):
     """A ``FaultPlan`` under which every prefill and decode call of the
-    tiers ``broken`` raises a plain ``RuntimeError``: an unexpected
-    exception, not the plan's ``TransientExecutableFault``."""
+    uniform-K tiers ``broken`` raises a plain ``RuntimeError``: an
+    unexpected exception, not the plan's ``TransientExecutableFault``. A
+    call's key ends in its tier's ``cache_key()``, (K, backend, "shot")
+    for a uniform K of shot noise."""
     from repro_torch.serving import FaultPlan
 
     class BrokenTierPlan(FaultPlan):
         def check_executable(self, key) -> None:
             super().check_executable(key)
-            if key[0] != "insert" and key[-1] in broken:
+            if key[0] != "insert" and key[-1] == "shot" and key[-3] in broken:
                 raise RuntimeError(f"unplanned executable crash: {key}")
 
     return BrokenTierPlan()
@@ -3837,7 +4101,7 @@ def phase_int8(make_engine, prompts, CONFIG=None):
     rel = float((l8 - l16).abs().max()) / float(l16.abs().max())
     agree = float((l8.argmax(-1) == l16.argmax(-1)).float().mean())
 
-    def serve_tier(name):
+    def serve_tier(name, engine=engine):
         """The 8 prompts on tier ``name``: (tokens by prompt, one summary)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3868,13 +4132,17 @@ def phase_int8(make_engine, prompts, CONFIG=None):
     # batch); the hook swapped for this serve and its step only
     served = ServingMatmulHook.__call__
     ServingMatmulHook.__call__ = MatmulHook.__call__
-    try:
-        tokens, gemm = serve_tier("bf16")
+    try:  # a new engine: the first one's graphs hold the decode route
+        gemm_engine = make_engine("auto", seq_buckets=(64,), max_wait=0.0, max_gen=TP_GEN)
+        gemm_engine.register_tier(DigitalTier(gemm_engine))
+        tokens, gemm = serve_tier("bf16", gemm_engine)
         gemm["tokens_equal_decode_route"] = [bool(np.array_equal(a, b))
                                              for a, b in zip(tokens, bf16_tokens)]
-        phase_steps(engine, prompts, ["bf16"] * len(prompts), variant="one batched matmul a site")
+        phase_steps(gemm_engine, prompts, ["bf16"] * len(prompts),
+                    variant="one batched matmul a site")
     finally:
         ServingMatmulHook.__call__ = served
+        gemm_engine = None
     macs = float(total_macs(lm.energy_macs(CONFIG, 1)))
     aj = engine.tier_energy_per_token("int8")
     # one gate/up decode site with 4 rows: cuBLAS's rows against a row alone,
@@ -3918,7 +4186,8 @@ def main() -> int:
                          "step, solo and whole-path phases, serve_granite20 granite20_long too, "
                          "serve_bert calibrate and search; serve_xlstm its step, solo, "
                          "whole-path and continuous phases and xlstm_long; serve_grok its "
-                         "step, pad and whole-path phases; tp and int8 run on granite-3-8b's "
+                         "step, pad and whole-path phases; graphs runs graphs_griffin and "
+                         "graphs_granite20 on those models' weights; tp and int8 run on granite-3-8b's "
                          "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
                          "and grok-1's; calibrate_lm on train's config); default all")
     args = ap.parse_args()
@@ -3939,6 +4208,7 @@ def main() -> int:
     run = set(only) | (set(SERVE_FOLLOWERS) if "serve" in only else set())
     run |= set(GRIFFIN_FOLLOWERS) if "serve_griffin" in only else set()
     run |= set(GRANITE20_FOLLOWERS) if "serve_granite20" in only else set()
+    run |= set(GRAPHS_FOLLOWERS) if "graphs" in only else set()
     run |= set(BERT_FOLLOWERS) if run & {"serve_bert", *BERT_FOLLOWERS} else set()
     run |= set(XLSTM_FOLLOWERS) if "serve_xlstm" in run else set()
 
@@ -3949,7 +4219,8 @@ def main() -> int:
         _PHASE[0] = name
         out = fn(*args)
         _no_contained_faults()  # engines of every phase so far, fault phases aside
-        log("phase_seconds", of=name, seconds=round(time.perf_counter() - t, 3))
+        log("phase_seconds", of=name, seconds=round(time.perf_counter() - t, 3),
+            cache=_CACHE_TALLY.get(name))
         return out
 
     from repro_torch.kernels import analog_matmul as am
@@ -3973,7 +4244,7 @@ def main() -> int:
     site_rows = counted("site_time", phase_site_time, draw_ps) if "site_time" in run else None
     if "sweep" in run:
         timed("sweep", phase_sweep)
-    if run & {"serve", *SERVE_FOLLOWERS, "tp", "int8"}:
+    if run & {"serve", *SERVE_FOLLOWERS, "graphs", "tp", "int8"}:
         from repro_torch.configs.granite_3_8b import CONFIG
 
         make_engine = timed("weights", phase_weights)
@@ -3992,11 +4263,13 @@ def main() -> int:
         by_path["continuous"] = timed("continuous", phase_continuous, make_engine, prompts)
     if "resilience" in run:
         by_path["resilience"] = timed("resilience", phase_resilience, make_engine, prompts, tiers)
+    if "graphs" in run:
+        by_path["graphs"] = timed("graphs", phase_graphs, make_engine, prompts, tiers, CONFIG)
     if "tp" in run:
         by_path["tp"] = timed("tp", phase_tp, make_engine, prompts)
     if "int8" in run:
         timed("int8", phase_int8, make_engine, prompts)
-    if run & {"serve_griffin", *GRIFFIN_FOLLOWERS, "tp"}:
+    if run & {"serve_griffin", *GRIFFIN_FOLLOWERS, "graphs_griffin", "tp"}:
         import gc
 
         from repro_torch.configs.recurrentgemma_2b import CONFIG as GRIFFIN
@@ -4016,6 +4289,8 @@ def main() -> int:
               gtiers, fb)
     if "griffin_long" in run:
         timed("griffin_long", phase_griffin_long, make_griffin, GRIFFIN)
+    if "graphs_griffin" in run:
+        timed("graphs_griffin", phase_graphs, make_griffin, gprompts, gtiers, GRIFFIN, False)
     if "griffin_profile" in run:
         by_path["griffin_profile"] = timed(
             "griffin_profile", phase_profile, make_griffin, gprompts, gtiers, GRIFFIN,
@@ -4037,17 +4312,20 @@ def main() -> int:
         _free()
         cfg = get_config(arch)
         make = timed(f"{tag}_weights", phase_weights, cfg)
+        p, t = _traffic(cfg)
         if phase in run:
-            p, t = _traffic(cfg)
             eng, res, by_path[phase] = timed(phase, phase_serve, make, p, t, cfg)
             fb_ = timed(f"{tag}_step", phase_steps, eng, p, t)
             timed(f"{tag}_solo", phase_solo, eng, res, p, t)
             timed(f"{tag}_whole_path", phase_whole_path, make, eng, res, p, t, fb_)
             if arch == "bert-base":
                 timed("bert_energy", phase_bert_energy, eng)
+            eng = res = fb_ = None
+        if f"graphs_{tag}" in run:
+            timed(f"graphs_{tag}", phase_graphs, make, p, t, cfg, False)
         return make, cfg
 
-    if run & {"serve_granite20", *GRANITE20_FOLLOWERS}:
+    if run & {"serve_granite20", *GRANITE20_FOLLOWERS, "graphs_granite20"}:
         from repro_torch.configs import reduced_depth
 
         make, cfg = serve_dense("granite-20b", "serve_granite20", "granite20")

@@ -11,8 +11,9 @@ takes its gradient.
 Keys are raw uint32 numpy arrays, as the reference's raw JAX keys: (2,)
 for one stream, (B, 2) for stacked per-request streams. They are folded on
 the host (``fold_key``, ``site_key``); what reaches the device is a seed
-table of int32 words (k0, k1, row0, col0) per request (``key_seed``), made
-for a whole forward at once by ``site_seed_table``. The ``"torch"``
+table of int32 words (k0, k1, row0, col0) per request (``seed_words``,
+``key_seed``), made for a whole forward at once by ``site_seed_words``
+(``lm.seed_tables``) and copied to the device once. The ``"torch"``
 backend seeds one generator per request from its words on the host: the
 model builds its seed table on the CPU for that backend, so no site waits
 for a device-to-host copy.
@@ -150,21 +151,26 @@ def site_key(key, site: str) -> np.ndarray:
     return fold_key(key, site_hash(site))
 
 
-def key_seed(key, device) -> torch.Tensor:
-    """Raw key(s) -> the kernel's int32 seed words (k0, k1, row0=0, col0=0):
-    (4,) for one key, (B, 4) for stacked keys."""
+def seed_words(key) -> np.ndarray:
+    """Raw key(s) -> the kernel's seed words (k0, k1, row0=0, col0=0) as
+    int32 on the host: (4,) for one key, (B, 4) for stacked keys."""
     key = raw_key(key)
     words = np.concatenate([key, np.zeros(key.shape[:-1] + (2,), np.uint32)], axis=-1)
+    return words.view(np.int32)
+
+
+def key_seed(key, device) -> torch.Tensor:
+    """``seed_words`` copied to ``device``."""
     # non-blocking: a blocking copy would wait for every queued kernel
-    return torch.from_numpy(words.view(np.int32)).to(device, non_blocking=True)
+    return torch.from_numpy(seed_words(key)).to(device, non_blocking=True)
 
 
-def site_seed_table(key, layers, sites: Sequence[str], device) -> torch.Tensor:
-    """Seeds of every analog site of one forward, copied to ``device`` once.
+def site_seed_words(key, layers, sites: Sequence[str]) -> np.ndarray:
+    """Seed words of every analog site of one forward, on the host.
 
     ``layers``: the layer (or layer-group) indices the key is folded with,
     a sequence of ints, or an int ``n`` for ``range(n)``. Row ``[l, s]`` is
-    ``key_seed(site_key(fold_key(key, layers[l]), sites[s]))`` — the
+    ``seed_words(site_key(fold_key(key, layers[l]), sites[s]))`` — the
     reference's per-site chain (``hook_for_layer`` then ``AnalogHook``).
     Shape (L, S, 4), or (L, S, B, 4) for stacked keys.
     """
@@ -175,18 +181,17 @@ def site_seed_table(key, layers, sites: Sequence[str], device) -> torch.Tensor:
     lk = fold_key(key[None], idx)  # (L, [B,] 2)
     hashes = np.asarray([site_hash(s) for s in sites], np.int64)
     sk = fold_key(lk[:, None], hashes.reshape((1, -1) + (1,) * len(lead)))  # (L, S, [B,] 2)
-    return key_seed(sk, device)
+    return seed_words(sk)
 
 
-def expert_seed_table(key, layers, sites: Sequence[str], n_experts: int, valid, device
-                      ) -> torch.Tensor:
-    """Seeds of the expert-batched sites of one forward, copied to
-    ``device`` once: (L, S, E, 4). Row ``[l, s, e]`` is ``key_seed`` of
-    expert e's key in the reference's chain: ``fold_key(key, layers[l])``
-    per request row, ``collapse_keys`` of the rows (``valid`` False rows,
-    the batch padding, fold the XOR identity), ``site_key(.., sites[s])``
-    and ``split(.., n_experts)[e]``. One batch-level stream: capacity
-    buffers mix the batch's requests."""
+def expert_seed_words(key, layers, sites: Sequence[str], n_experts: int, valid) -> np.ndarray:
+    """Seed words of the expert-batched sites of one forward, on the host:
+    (L, S, E, 4). Row ``[l, s, e]`` is ``seed_words`` of expert e's key in
+    the reference's chain: ``fold_key(key, layers[l])`` per request row,
+    ``collapse_keys`` of the rows (``valid`` False rows, the batch padding,
+    fold the XOR identity), ``site_key(.., sites[s])`` and ``split(..,
+    n_experts)[e]``. One batch-level stream: capacity buffers mix the
+    batch's requests."""
     key = raw_key(key)
     idx = np.arange(layers) if isinstance(layers, (int, np.integer)) else np.asarray(layers)
     lk = fold_key(key[None], idx.astype(np.int64).reshape((-1,) + (1,) * (key.ndim - 1)))
@@ -194,7 +199,7 @@ def expert_seed_table(key, layers, sites: Sequence[str], n_experts: int, valid, 
     hashes = np.asarray([site_hash(s) for s in sites], np.int64)
     sk = fold_key(ck[:, None], hashes[None, :])  # (L, S, 2)
     ek = prng.fold_in(sk[:, :, None], np.arange(n_experts))  # split: (L, S, E, 2)
-    return key_seed(ek, device)
+    return seed_words(ek)
 
 
 # ---------------------------------------------------------------------------

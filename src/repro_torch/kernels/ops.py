@@ -40,6 +40,20 @@ def _ranges(sq, w, x3) -> Tuple[torch.Tensor, torch.Tensor]:
     return w_rng, x_rng
 
 
+#: (device, the eight packed floats) -> their (1, 8) float32 tensor on the
+#: device: made once per quantizer set, so no site copies from the host (a
+#: copy could not be captured into a CUDA graph)
+_SCALARS: dict = {}
+
+
+def _scalars(packed: tuple, dev) -> torch.Tensor:
+    key = (dev, packed)
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(packed, dtype=F32).reshape(1, 8).to(dev)
+    return t
+
+
 def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq=None) -> dict:
     """Raw kernel operands for ``x3`` (B, M, K) @ ``w`` (K, N).
 
@@ -102,8 +116,7 @@ def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq
         + [0.0, 0.0]
     )
     if all(isinstance(v, float) for v in packed):
-        # one non-blocking copy: a blocking one would stall the stream per site
-        scalars = torch.tensor(packed, dtype=F32).reshape(1, 8).to(dev, non_blocking=True)
+        scalars = _scalars(tuple(packed), dev)
     else:
         scalars = torch.stack([
             torch.full((), v, dtype=F32, device=dev) if isinstance(v, float)

@@ -36,7 +36,7 @@ class AnalogHook(MatmulHook):
 
     ``energies`` maps site name -> this layer's energy (0-d or per-channel
     tensor); ``seeds`` maps site name -> its seed words, the layer's row of
-    the forward's ``site_seed_table`` ((4,) for one key, (B, 4) with one
+    the forward's seed table (``lm.seed_tables``; (4,) for one key, (B, 4) with one
     stream per request row). ``n_repeats`` is the K-repeat knob, averaged
     inside the kernel. ``rows_per_key`` > 1: each stacked seed covers that
     many consecutive batch rows, run as one request (the noise samples of
@@ -182,7 +182,7 @@ def hook_for_layer(
     """Hook for one layer: ``seeds`` is the layer's row of the forward's
     seed table, the reference's ``fold_key(key, layer_idx)`` → ``site_key``
     chain folded on the host; ``expert_seeds`` the layer's row of its
-    expert seed table (``core.analog.expert_seed_table``)."""
+    expert seed table (``core.analog.expert_seed_words``)."""
     if analog_cfg is None or layer_energies is None:
         return MatmulHook()
     return AnalogHook(cfg=analog_cfg, energies=layer_energies, seeds=seeds, n_repeats=n_repeats,

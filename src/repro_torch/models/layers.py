@@ -38,7 +38,7 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[t
     """cos/sin tables for the given positions; shapes (..., T, head_dim//2)."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=F32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=F32, device=positions.device), exps)
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=F32, device=positions.device), exps)
     ang = positions.to(F32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -304,7 +304,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qp = torch.arange(window, device=q.device) + q_lo
         kp = torch.arange(kc.shape[1], device=q.device) + k_lo
         mask = (qp[:, None] >= kp[None, :]) & ((qp[:, None] - kp[None, :]) < window)
-        s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
+        s = torch.where(mask, s, torch.full((), NEG_INF, dtype=F32, device=q.device))
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vc.to(F32)))
     return torch.cat(outs, dim=1).reshape(b, t, h, d).to(q.dtype)

@@ -32,20 +32,24 @@ mLSTM blocks of a group draw one noise stream, as in the reference.
 
 Every attention, recurrence and MLP matmul routes through a hook: digital
 by default, or an ``AnalogHook`` carrying the group's energies and its row
-of the forward's seed table (``core.analog.site_seed_table``: the whole
-(groups, sites, requests) key chain is folded on the host and copied to
-the card once per forward; the MoE expert sites' batch-level keys come
-from ``core.analog.expert_seed_table``). The ``lm_head`` stays a digital
+of the forward's seed table (``seed_tables``: the whole (groups, sites,
+requests) key chain is folded on the host, ``core.analog.site_seed_words``,
+and copied to the card once per forward, or read from the caller's device
+buffers, ``AnalogSpec.seeds``; the MoE expert sites' batch-level keys come
+from ``core.analog.expert_seed_words``). The ``lm_head`` stays a digital
 matmul (the transposed embedding under ``tie_embeddings``), except in the
 analog train loss (``train_loss``), where it is a site of its own. Under a
 ``PrecisionProfile`` layer ``l`` runs its sites at its own K_l;
 ``energy_macs`` and ``profile_token_energy`` price that schedule.
 
-Prefill writes every cache leaf (``hidden`` keeps none: the forward the
-calibration differentiates); decode updates the cache in place (one KV
-slot per row, the recurrent states whole) and returns it;
-``scatter_cache_rows`` copies prefilled rows into a decode pool's cache
-along each leaf's own batch dim.
+Prefill writes every cache leaf, of a new cache or, reset first, of the
+caller's (``hidden`` keeps none: the forward the calibration
+differentiates); decode updates the cache in place (one KV slot per row,
+the recurrent states whole) and returns it; ``scatter_cache_rows`` copies
+prefilled rows into a decode pool's cache along each leaf's own batch dim,
+from slot ids on the device. A served step so reads nothing from the host
+and copies nothing to the device: a CUDA graph can hold it
+(``serving/cache.py``).
 """
 from __future__ import annotations
 
@@ -58,11 +62,11 @@ import torch.utils.checkpoint
 
 from repro_torch.core.analog import (
     AnalogConfig,
-    expert_seed_table,
+    expert_seed_words,
     fold_key,
     key_seed,
     site_key,
-    site_seed_table,
+    site_seed_words,
 )
 from repro_torch.core.energy import apply_repeats, total_energy
 from repro_torch.core.profile import PrecisionProfile
@@ -105,15 +109,19 @@ class AnalogSpec:
     ``noise_scale``: an optional 0-d float32 tensor, the drift factor on
     every site's noise std, served as energies ``E / d**2``: the forward
     divides the energy tree once (``drifted_energies``).
+    ``seeds``: the forward's ``seed_tables`` already on the device (a
+    captured step's static buffers, refilled before each replay); ``key``
+    is then not read.
     """
 
     cfg: AnalogConfig
     energies: Dict[str, Any]
-    key: np.ndarray
+    key: Optional[np.ndarray]
     n_repeats: int = 1
     profile: Optional[PrecisionProfile] = None
     rows_per_key: int = 1
     noise_scale: Optional[torch.Tensor] = None
+    seeds: Optional[Dict[str, torch.Tensor]] = None
 
     def __post_init__(self):
         if self.profile is not None and self.n_repeats != 1:
@@ -558,6 +566,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda", dtyp
     return cache
 
 
+def reset_cache(cfg: ModelConfig, cache) -> Dict[str, Any]:
+    """Fill ``cache`` in place with ``init_cache``'s values (zeros; xlstm's
+    ``m`` and ``sm`` -1e30), so a prefill into it is a prefill into a new
+    cache. Returns ``cache``."""
+    map_leaves(lambda path, t: t.fill_(xlstm_lib.NEG) if cfg.family == "xlstm"
+               and path[-1] in ("m", "sm") else t.zero_(), cache)
+    return cache
+
+
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """The batch dim of every leaf of ``init_cache``'s tree (the "batch"
     entry of the reference's ``cache_axes``): 2 under the leading (G, per)
@@ -571,19 +588,37 @@ def scatter_cache_rows(cfg: ModelConfig, dst, src, slot_ids) -> Dict[str, Any]:
     """Copy the rows of a freshly prefilled cache ``src`` (batch b) into
     the decode pool's cache ``dst`` (batch ``slots``) at ``slot_ids`` (b,),
     in place along each leaf's batch dim (``cache_batch_axes``). Both share
-    the pool's cache length. Ids >= ``slots`` are dropped, as the
+    the pool's cache length. Ids outside ``[0, slots)`` are dropped, as the
     reference's ``mode="drop"`` drops them: the engine aims prefill
-    batch-padding rows at ``slots``. Returns ``dst``."""
-    ids = np.asarray(slot_ids, np.int64).reshape(-1)
+    batch-padding rows at ``slots``. Returns ``dst``.
+
+    ``slot_ids``: host ints, or an int64 tensor on ``dst``'s device (a
+    captured insert's static buffer). Every slot takes the value of the row
+    aimed at it, or keeps its own: a device-side select of the whole leaf,
+    no host read of the ids."""
+    axes = cache_batch_axes(cfg)
+    leaves = []
+    map_leaves(lambda _p, d, axis: leaves.append(d.shape[axis]) or d, dst, axes)
+    dev = next(iter(dst["groups"].values())).device
+    slots = leaves[0]
+    ids = (slot_ids if torch.is_tensor(slot_ids)
+           else torch.from_numpy(np.asarray(slot_ids, np.int64))).to(dev).reshape(-1)
+    b = ids.shape[0]
+    # which row lands in each slot: b for none; ids outside the pool (the
+    # padding rows) write the extra entry ``slots``, which is dropped
+    aim = torch.where((ids >= 0) & (ids < slots), ids, torch.full_like(ids, slots))
+    row_of = torch.full((slots + 1,), b, dtype=torch.int64, device=dev)
+    row_of.scatter_(0, aim, torch.arange(b, dtype=torch.int64, device=dev))
+    row_of = row_of[:slots]
+    hit = row_of < b
+    src_row = torch.clamp(row_of, max=b - 1)
 
     def scatter(_path, d, s, axis):
-        keep = np.flatnonzero((ids >= 0) & (ids < d.shape[axis]))
-        if keep.size:
-            rows = torch.from_numpy(keep).to(s.device)
-            d.index_copy_(axis, torch.from_numpy(ids[keep]).to(d.device),
-                          s.index_select(axis, rows).to(d.dtype))
+        shape = [1] * d.dim()
+        shape[axis] = slots
+        d.copy_(torch.where(hit.reshape(shape), s.index_select(axis, src_row).to(d.dtype), d))
 
-    map_leaves(scatter, dst, src, cache_batch_axes(cfg))
+    map_leaves(scatter, dst, src, axes)
     return dst
 
 
@@ -746,6 +781,31 @@ def _layer_ks(cfg: ModelConfig, analog: AnalogSpec):
     return [(analog.n_repeats,) * per] * g, [analog.n_repeats] * n_tail(cfg)
 
 
+def seed_tables(cfg: ModelConfig, key, valid=None, rows_per_key: int = 1
+                ) -> Dict[str, np.ndarray]:
+    """The seed words of every analog site of one forward, on the host:
+    ``"groups"`` (G, S, [B,] 4) over ``group_sites``, ``"tail"`` (tail, 8,
+    [B,] 4) for griffin's tail layers and ``"experts"`` (G, S_e, E·split,
+    4), or (G, S_e, S, E·split, 4) for stacked noise samples
+    (``rows_per_key`` > 1), for MoE's expert sites. The global group index
+    keys the noise: a profile's layer l draws the stream of the uniform
+    path's layer l. ``valid`` (B,) bool: the rows the expert sites' batch
+    key folds in (False: batch padding)."""
+    g, per = group_structure(cfg)
+    tail = n_tail(cfg)
+    out = {"groups": site_seed_words(key, g, list(group_sites(cfg)))}
+    if tail:
+        out["tail"] = site_seed_words(key, [g * per + j for j in range(tail)], TAIL_SITES)
+    if expert_sites(cfg):
+        n_e = cfg.n_experts * cfg.moe_ff_split
+        if rows_per_key > 1:  # one stream a noise sample
+            out["experts"] = np.stack([expert_seed_words(k, g, expert_sites(cfg), n_e, None)
+                                       for k in key], axis=2)
+        else:
+            out["experts"] = expert_seed_words(key, g, expert_sites(cfg), n_e, valid)
+    return out
+
+
 def drifted_energies(energies, noise_scale: torch.Tensor):
     """The energy tree that serves a noise std drifted by ``noise_scale``
     ``d`` (a 0-d float32 tensor): every leaf ``E / (d * d)``, elementwise in
@@ -772,17 +832,26 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     row's length are padding; in decode, a row of length 0 is batch
     padding: xlstm pins its gates (its state stays as it was) and MoE
     leaves its token out of expert capacity, and in both modes the MoE
-    expert sites fold the rows of length 0 out of their batch-level key
-    (read on the host: a card tensor is copied back once)."""
+    expert sites fold the rows of length 0 out of their batch-level key.
+    Seeds made here from ``analog.key`` read that fold from ``lengths`` on
+    the host (a card tensor is copied back once); ``analog.seeds`` carry it
+    already."""
     g, per = group_structure(cfg)
     tail = n_tail(cfg)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    pad_mask = valid = None
-    if lengths is not None:
-        if analog is not None and cfg.family == "moe":
+    pad_mask = None
+    seeds = None if analog is None else analog.seeds
+    if analog is not None and seeds is None:
+        valid = None
+        if lengths is not None and cfg.family == "moe":
             valid = lengths.cpu().numpy() > 0
-        # non-blocking: a blocking host-to-device copy would wait for every
-        # queued kernel
+        # the "torch" backend seeds its generators from host words: its
+        # tables stay on the CPU
+        dev = "cpu" if analog.cfg.backend == "torch" else h.device
+        # non-blocking: a blocking copy would wait for every queued kernel
+        seeds = {k: torch.from_numpy(v).to(dev, non_blocking=True) for k, v in
+                 seed_tables(cfg, analog.key, valid, analog.rows_per_key).items()}
+    if lengths is not None:
         lengths = lengths.to(h.device, non_blocking=True).long()
         if mode == "decode":
             pad_mask = (lengths == 0)[:, None]
@@ -792,20 +861,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     table = tail_table = experts = None
     rows, tail_ks = [(1,) * per] * g, [1] * tail
     if analog is not None:
-        # the global group index keys the noise: a profile's layer l draws
-        # the stream of the uniform path's layer l. The "torch" backend
-        # seeds its generators from host words: its table stays on the CPU.
-        dev = "cpu" if analog.cfg.backend == "torch" else h.device
-        table = site_seed_table(analog.key, g, sites, dev)
-        tail_table = (site_seed_table(analog.key, [g * per + j for j in range(tail)], TAIL_SITES,
-                                      dev) if tail else None)
-        if expert_sites(cfg):
-            n_e = cfg.n_experts * cfg.moe_ff_split
-            if analog.rows_per_key > 1:  # one stream a noise sample: (G, sites, S, E, 4)
-                experts = torch.stack([expert_seed_table(k, g, expert_sites(cfg), n_e, None, dev)
-                                       for k in analog.key], dim=2)
-            else:
-                experts = expert_seed_table(analog.key, g, expert_sites(cfg), n_e, valid, dev)
+        table, tail_table, experts = seeds["groups"], seeds.get("tail"), seeds.get("experts")
         rows, tail_ks = _layer_ks(cfg, analog)
         energy_tree = (analog.energies if analog.noise_scale is None
                        else drifted_energies(analog.energies, analog.noise_scale))
@@ -965,7 +1021,8 @@ def logits_last(params, h_last: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
-            lengths: Optional[torch.Tensor] = None, hook: Optional[MatmulHook] = None):
+            lengths: Optional[torch.Tensor] = None, hook: Optional[MatmulHook] = None,
+            cache=None):
     """Run the prompt; returns (cache, last hidden (B, 1, d)).
 
     ``batch``: ``{"tokens"}``, ``{"embeds"}`` or ``{"tokens",
@@ -981,14 +1038,19 @@ def prefill(params, batch, cfg: ModelConfig, analog=None, cache_len=None,
     pad tokens out of expert capacity. Length 0 marks a batch-padding row.
     Without ``cache_len`` the cache holds the prompt (a ring cache: the
     whole window, as the reference sizes it). ``hook``: the matmul hook of
-    a digital forward (``analog`` None; default plain matmuls).
+    a digital forward (``analog`` None; default plain matmuls). ``cache``:
+    an ``init_cache(cfg, B, cache_len)``-shaped tree to prefill in place
+    (reset first, ``reset_cache``) instead of a new one.
     """
     h = _embed_inputs(params, batch, cfg)
     b, t = h.shape[:2]
-    if cache_len is None:
-        w = _window(cfg)
-        cache_len = t if w is None else max(t, w)
-    cache = init_cache(cfg, b, cache_len, device=h.device)
+    if cache is not None:
+        reset_cache(cfg, cache)
+    else:
+        if cache_len is None:
+            w = _window(cfg)
+            cache_len = t if w is None else max(t, w)
+        cache = init_cache(cfg, b, cache_len, device=h.device)
     h = forward_hidden(params, h, cfg, cache=cache, analog=analog, lengths=lengths, hook=hook)
     if lengths is None:
         return cache, h[:, -1:]

@@ -6,7 +6,8 @@ precision-tiered scheduling, persistent per-tier decode slot pools
 streaming ``MetricsFeed`` (faults.py, monitor.py), the SLA precision
 governor (policy.py), a replicated cluster router with health-checked
 failover and hedged dispatch (cluster.py), and the engine tying them to
-``models/lm.py``. The reference's executable cache is not ported."""
+``models/lm.py`` through the executable cache (cache.py: each step a CUDA
+graph on the card)."""
 from repro_torch.core.profile import PrecisionProfile
 from repro_torch.serving.bucketing import (
     DEFAULT_BATCH_BUCKETS,
@@ -16,6 +17,7 @@ from repro_torch.serving.bucketing import (
     pad_to_bucket,
     pool_shape,
 )
+from repro_torch.serving.cache import ExecutableCache, mesh_fingerprint
 from repro_torch.serving.cluster import ClusterGovernor, ClusterRouter, RequestJournalEntry
 from repro_torch.serving.engine import Failed, RequestFailure, ServingEngine, TimedOut
 from repro_torch.serving.faults import (
@@ -60,6 +62,7 @@ __all__ = [
     "DigitalTier",
     "DriftEvent",
     "DriftRamp",
+    "ExecutableCache",
     "ExecutionTier",
     "Failed",
     "FaultPlan",
@@ -91,6 +94,7 @@ __all__ = [
     "WatchdogConfig",
     "bucket_shape",
     "load_signals",
+    "mesh_fingerprint",
     "next_bucket",
     "pad_to_bucket",
     "pool_shape",

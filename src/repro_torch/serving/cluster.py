@@ -397,6 +397,7 @@ class ClusterRouter:
                 "state": h.state,
                 "heartbeat_step": int(h.feed.heartbeat_step),
                 "dispatched": h.dispatched,
+                "traces": int(h.engine.trace_count),
                 "requests": h.engine.stats["requests"],
                 "tokens_generated": h.engine.stats["tokens_generated"],
                 "demoted": h.engine.stats["demoted"],

@@ -4,7 +4,17 @@ Port of ``repro/serving/engine.py``:
 
   submit -> TierScheduler groups same-tier requests        (scheduler.py)
          -> pad into a power-of-two (batch, seq) bucket    (bucketing.py)
-         -> prefill, then decode steps                     (tiers.py, models/lm.py)
+         -> a cached step per (phase, bucket, tier, mesh)  (cache.py, tiers.py)
+         -> prefill, then decode steps                     (models/lm.py)
+
+The steps are the reference's executables: on the card with the
+``"cuda"`` backend each is a CUDA graph, captured at its first call and
+replayed after (``ExecutableCache``, ``trace_count``, ``cache_stats()``);
+elsewhere the eager step. A step reads static tensors the engine refills
+before each call (tokens, positions, lengths and seed words through one
+host-to-device copy, the decode token, the noise scale) and updates a
+static cache in place: one cache per (batch bucket, cache length) in
+batch-synchronous mode, each pool's own in continuous mode.
 
 Two decode disciplines share that pipeline:
 
@@ -88,12 +98,20 @@ from repro_torch.serving.bucketing import (
     pad_to_bucket,
     pool_shape,
 )
+from repro_torch.kernels.dispatch import CUDA, resolve_backend
+from repro_torch.serving.cache import ExecutableCache, Step, mesh_fingerprint
 from repro_torch.serving.faults import BoundedLog, FaultPlan, QueueFull, TransientExecutableFault
 from repro_torch.serving.policy import PolicyConfig, PrecisionGovernor
 from repro_torch.serving.pool import DecodePool
 from repro_torch.serving.scheduler import Request, TierScheduler
 from repro_torch.serving.tiers import ExecutionTier, TierRegistry
 from repro_torch.tree import map_leaves
+
+
+def _step_of(exe) -> Step:
+    """The ``Step`` behind a cache entry (the cache may wrap it in its fault
+    guard)."""
+    return getattr(exe, "__wrapped__", exe)
 
 
 def batch_keys(keys: Sequence[np.ndarray], bb: int) -> np.ndarray:
@@ -152,11 +170,13 @@ class ServingEngine:
     says otherwise; a request whose seq bucket plus budget does not fit a
     slot is rejected at submit.
 
+    ``max_entries`` bounds the step cache (LRU; default unbounded).
     ``max_queue`` bounds the scheduler queue (``QueueFull`` past it).
     ``fault_plan`` arms the injection sites, whenever it is set (the
-    reference arms its executable guard only when a plan is given at
-    construction: the port has no executable cache and guards every call
-    while a plan is set; ``fault_plan = None`` models repaired hardware). ``max_retries`` bounds a faulted request's retries and
+    reference arms its cache's executable guard only when a plan is given
+    at construction; the port's guard reads the plan at every call, so a
+    plan set later fires too; ``fault_plan = None`` models repaired
+    hardware). ``max_retries`` bounds a faulted request's retries and
     ``k_ladder`` is the calibrated ladder of uniform K that retries and the
     drift response climb. ``fault_log`` keeps the last ``fault_log_maxlen``
     fault and policy events. ``policy`` builds a ``PrecisionGovernor``;
@@ -188,6 +208,7 @@ class ServingEngine:
         continuous: bool = False,
         pool_slots: Optional[int] = None,
         pool_cache_len: Optional[int] = None,
+        max_entries: Optional[int] = None,
         max_queue: Optional[int] = None,
         fault_plan: Optional[FaultPlan] = None,
         max_retries: int = 1,
@@ -236,6 +257,25 @@ class ServingEngine:
         self.fault_plan = fault_plan
         self.max_retries = int(max_retries)
         self.k_ladder = tuple(sorted({int(k) for k in k_ladder}))
+
+        def _exe_guard(key):
+            if self.fault_plan is not None:
+                self.fault_plan.check_executable(key)
+
+        #: the built steps (serving/cache.py); the fault guard runs before
+        #: every call
+        self.exe_cache = ExecutableCache(max_entries=max_entries, fault_hook=_exe_guard)
+        #: steps on the card with the "cuda" backend are CUDA graphs: every
+        #: phase (prefill, decode, insert) of every family (dense, griffin,
+        #: xlstm, moe: no shape in a forward depends on the data)
+        self.graphs = self.device.type == "cuda" and (
+            analog_cfg is None or resolve_backend(analog_cfg, torch.empty(0, device=self.device))
+            == CUDA)
+        self._graph_pool = None
+        #: (batch bucket, cache length) -> the static cache its prefill fills
+        #: and its decode steps update
+        self._batch_caches: Dict[tuple, dict] = {}
+        self._traces = 0  # steps built (== cache misses since construction)
         self.continuous = bool(continuous)
         self.pool_slots, self.pool_cache_len = pool_shape(
             pool_slots if pool_slots is not None else max(batch_buckets), seq_buckets, max_gen
@@ -253,8 +293,10 @@ class ServingEngine:
         self._base_key = PRNGKey(seed)
         self._uid = 0
         self._clock: Optional[str] = None  # "real" | "virtual", set on first use
-        #: the attached tensor-parallel mesh (None: unsharded)
+        #: the attached tensor-parallel mesh (None: unsharded) and its cache
+        #: key fingerprint (() unmeshed)
         self._mesh = None
+        self._mesh_key: tuple = ()
         #: the realized noise-std drift factor (1.0 nominal) and its 0-d
         #: float32 operand on the device, refilled in place when it changes
         self._noise_scale = 1.0
@@ -654,6 +696,11 @@ class ServingEngine:
         """The attached tensor-parallel mesh (None: unsharded serving)."""
         return self._mesh
 
+    @property
+    def mesh_key(self) -> tuple:
+        """The mesh fingerprint appended to every cache key (() unmeshed)."""
+        return self._mesh_key
+
     def attach_mesh(self, mesh) -> None:
         """Attach (or resize to) a tensor-parallel mesh; ``None`` detaches.
 
@@ -662,14 +709,20 @@ class ServingEngine:
         whose noise is drawn at global column offsets, so the tokens equal
         the unsharded engine's bit for bit. Refused while requests are in
         flight (their decode state belongs to the old mesh); the pools
-        are dropped and rebuilt lazily. The moe and xlstm families are not
-        served under a mesh yet.
+        are dropped and rebuilt lazily. Cache keys carry the mesh's
+        fingerprint: a resize builds fresh steps once, and a resize back to
+        a previous mesh hits its entries. The moe and xlstm families are
+        not served under a mesh yet.
         """
         if self.n_in_flight:
             raise ValueError(
                 f"cannot attach/resize a mesh with {self.n_in_flight} requests in flight "
                 "(their decode state belongs to the current mesh); drain with flush() first")
         self._mesh = mesh
+        self._mesh_key = mesh_fingerprint(mesh)
+        for pool in self._pools.values():  # graphs on a dropped pool's cache go with it
+            for _key, step in self.exe_cache.entries():
+                step.forget(pool.cache)
         self._pools.clear()  # rebuilt lazily under the new mesh
 
     def _mesh_ctx(self):
@@ -679,21 +732,61 @@ class ServingEngine:
             return contextlib.nullcontext()
         return sharding.use_mesh(self._mesh)
 
-    def _guard(self, phase: str, tier, *shape) -> None:
-        """The injection point of a prefill, decode or insert call: raises
-        the plan's ``TransientExecutableFault`` before any launch (``tier``
-        None for the tier-free insert)."""
-        if self.fault_plan is not None:
-            key = (phase,) + shape + (() if tier is None else (tier,))
-            self.fault_plan.check_executable(key)
+    # -- steps ---------------------------------------------------------------
+    # the builders and the cache-key identity live on the tiers
+    # (serving/tiers.py): the engine composes ``tiers.exe_key(phase, tier,
+    # *shape)`` with ``tier.build_*``, refills the step's inputs and calls it
+
+    def _make_step(self, tier, fn, inputs, shape: tuple, params: bool = True,
+                   **static) -> Step:
+        """A tier's built step: a CUDA graph on the card with the "cuda"
+        backend (``graphs``), else eager. ``shape``: the phase and shapes
+        of its key; ``params``: whether it reads the tier's parameters (a
+        swap of them captures again) and is the tier's (its cache_key)."""
+        self._traces += 1
+        ident = tier.cache_key() if params else None
+        return Step(fn, inputs, capture=self.graphs, pool=self._shared_pool,
+                    params=(lambda: tier.params) if params else None,
+                    warm_key=(self.device, self.model_cfg, self.analog_cfg, self.mesh_key, ident)
+                    + shape,
+                    on_capture=self._captured, on_capture_error=self._drop_pool, **static)
+
+    def _shared_pool(self):
+        """The one graph memory pool every step of the engine shares."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _drop_pool(self) -> None:
+        """A capture failed: PyTorch leaves its pool recording, so the next
+        capture takes a new one."""
+        self._graph_pool = None
+
+    def _captured(self, seconds: float) -> None:
+        self.exe_cache.compile_s += seconds
+
+    def _batch_cache(self, bb: int, cache_len: int):
+        """The static cache of a (bb, cache_len) bucket: what its prefill
+        fills and its decode steps (or an admission's insert) read."""
+        cache = self._batch_caches.get((bb, cache_len))
+        if cache is None:
+            cache = self._batch_caches[(bb, cache_len)] = lm.init_cache(
+                self.model_cfg, bb, cache_len, device=self.device)
+        return cache
+
+    def _place(self, tree):
+        """A cache tree on the engine's device (every shard's: the mesh
+        keeps the engine's tensors replicated)."""
+        return map_leaves(lambda _p, t: t.to(self.device), tree)
 
     # -- execution -----------------------------------------------------------
 
     def _prefill_batch(self, reqs: List[Request], cache_len: Optional[int] = None):
         """Pad into a bucket and prefill at ``cache_len`` (default: the
-        batch's ``sb + max_gen``; admission passes the pool's): returns
-        (bb, cache_len, lengths (bb,) numpy, keys (bb, 2), cache, first
-        tokens (bb,) on the device)."""
+        batch's ``sb + max_gen``; admission passes the pool's) into the
+        static cache of (bb, cache_len): returns (bb, cache_len, lengths
+        (bb,) numpy, keys (bb, 2), first tokens (bb,), a copy on the
+        device)."""
         tier_id = reqs[0].tier
         if any(r.tier != tier_id for r in reqs):
             raise ValueError("mixed-tier batch")
@@ -710,22 +803,22 @@ class ServingEngine:
             [r.tokens for r in reqs], (bb, sb), pad_id=self.pad_id
         )
         keys = batch_keys([r.key for r in reqs], bb)
-        self._guard("prefill", tier_id, bb, sb, cache_len)
+        exe = self.exe_cache.get(self.tiers.exe_key("prefill", tier_id, bb, sb, cache_len),
+                                 lambda: tier.build_prefill(bb, sb, cache_len))
         self._sync_noise_scale()
-        cache, logits = tier.prefill(
-            torch.from_numpy(tokens_np).to(self.device, non_blocking=True),
-            torch.from_numpy(lengths_np).to(self.device, non_blocking=True),
-            keys, cache_len, noise_scale=self._scale_arr(),
-        )
+        self._scale_arr()
+        tier.fill(_step_of(exe), keys, tokens=tokens_np, lengths=lengths_np)
+        _logits, tok = exe(self._batch_cache(bb, cache_len))
         self.stats["batches"] += 1
         self.stats["padded_rows"] += bb - len(reqs)
-        return bb, cache_len, lengths_np, keys, cache, torch.argmax(logits, dim=-1)
+        # a graph's outputs are rewritten by its next replay: keep a copy
+        return bb, cache_len, lengths_np, keys, tok.clone()
 
     def _run_batch(self, reqs: List[Request]) -> Dict[int, RequestResult]:
         tier_id = reqs[0].tier
         tier = self.tiers.get(tier_id)
         try:
-            bb, cache_len, lengths, keys, cache, tok = self._prefill_batch(reqs)
+            bb, cache_len, lengths, keys, tok = self._prefill_batch(reqs)
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(reqs, "exe_fault", str(f))
@@ -747,15 +840,22 @@ class ServingEngine:
                 for i, r in enumerate(reqs)
             ]
         steps_run = 0
+        if n_steps > 0:  # a one-token batch never needs the decode step
+            exe = self.exe_cache.get(self.tiers.exe_key("decode", tier_id, bb, cache_len),
+                                     lambda: tier.build_decode(bb, cache_len))
+            step = _step_of(exe)
+            step.static["tok"].copy_(tok)
+            cache = self._batch_cache(bb, cache_len)
         for t in range(n_steps):
             if has_stops and all(done):
                 break  # every real row hit its budget or a stop id
             self._fault_clock += 1
             self._sync_noise_scale()
             try:
-                self._guard("decode", tier_id, bb, cache_len)
-                logits, cache = tier.decode(cache, tok, lengths + t, keys, lengths,
-                                            noise_scale=self._scale_arr())
+                self._scale_arr()
+                tier.fill(step, keys, fold=lengths + t, pos=lengths + t, lengths=lengths)
+                _logits, nxt = exe(cache)
+                step.static["tok"].copy_(nxt)
             except TransientExecutableFault as f:
                 # raised before the step: the batch retries from scratch
                 self.stats["exe_faults"] += 1
@@ -767,7 +867,7 @@ class ServingEngine:
                 self.stats["decode_steps"] += steps_run
                 self.stats["decode_slot_steps"] += steps_run * bb
                 return self._fault_requeue(reqs, "exe_error", repr(e))
-            tok = torch.argmax(logits, dim=-1)
+            tok = nxt.clone()
             toks.append(tok)
             steps_run += 1
             if has_stops:
@@ -804,6 +904,8 @@ class ServingEngine:
                                     device=self.device),
                 exec_tier=self.tiers.get(tier),
             )
+            # the pool's cache is the static tree its decode and insert steps hold
+            pool.place_cache(self._place)
             self._pools[tier] = pool
         return pool
 
@@ -868,7 +970,7 @@ class ServingEngine:
         if len(reqs) > pool.n_free:
             raise ValueError(f"admitting {len(reqs)} requests into {pool.n_free} free slots")
         try:
-            bb, _cl, _lengths, _keys, src_cache, tok = self._prefill_batch(reqs, pool.cache_len)
+            bb, _cl, _lengths, _keys, tok = self._prefill_batch(reqs, pool.cache_len)
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(reqs, "exe_fault", str(f))
@@ -881,9 +983,14 @@ class ServingEngine:
         # batch-padding rows aim past the pool and are dropped
         slot_ids = np.full((bb,), pool.slots, np.int64)
         slot_ids[: len(reqs)] = slots
+        # tier-free key: the cache layout is parameter- and noise-free, so
+        # one insert serves every tier's pool of this shape
+        exe = self.exe_cache.get(
+            self.tiers.exe_key("insert", None, pool.slots, pool.cache_len, bb),
+            lambda: pool.exec_tier.build_insert(pool.slots, pool.cache_len, bb))
         try:
-            self._guard("insert", None, pool.slots, pool.cache_len, bb)
-            lm.scatter_cache_rows(self.model_cfg, pool.cache, src_cache, slot_ids)
+            _step_of(exe).inputs.fill(slot_ids=slot_ids)
+            exe(pool.cache)
         except TransientExecutableFault as f:
             for s in slots:
                 pool.release(s)
@@ -936,13 +1043,18 @@ class ServingEngine:
                                    "uids": [pool.record(s).request.uid
                                             for s in pool.active_slots()]})
             return {}
+        tier = pool.exec_tier
+        exe = self.exe_cache.get(
+            self.tiers.exe_key("decode", pool.tier, pool.slots, pool.cache_len),
+            lambda: tier.build_decode(pool.slots, pool.cache_len))
+        step = _step_of(exe)
         try:
-            self._guard("decode", pool.tier, pool.slots, pool.cache_len)
             self._sync_noise_scale()
-            tok_dev = torch.from_numpy(pool.tok.astype(np.int64)).to(self.device,
-                                                                     non_blocking=True)
-            logits, pool.cache = pool.exec_tier.decode(pool.cache, tok_dev, pool.pos, pool.keys,
-                                                       pool.lengths, noise_scale=self._scale_arr())
+            self._scale_arr()
+            tier.fill(step, pool.keys, fold=pool.pos, pos=pool.pos, lengths=pool.lengths)
+            step.static["tok"].copy_(torch.from_numpy(pool.tok.astype(np.int64)),
+                                     non_blocking=True)
+            _logits, tok = exe(pool.cache)
         except TransientExecutableFault as f:
             self.stats["exe_faults"] += 1
             return self._fault_requeue(self._retire_all(pool), "exe_fault", str(f))
@@ -951,7 +1063,6 @@ class ServingEngine:
             # bounded-retry path
             self.stats["exe_errors"] += 1
             return self._fault_requeue(self._retire_all(pool), "exe_error", repr(e))
-        tok = torch.argmax(logits, dim=-1)
         t_read = time.perf_counter()
         tok_np = tok.cpu().numpy()  # retiring rows needs this step's tokens
         self.stats["pool_read_s"] += time.perf_counter() - t_read
@@ -1025,6 +1136,15 @@ class ServingEngine:
                 raise ValueError("digital engine: no energy tree to account")
             return lm.profile_token_energy(self.model_cfg, self._energies, tier)
         return float(self.tiers.get(tier).energy_per_token())
+
+    @property
+    def trace_count(self) -> int:
+        """Steps built since construction (== the cache's misses before any
+        ``reset_stats``): the reference's retrace count."""
+        return self._traces
+
+    def cache_stats(self) -> dict:
+        return self.exe_cache.stats()
 
     def probe_apply(self):
         """``(energies, tokens, key) -> final hidden states`` over the live

@@ -300,9 +300,9 @@ class MetricsFeed:
     the delta since the previous sample (divide by ``dt`` for tokens/s),
     pool occupancy, the tier's own honest energy/token, and its
     ``drift_exempt`` flag. Tier keys are stringified so samples round-trip
-    through JSON unchanged. The reference's ``traces`` field (its
-    executables' retrace count) is left out: the port compiles no
-    executables, so it would read 0 forever.
+    through JSON unchanged. ``traces`` is the engine's ``trace_count``:
+    the steps it built (each a CUDA graph on the card), flat once the
+    traffic's shapes are warm.
 
     ``capacity`` bounds the in-memory ring (oldest samples drop);
     ``jsonl_path`` streams every sample as one JSON line (append mode,
@@ -410,6 +410,7 @@ class MetricsFeed:
             "noise_scale": float(engine.noise_scale),
             "drift_promoted": bool(engine.promoted),
             "drift_estimate": self._drift_estimate,
+            "traces": int(engine.trace_count),
             "tokens_total": int(engine.stats["tokens_generated"]),
             "tiers": tiers,
             # replication fields (appended last: old JSONL consumers that

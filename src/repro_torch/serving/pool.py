@@ -1,10 +1,11 @@
 """Persistent decode slot pools: the state behind continuous batching.
 
-Port of ``repro/serving/pool.py`` (without mesh placement).
+Port of ``repro/serving/pool.py``.
 A ``DecodePool`` is one tier's always-resident decode batch: ``slots``
 rows, each free or carrying one in-flight request, over one device cache
-tree (``lm.init_cache(cfg, slots, cache_len)``) that the pool's decode
-steps and admissions update in place. The engine decodes the whole pool
+tree (``lm.init_cache(cfg, slots, cache_len)``, placed by the engine with
+``place_cache``) that the pool's decode steps and admissions update in
+place: the static tree their CUDA graphs hold. The engine decodes the whole pool
 every step; free slots ride along as length-0 rows at position 0 with key
 words (0, 0), the batch-padding contract, and their outputs are
 discarded. A slot retires the step its request reaches its token budget
@@ -105,6 +106,13 @@ class DecodePool:
         self.lengths = np.zeros((self.slots,), np.int32)  # 0 == inactive row
         self.keys = np.zeros((self.slots, 2), np.uint32)
         self._rec: List[Optional[SlotRecord]] = [None] * self.slots
+
+    def place_cache(self, put) -> None:
+        """Place the pool's cache with ``put`` (tree -> tree), once, before
+        its first step: the engine's device placement. Every step then
+        updates this tree in place, and a step captured as a CUDA graph
+        holds its addresses."""
+        self.cache = put(self.cache)
 
     @property
     def n_free(self) -> int:

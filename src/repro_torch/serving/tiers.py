@@ -24,8 +24,16 @@ same tier for digital), ``drift_promote()`` (the tier new traffic serves
 at while the engine's drift response is on) and ``drift_exempt``
 (digital tiers do not drift with the analog array).
 
-PyTorch runs eagerly, so a tier executes directly; there is no compiled
-executable cache as in the reference.
+A tier also builds the engine's cached steps (``build_prefill``,
+``build_decode``, ``build_insert``: the reference's AOT executables) and
+names them (``cache_key``, the identity suffix of every cache key;
+``TierRegistry.exe_key`` composes the key). A step runs over static
+tensors the engine refills before each call: the tokens, positions,
+lengths and seed words (``HostInputs``, one host-to-device copy a call),
+the noise scale, the decode token and the cache it updates in place. On
+the card with the ``"cuda"`` backend it is captured as a CUDA graph and
+replayed (``serving/cache.py``); elsewhere it runs eagerly. ``prefill``
+and ``decode`` are the eager steps themselves, from host keys.
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ from repro_torch.core.profile import PrecisionProfile
 from repro_torch.models import lm
 from repro_torch.models.hooks import ServingMatmulHook
 from repro_torch.quant.weights import quantize_params
+from repro_torch.serving.cache import HostInputs
+
+I64 = torch.int64
 
 
 #: the matmul hook of every served digital forward: a request's tokens do
@@ -73,11 +84,106 @@ class ExecutionTier:
         """The parameter tree this tier's forwards read: the engine's."""
         return self.engine.params
 
-    def analog_spec(self, keys: np.ndarray, pos=None, noise_scale=None):
+    def cache_key(self) -> tuple:
+        """The identity suffix of every cache key of this tier's steps:
+        everything that changes the step (repeat schedule, backend, noise
+        kind, number format) and nothing else; two tiers with equal keys
+        share steps."""
+        raise NotImplementedError
+
+    def analog_spec(self, keys: Optional[np.ndarray], pos=None, noise_scale=None, seeds=None):
         """AnalogSpec of this tier's forwards (None: digital). ``keys`` are
         the batch's stacked raw keys, ``pos`` the decode positions (B,),
-        ``noise_scale`` the engine's 0-d drift tensor."""
+        ``noise_scale`` the engine's 0-d drift tensor; ``seeds`` the
+        forward's seed tables on the device in place of ``keys``."""
         return None
+
+    def seed_words(self, keys: np.ndarray, pos=None, lengths=None) -> Dict[str, np.ndarray]:
+        """The host seed words of one forward of this tier (``lm.seed_tables``
+        of its keys, folded with ``pos`` at a decode step; rows of
+        ``lengths`` 0 left out of MoE's batch key); empty for a digital tier."""
+        spec = self.analog_spec(keys, pos=pos)
+        if spec is None:
+            return {}
+        valid = None if lengths is None else np.asarray(lengths) > 0
+        return lm.seed_tables(self.engine.model_cfg, spec.key, valid)
+
+    def _inputs(self, bb: int, **fields) -> HostInputs:
+        """The step's host inputs: ``fields`` and this tier's seed words for
+        ``bb`` rows, on the engine's device."""
+        for name, words in self.seed_words(np.zeros((bb, 2), np.uint32)).items():
+            fields[f"seed_{name}"] = (words.shape, torch.int32)
+        return HostInputs(fields, self.engine.device)
+
+    def _spec(self, inputs: HostInputs):
+        seeds = {name[5:]: inputs[name] for name in inputs.names if name.startswith("seed_")}
+        return self.analog_spec(None, noise_scale=self.engine._scale_t, seeds=seeds)
+
+    def fill(self, step, keys: np.ndarray, fold=None, **fields) -> None:
+        """Refill ``step``'s host inputs: ``fields`` and the seed words of
+        ``keys``, folded with the decode positions ``fold`` (MoE's batch
+        key leaves out the rows of ``fields["lengths"]`` 0)."""
+        seeds = self.seed_words(keys, pos=fold, lengths=fields.get("lengths"))
+        step.inputs.fill(**fields, **{f"seed_{k}": v for k, v in seeds.items()})
+
+    def build_prefill(self, bb: int, sb: int, cache_len: int):
+        """The cached prefill of a (bb, sb) bucket at ``cache_len``: fills
+        the engine's static cache of (bb, cache_len) in place; returns
+        (logits (bb, V) f32, first tokens (bb,)). Host inputs: ``tokens``,
+        ``lengths`` and the seed words of the batch keys."""
+        eng = self.engine
+        cfg = eng.model_cfg
+        inputs = self._inputs(bb, tokens=((bb, sb), I64), lengths=((bb,), I64))
+
+        def fn(cache):
+            params = self.params
+            with eng._mesh_ctx():
+                _, h_last = lm.prefill(params, inputs["tokens"], cfg, analog=self._spec(inputs),
+                                       lengths=inputs["lengths"], hook=SERVED_DIGITAL,
+                                       cache=cache)
+            logits = lm.logits_last(params, h_last, cfg)[:, 0, 0].to(torch.float32)
+            return logits, torch.argmax(logits, dim=-1)
+
+        return eng._make_step(self, fn, inputs, ("prefill", bb, sb, cache_len))
+
+    def build_decode(self, bb: int, cache_len: int):
+        """The cached decode step of ``bb`` rows at ``cache_len`` over a
+        cache it updates in place (the engine's static batch cache or a
+        pool's): returns (logits (bb, V) f32, next tokens (bb,)). Host
+        inputs: ``pos``, ``lengths`` and the seed words of the keys folded
+        with ``pos``; ``static["tok"]`` (bb,): this step's tokens, refilled
+        on the device."""
+        eng = self.engine
+        cfg = eng.model_cfg
+        inputs = self._inputs(bb, pos=((bb,), I64), lengths=((bb,), I64))
+        tok = torch.zeros((bb,), dtype=I64, device=eng.device)
+
+        def fn(cache):
+            with eng._mesh_ctx():
+                logits, _ = lm.decode_step(self.params, cache, tok[:, None], inputs["pos"], cfg,
+                                           analog=self._spec(inputs), lengths=inputs["lengths"],
+                                           hook=SERVED_DIGITAL)
+            logits = logits[:, 0, 0].to(torch.float32)
+            return logits, torch.argmax(logits, dim=-1)
+
+        return eng._make_step(self, fn, inputs, ("decode", bb, cache_len), tok=tok)
+
+    def build_insert(self, slots: int, cache_len: int, bb: int):
+        """The cached admission insert: the engine's static prefill cache of
+        (bb, cache_len) copied into a pool cache of ``slots`` rows at the
+        host input ``slot_ids`` (bb,); ids ``slots`` (batch padding) are
+        dropped. Parameter- and noise-free: the registry keys it without a
+        tier suffix, one insert for every tier."""
+        eng = self.engine
+        cfg = eng.model_cfg
+        inputs = HostInputs({"slot_ids": ((bb,), I64)}, eng.device)
+        src = eng._batch_cache(bb, cache_len)
+
+        def fn(pool_cache):
+            lm.scatter_cache_rows(cfg, pool_cache, src, inputs["slot_ids"])
+            return ()
+
+        return eng._make_step(self, fn, inputs, ("insert", slots, cache_len, bb), params=False)
 
     def energy_per_token(self) -> float:
         """Modelled energy of one generated token (aJ)."""
@@ -125,7 +231,7 @@ class ExecutionTier:
 
 
 def _step_keys(keys, pos):
-    return keys if pos is None else fold_key(keys, np.asarray(pos))
+    return keys if pos is None or keys is None else fold_key(keys, np.asarray(pos))
 
 
 def _analog_energies(engine):
@@ -144,11 +250,15 @@ class UniformKTier(ExecutionTier):
         super().__init__(engine, int(k), accuracy=accuracy)
         self.k = int(k)
 
-    def analog_spec(self, keys, pos=None, noise_scale=None):
+    def cache_key(self) -> tuple:
+        cfg = self.engine.analog_cfg
+        return (self.k, cfg.backend, cfg.noise.kind)
+
+    def analog_spec(self, keys, pos=None, noise_scale=None, seeds=None):
         eng = self.engine
         return lm.AnalogSpec(cfg=eng.analog_cfg, energies=eng.energies,
                              key=_step_keys(keys, pos), n_repeats=self.k,
-                             noise_scale=noise_scale)
+                             noise_scale=noise_scale, seeds=seeds)
 
     def energy_per_token(self) -> float:
         eng = self.engine
@@ -171,13 +281,22 @@ class AnalogProfileTier(ExecutionTier):
         super().__init__(engine, profile.name, accuracy=profile.accuracy)
         self.profile = profile
 
-    def analog_spec(self, keys, pos=None, noise_scale=None):
+    def cache_key(self) -> tuple:
+        cfg = self.engine.analog_cfg
+        if cfg is None:
+            # registrable on a digital engine, never served there
+            return ("digital", "bf16")
+        # a uniform coalesced profile shares the bare-K element with
+        # UniformKTier: an equal schedule shares steps
+        return (self.profile.cache_key(), cfg.backend, cfg.noise.kind)
+
+    def analog_spec(self, keys, pos=None, noise_scale=None, seeds=None):
         eng = self.engine
         if eng.analog_cfg is None:
             return None
         return lm.AnalogSpec(cfg=eng.analog_cfg, energies=eng.energies,
                              key=_step_keys(keys, pos), profile=self.profile,
-                             noise_scale=noise_scale)
+                             noise_scale=noise_scale, seeds=seeds)
 
     def energy_per_token(self) -> float:
         eng = self.engine
@@ -218,6 +337,9 @@ class DigitalTier(ExecutionTier):
         super().__init__(engine, tier_id, accuracy=accuracy)
         self.aj_per_mac = None if aj_per_mac is None else float(aj_per_mac)
 
+    def cache_key(self) -> tuple:
+        return ("digital", "bf16")
+
     def energy_per_token(self) -> float:
         if self.aj_per_mac is None:
             raise ValueError("digital engine: no energy tree to account")
@@ -239,6 +361,9 @@ class Int8DigitalTier(DigitalTier):
         super().__init__(engine, tier_id, aj_per_mac=aj_per_mac, accuracy=accuracy)
         self._src = None
         self._qparams = None
+
+    def cache_key(self) -> tuple:
+        return ("digital", "int8")
 
     @property
     def params(self):
@@ -349,6 +474,18 @@ class TierRegistry:
         if p.is_uniform and p.coalesce:
             return int(p.repeats[0])
         return pid
+
+    def exe_key(self, phase: str, tier_id, *shape) -> tuple:
+        """The full cache key of one step: phase + static shape + the
+        engine's mesh fingerprint + the tier's ``cache_key()``.
+        ``tier_id=None`` builds a tier-free key (the admission insert,
+        shared by every tier). The fingerprint is ``()`` unmeshed; on a
+        mesh it makes a reshard build fresh steps, while a reshard back to
+        a previous mesh hits that mesh's entries."""
+        base = (phase,) + tuple(shape) + self._engine.mesh_key
+        if tier_id is None:
+            return base
+        return base + self.get(tier_id).cache_key()
 
     @property
     def profiles(self) -> Dict[str, PrecisionProfile]:

@@ -324,3 +324,105 @@ def test_attention_backward_and_train_step_on_card(cuda_device):
         assert torch.isfinite(metrics["loss"])
         runs.append(leaves(params))
     assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+
+
+#: a small bf16 dense model whose every analog site takes the decode and tc
+#: routes (rows of 16-byte multiples)
+GRAPH_MODEL = dict(name="graph-card", family="dense", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)
+
+
+def _graph_engine(dev, **kw):
+    from repro_torch.models import lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving import ServingEngine
+
+    cfg = ModelConfig(**GRAPH_MODEL)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    energies = lm.init_energy_tree(cfg, 20.0, device=dev)
+    return ServingEngine(params, cfg, analog_cfg=AnalogConfig.shot(), energies=energies,
+                         device=dev, max_gen=8, batch_buckets=(1, 2, 4), seq_buckets=(16, 32),
+                         **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_replayed_steps_equal_eager_steps_on_card(k, cuda_device):
+    """A tier's captured prefill and decode steps (``build_prefill``,
+    ``build_decode``: CUDA graphs, replayed) give the eager steps' logits
+    bit for bit over 6 decode steps, and the launches a replay counts are
+    the eager step's."""
+    from repro_torch.serving.engine import batch_keys
+    from repro_torch.tree import map_leaves
+
+    eng = _graph_engine(cuda_device)
+    assert eng.graphs
+    tier = eng.tiers.get(k)
+    rng = np.random.default_rng(9)
+    bb, sb, cache_len = 4, 16, 24
+    lengths = np.asarray([16, 9, 12, 0])
+    toks = rng.integers(0, 256, (bb, sb)) * (np.arange(sb)[None] < lengths[:, None])
+    keys = batch_keys([np.asarray([1, i], np.uint32) for i in range(3)], bb)
+    scale = eng._scale_arr()
+    cache_e, logits_e = tier.prefill(torch.from_numpy(toks).to(cuda_device),
+                                     torch.from_numpy(lengths).to(cuda_device), keys, cache_len,
+                                     noise_scale=scale)
+    prefill = tier.build_prefill(bb, sb, cache_len)
+    cache_g = eng._batch_cache(bb, cache_len)
+    for _ in range(2):  # the capture's call, then a replay
+        tier.fill(prefill, keys, tokens=toks, lengths=lengths)
+        logits_g, tok_g = prefill(cache_g)
+        assert torch.equal(logits_g, logits_e)
+    assert len(prefill.capture_s) == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        map_leaves(lambda _p, t: t, cache_g)["groups"].values(), cache_e["groups"].values()))
+    decode = tier.build_decode(bb, cache_len)
+    tok_e = torch.argmax(logits_e, dim=-1)
+    decode.static["tok"].copy_(tok_g)
+    for t in range(6):
+        pos = lengths + t
+        before = dict(am.LAUNCHES)
+        logits_e, cache_e = tier.decode(cache_e, tok_e, pos, keys, lengths, noise_scale=scale)
+        eager = {r: am.LAUNCHES[r] - before[r] for r in am.ROUTES}
+        tier.fill(decode, keys, fold=pos, pos=pos, lengths=lengths)
+        before = dict(am.LAUNCHES)
+        logits_g, nxt = decode(cache_g)
+        torch.cuda.synchronize()
+        assert {r: am.LAUNCHES[r] - before[r] for r in am.ROUTES} == eager, t
+        assert eager["decode"] > 0
+        assert torch.equal(logits_g, logits_e), t
+        tok_e = torch.argmax(logits_e, dim=-1)
+        decode.static["tok"].copy_(nxt)
+    assert len(decode.capture_s) == 1
+
+
+@pytest.mark.cuda
+def test_engine_replays_solo_equal_batched_on_card(cuda_device):
+    """Through the engine's cache: a warm replay of the same traffic misses
+    nothing and gives the same tokens, each request alone gives its tokens
+    in the batch, and a second engine, whose steps this process has run
+    before and so are captured without a warm-up, gives them too."""
+    eng = _graph_engine(cuda_device)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 14, 9)]
+
+    keys = [np.asarray([7, i], np.uint32) for i in range(len(prompts))]
+
+    def serve(idx):
+        uids = [eng.submit(prompts[i], n_repeats=2, max_new_tokens=6, key=keys[i]) for i in idx]
+        out = eng.flush()
+        return [out[u] for u in uids]
+
+    first = serve(range(3))
+    eng.exe_cache.reset_stats()
+    again = serve(range(3))
+    st = eng.cache_stats()
+    assert st["misses"] == 0 and st["hits"] == 2 * 1, st  # one batch: prefill + decode
+    assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    for i in range(3):
+        (solo,) = serve([i])
+        assert np.array_equal(solo, first[i]), i
+    eng = _graph_engine(cuda_device)
+    again = serve(range(3))
+    assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    assert eng.cache_stats()["misses"] == 2

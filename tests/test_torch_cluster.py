@@ -481,7 +481,7 @@ def test_engine_cancel_queued_and_pooled(env):
 LEGACY_FIELDS = [
     "step", "clock", "now", "dt", "queue_depth", "in_flight", "pool_active",
     "pool_slots", "occupancy", "queue_pressure", "urgent_frac", "policy_mode",
-    "noise_scale", "drift_promoted", "drift_estimate",
+    "noise_scale", "drift_promoted", "drift_estimate", "traces",
     "tokens_total", "tiers",
 ]
 

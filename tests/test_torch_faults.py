@@ -150,16 +150,10 @@ def _drift_episodes(make, plan_cls, ramp_cls):
     return out
 
 
-def _detail(text):
-    """A fault's detail without the call key's repr: the reference names its
-    executable-cache key, the port the guarded call's (phase, shape, tier)."""
-    return text.split(" (key=")[0]
-
-
 def _outcome(v):
     if isinstance(v, np.ndarray):
         return np.asarray(v).tolist()
-    return (type(v).__name__, _detail(v.detail), np.asarray(v.tokens).tolist(),
+    return (type(v).__name__, v.detail, np.asarray(v.tokens).tolist(),
             getattr(v, "retries", None))
 
 
@@ -173,8 +167,7 @@ def _fault_record(eng, uids, results):
     order, the engine's fault log, its fault counters and the plan's log."""
     return dict(
         results=[_outcome(results[u]) for u in uids],
-        fault_log=[dict(e, detail=_detail(e["detail"])) if "detail" in e else dict(e)
-                   for e in eng.fault_log],
+        fault_log=[dict(e) for e in eng.fault_log],
         stats={k: eng.stats[k] for k in FAULT_STATS},
         plan_log=list(eng.fault_plan.log),
         engine=eng,
@@ -324,30 +317,40 @@ def test_drift_ramp_shapes():
 
 
 def test_call_guard_fires_pre_dispatch(env):
-    """The port's counterpart of the reference's executable-cache guard: a
-    scheduled prefill fault raises before the tier's prefill runs (and so
-    before any launch and before a cache is touched); the phase counter is
-    the reference cache's."""
+    """The executable cache's guard: a scheduled prefill fault raises before
+    the tier's prefill step runs (and so before any launch and before a
+    cache is touched); the fault names the call by its cache key, which is
+    the reference cache's key, and the phase counter is the reference's."""
     plan = FaultPlan(exe_faults=[("prefill", 1)])
     eng = port_engine(env, plan=plan)
     calls = []
     tier = eng.tiers.get(2)
-    real = tier.prefill
-    tier.prefill = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    build = tier.build_prefill
+
+    def counted(*shape):
+        step = build(*shape)
+        fn = step.fn
+        step.fn = lambda *a: calls.append(shape) or fn(*a)
+        return step
+
+    tier.build_prefill = counted
     prompts, keys = _traffic(2)
-    _serve(eng, [(prompts[0], dict(n_repeats=2, max_new_tokens=2, key=keys[0]))])
+    submits = [[(prompts[i], dict(n_repeats=2, max_new_tokens=2, key=keys[i]))] for i in (0, 1)]
+    _serve(eng, submits[0])
     assert len(calls) == 1 and not eng.fault_log
-    uids, res = _serve(eng, [(prompts[1], dict(n_repeats=2, max_new_tokens=2, key=keys[1]))])
+    uids, res = _serve(eng, submits[1])
     # call #1 raised before dispatch; its retry (at K=4, another tier) ran
     assert len(calls) == 1 and eng.stats["exe_faults"] == 1
     assert eng.fault_log[0]["kind"] == "exe_fault" and eng.fault_log[0]["promoted"] == {1: 4}
     assert isinstance(res[uids[0]], np.ndarray)
-    # the reference cache counts the same phase calls
+    # the reference engine faults the same call under the same cache key
     jplan = JFaultPlan(exe_faults=[("prefill", 1)])
-    cache = JExecutableCache(fault_hook=jplan.check_executable)
-    cache.get(("prefill", 1, 32), lambda: (lambda *a: "ran"))(1)
-    with pytest.raises(JTransientExecutableFault):
-        cache.get(("prefill", 1, 32), lambda: (lambda *a: "ran"))(2)
+    jeng = ref_engine(env, plan=jplan)
+    for sub in submits:
+        _serve(jeng, sub)
+    key = ("prefill", 1, SB, SB + 8, 2, "tile", "shot")
+    assert eng.fault_log[0]["detail"] == jeng.fault_log[0]["detail"] == str(
+        TransientExecutableFault("prefill", 1, key))
     assert [(e["phase"], e["call"]) for e in jplan.log] == \
         [(e["phase"], e["call"]) for e in plan.log] == [("prefill", 1)]
 

@@ -88,7 +88,7 @@ def test_hook_for_layer_site_chain_and_seed_table(stacked):
     jkey = jnp.stack(_stacked()) if stacked else jax.random.PRNGKey(11)
     key = np.asarray(jkey)
     sites = ["attn0_q", "attn0_k", "mlp0_gate", "mlp0_out"]
-    table = analog.site_seed_table(key, 3, sites, "cpu")
+    table = torch.from_numpy(analog.site_seed_words(key, 3, sites))
     words = table.numpy().view(np.uint32)
     for layer in range(3):
         jh = jhooks.hook_for_layer(JAnalogConfig.shot(), {}, jkey, layer)
