@@ -730,6 +730,7 @@ def phase_routes() -> None:
     import torch
 
     from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_matmul as am
     from repro_torch.kernels.analog_matmul import analog_matmul_raw
 
     shot = AnalogConfig.shot()
@@ -755,6 +756,10 @@ def phase_routes() -> None:
         ("tc", (4, 64, 6144, 128), shot, 20.0, False, 1, False),
         ("decode", (4, 1, 768, 3072), shot, 20.0, False, 1, False),
         ("tc", (4, 64, 3072, 768), shot, 20.0, False, 4, False),
+        # the tc route's cluster sizes the site shapes leave out above: 4
+        # splits of K (recurrentgemma-2b's gate/up) and 1 (granite-20b's in)
+        ("tc", (4, 64, 2560, 7680), shot, 20.0, False, 4, False),
+        ("tc", (4, 64, 6144, 24576), shot, 20.0, False, 1, False),
     ]
     for route, (b, m, k, n), cfg, energy, quant, reps, cs_req in cases:
         o, _ = _site_operands(b, m, k, n, cfg, energy, quant, seed=77, cs_per_request=cs_req)
@@ -770,9 +775,11 @@ def phase_routes() -> None:
             y = _run_raw(analog_matmul_raw, solo, reps, route=route)
             solo_equal.append(bool(torch.equal(y[0], batched[i])))
         deterministic = bool(torch.equal(batched, again))
+        splits = (am.decode_plan(k, n, b * m)["splits"] if route == "decode" else
+                  am.tc_plan(b * m, k, n)["splits"] if route == "tc" else None)
         log("routes", route=route, shape=[b, m, k, n], noise=o["noise_kind"], n_repeats=reps,
             quant_out=o["quant_out"], cs_per_request=cs_req, solo_equals_batched=solo_equal,
-            deterministic=deterministic)
+            deterministic=deterministic, splits=splits)
         if not (all(solo_equal) and deterministic):
             raise AssertionError(f"route {route} at {(b, m, k, n)}: solo {solo_equal}, "
                                  f"deterministic {deterministic}")
@@ -923,7 +930,47 @@ def phase_site_time(draw_ps=None) -> list:
                 if route != "weight" or ms > simt_ms:
                     raise AssertionError(f"weight noise {stage} {site} K={reps}: route {route} "
                                          f"{ms} ms, simt {simt_ms} ms")
+    for line in site_summary(rows):
+        log("site_time_summary", **line, card=card())
     return rows
+
+
+#: the models whose forwards ``site_summary`` adds up
+SUMMARY_MODELS = ("granite-3-8b", "recurrentgemma-2b", *DENSE_SITES)
+
+
+def site_summary(rows) -> list:
+    """One line per (model, stage) of ``phase_site_time``'s shot-noise rows
+    (4 requests, K = 1): for each route, the launches of one forward
+    (``forward_shapes``), Σ (launches x ms) and Σ (launches x bound) over the
+    forward's site shapes, and their ratio. A shape is read from any row of
+    that (stage, K, N); an MoE model's expert shapes from its expert rows
+    (one request at the capacity rows), which the shared expert's shape
+    then shares. ``missing``: shapes no row timed."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for model in SUMMARY_MODELS:
+        shapes = forward_shapes(get_config(model))
+        for stage in ("prefill", "decode"):
+            routes, missing = {}, []
+            for (k, n), count in shapes.items():
+                cands = [r for r in rows if r["noise"] == "output" and r["stage"] == stage
+                         and list(r["shape"][2:]) == [k, n]]
+                expert = [r for r in cands if r.get("model") == model
+                          and r["site"].startswith("expert")]
+                if not cands:
+                    missing.append([k, n])
+                    continue
+                row = (expert or cands)[0]
+                t = routes.setdefault(row["route"], dict(launches=0, ms=0.0, bound_ms=0.0))
+                t["launches"] += count
+                t["ms"] += count * row["ms"]
+                t["bound_ms"] += count * row["bound_ms"]
+            for t in routes.values():
+                t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            out.append(dict(model=model, stage=stage, routes=routes, missing=missing))
+    return out
 
 
 def phase_sweep() -> None:
@@ -3921,15 +3968,17 @@ def phase_tp_routes() -> None:
                     if route == "decode":
                         plans = (am.decode_plan(k, nl, b * m, plan_n=n),
                                  am.decode_plan(k, n, b * m))
+                        fields = ("kc", "splits")
                     elif route == "weight":
                         plans = (am.weight_plan(k, nl, m, plan_n=n), am.weight_plan(k, n, m))
+                        fields = ("kc", "splits")
                     else:
-                        plans = ({"kc": am.TC_BK, "splits": am.tc_plan(b * m, k, nl)["k_tiles"]},
-                                 {"kc": am.TC_BK, "splits": am.tc_plan(b * m, k, n)["k_tiles"]})
-                    same_plan = all(plans[0][f] == plans[1][f] for f in ("kc", "splits"))
+                        plans = (am.tc_plan(b * m, k, nl, plan_n=n), am.tc_plan(b * m, k, n))
+                        fields = ("k_tiles", "splits")
+                    same_plan = all(plans[0][f] == plans[1][f] for f in fields)
                     row = dict(site=site, route=route, shape=[b, m, k, n], n_repeats=reps, tp=tp,
                                shard_equals_slice=equal, max_abs_err=err, atol=atol, ok=ok,
-                               kc_splits=[plans[0]["kc"], plans[0]["splits"]],
+                               plan={f: plans[0][f] for f in fields},
                                same_plan=same_plan, launched=launched)
                     if reps == 1 and route in ("decode", "tc"):
                         seeds = ops.shard_seeds(o["seed"], tp, nl)

@@ -12,7 +12,11 @@ interface with ``ctypes``:
     16-byte weight loads, f32 SIMT products, the splits added in a second
     pass;
   * ``tc`` (``csrc/analog_tc.cu``) - more rows, bf16 operands, no input
-    quantizers: bf16 tensor-core products (``wgmma`` fed by TMA), f32 sums;
+    quantizers: bound by the operand bytes at the served prefills, by the
+    products above. bf16 tensor-core products (``wgmma`` fed by TMA), f32
+    sums, K cut into 1, 2, 4 or 8 runs of whole 64-deep tiles that are the
+    ranks of one thread-block cluster, their partial tiles added in
+    distributed shared memory in rank order: one launch (``tc_plan``);
   * ``weight`` (``csrc/analog_weight.cu``) - weight noise, bf16 operands:
     bound by the noise draws; each drawn weight taken once a request, split-K
     over two waves of blocks, the splits added in a second pass; SIMT
@@ -24,15 +28,18 @@ interface with ``ctypes``:
     rows.
 
 ``select_route`` picks the route from the call's shapes and flags alone,
-never from the batch size, and every route's tiling depends on (K, N)
-only, so a request's rows are the same bits alone or in any batch.
-Every route reads the weight through its row stride, so a column shard
-``w[:, c0:c1]`` of a tensor-parallel call is a view, never a copy; with
-``plan_n`` = the whole weight's N the decode and weight routes split K as
-the whole call does (the tc route's K order never depends on N), so a
-shard at seed col0 = c0 gives exactly columns c0:c1 of the whole call.
-``analog_matmul_raw`` keeps the reference's signature plus a leading
-request axis: for a CPU tensor it runs the plain version
+never from the batch size. The order of every output's sum is fixed by
+(K, ``plan_n``) alone: each plan takes its split of K from them, sums each
+split in K order (the decode route over 8 k lanes) and adds the splits in
+a fixed order (the tc route in rank order); rows only pick which block
+computes an output. So a request's rows are the same bits alone or in
+any batch, and from launch to launch. Every route reads the weight
+through its row stride, so a column shard ``w[:, c0:c1]`` of a
+tensor-parallel call is a view, never a copy; with ``plan_n`` = the whole
+weight's N every route splits K as the whole call does, so a shard at seed
+col0 = c0 gives exactly columns c0:c1 of the whole call.
+``analog_matmul_raw`` keeps the reference's signature
+plus a leading request axis: for a CPU tensor it runs the plain version
 (``kernels/ref.py``); for a CUDA tensor it launches its route or raises.
 """
 from __future__ import annotations
@@ -79,10 +86,20 @@ DECODE_BN = 256
 DECODE_STEP = 32  # k lanes x loads in flight: the granule of a split
 DECODE_KC_MAX = 1024
 DECODE_TARGET_BLOCKS = 4 * 132
-#: tc route: 128 x 128 output tiles, 64-deep K tiles.
+#: tc route: 128 x 128 output tiles, 64-deep K tiles, each split at least
+#: ``TC_MIN_SPLIT`` K tiles (so its 3-stage ring fills); a 96 KB ring. The
+#: splits aim at ``TC_BLOCKS`` blocks a row tile: a served prefill (4 x 64
+#: rows, two row tiles) then runs about one block a SM, which the H100 ran
+#: fastest (PERF.md §6: two blocks a SM share its L2 bandwidth and add
+#: partial tiles to add).
 TC_BM = 128
 TC_BN = 128
 TC_BK = 64
+TC_MIN_SPLIT = 4
+TC_BLOCKS = 64
+#: the largest thread-block cluster that is portable: at most 8 splits of K
+CLUSTER_MAX = 8
+TC_RING = 3 * (TC_BM + TC_BN) * TC_BK * 2
 #: weight route: blocks of 128 threads over 64 columns and a slice of K
 #: (a multiple of 32 rows, at most 2048); prefill tiles of 64 rows. K is
 #: split for two waves of 4 blocks a SM on the H100's 132 SMs.
@@ -161,6 +178,26 @@ def route_takes(route: str, m: int, k: int, n: int, dtype: torch.dtype, noise_ki
     return route == "decode" or (route == "weight" and m <= M_DECODE) or not (quant_x or quant_w)
 
 
+def _cluster_splits(units: int, min_units: int, tiles: int, blocks: int) -> int:
+    """Splits of K for ``tiles`` column tiles (or columns): the least power
+    of two up to ``CLUSTER_MAX`` that gives ``blocks`` at one row group,
+    unless a split would get fewer than ``min_units`` of the ``units``
+    granules of K."""
+    splits = 1
+    while splits < CLUSTER_MAX and tiles * splits < blocks and units >= 2 * splits * min_units:
+        splits *= 2
+    return splits
+
+
+def split_ranges(units: int, splits: int, step: int, k: int) -> list:
+    """The (begin, end) rows of K of each split: ``units`` granules of
+    ``step`` rows cut into ``splits`` near-equal runs, split q taking
+    granules [q * units // splits, (q + 1) * units // splits), as the
+    kernels' ``split_begin`` does; the last run ends at K."""
+    bounds = [q * units // splits * step for q in range(splits)] + [k]
+    return [(bounds[q], min(bounds[q + 1], k)) for q in range(splits)]
+
+
 def decode_plan(k: int, n: int, rows: int, plan_n=None) -> dict:
     """Launch plan of the decode route for B * M = ``rows`` over ``n``
     columns; the split of K follows ``plan_n`` (default ``n``): a column
@@ -203,10 +240,18 @@ def weight_plan(k: int, n: int, rows: int, plan_n=None) -> dict:
                 row_tiles=0 if rows <= M_DECODE else _cdiv(rows, WEIGHT_BM))
 
 
-def tc_plan(rows: int, k: int, n: int) -> dict:
+def tc_plan(rows: int, k: int, n: int, plan_n=None) -> dict:
     """Grid of the tc route: 128 x 128 output tiles (row tiles on grid.x),
-    ``k_tiles`` 64-deep K tiles in K order."""
-    return dict(grid_m=_cdiv(rows, TC_BM), grid_n=_cdiv(n, TC_BN), k_tiles=_cdiv(k, TC_BK))
+    ``k_tiles`` 64-deep K tiles cut into ``splits`` (1, 2, 4 or 8, one
+    cluster; grid.z) runs of whole tiles (``split_ranges``). The split is a
+    function of (K, ``plan_n``) alone (default ``n``; a column shard passes
+    the whole weight's N): enough splits for cdiv(``plan_n``, 128) x
+    splits >= ``TC_BLOCKS`` blocks at one row tile, each at least
+    ``TC_MIN_SPLIT`` tiles. ``smem``: the block's shared memory."""
+    k_tiles = _cdiv(k, TC_BK)
+    splits = _cluster_splits(k_tiles, TC_MIN_SPLIT, _cdiv(plan_n or n, TC_BN), TC_BLOCKS)
+    return dict(grid_m=_cdiv(rows, TC_BM), grid_n=_cdiv(n, TC_BN), k_tiles=k_tiles,
+                splits=splits, smem=TC_RING + 2 * 3 * 8 + 1024)
 
 
 def find_nvcc() -> str:
@@ -289,7 +334,7 @@ def library(route: str) -> ctypes.CDLL:
             lib.weight_draw_sum.argtypes = [u32, u32, i, i, i, f, i, p, p]
             lib.weight_draw_sum.restype = i
         else:
-            lib.analog_tc_launch.argtypes = common + [i] * 8 + [f, i, i, p]
+            lib.analog_tc_launch.argtypes = common + [i] * 8 + [f, i, i, i, p]
             lib.analog_tc_launch.restype = i
         _libs[route] = lib
     return _libs[route]
@@ -344,8 +389,8 @@ def analog_matmul_raw(
     ``w`` may be a column view of a wider weight (unit column stride, rows
     ``w.stride(0)`` elements apart): a tensor-parallel shard, read in place.
     ``col_scale`` may be such a view too. ``plan_n``: the whole weight's N,
-    from which the decode and weight routes take their split of K (default
-    N), so a shard sums in the whole call's order.
+    from which every route takes its split of K (default N), so a shard
+    sums in the whole call's order.
     """
     _require(x.dim() == 3 and w.dim() == 2, f"x must be (B, M, K), w (K, N): {x.shape} {w.shape}")
     b, m, k = x.shape
@@ -431,10 +476,10 @@ def analog_matmul_raw(
                 plan["row_tiles"], stream,
             )
         else:
-            plan = tc_plan(b * m, k, n)
+            plan = tc_plan(b * m, k, n, plan_n)
             err = library("tc").analog_tc_launch(
                 *ptrs, b, m, k, n, ldw, kind, int(quant_out), int(n_repeats), inv_k,
-                plan["grid_m"], plan["grid_n"], stream,
+                plan["grid_m"], plan["grid_n"], plan["splits"], stream,
             )
     _check(err, f"analog_matmul ({route})")
     LAUNCHES[route] += 1

@@ -13,6 +13,8 @@
 // GFLOP, 27 us); with more rows the operations do. bf16 x bf16 products are
 // exact in f32 and the tensor cores accumulate in f32, so this route differs
 // from the simt route and the plain version only in the order of the sums.
+// At 256 rows a column tile per 128 columns leaves most of the 132 SMs idle
+// at small N (k/v: 16 blocks), so K is split too.
 //
 // Design:
 //   * 128 x 128 output tiles; two consumer warpgroups of 64 rows each run
@@ -20,31 +22,56 @@
 //     operands in shared memory; x is K-major, w (K, N) is MN-major (N
 //     contiguous), read by wgmma as a transposed B;
 //   * one producer warp issues TMA copies of 64-deep x and w tiles (128-byte
-//     swizzle) into a 3-stage ring (96 KB, so two blocks share a SM and one
-//     block's epilogue overlaps the other's loads and products), each
-//     stage guarded by a "full" mbarrier
-//     (TMA transaction bytes) and an "empty" mbarrier (one arrival per
-//     consumer warpgroup); ragged K, N and row edges are zero-filled by TMA
-//     and masked in the epilogue;
+//     swizzle) into a 3-stage ring (96 KB, so two blocks share a SM), each
+//     stage guarded by a "full" mbarrier (TMA transaction bytes) and an
+//     "empty" mbarrier (one arrival per consumer warpgroup); a K tile's stage
+//     is released as soon as its products are done (wait_group 0: on the
+//     H100 faster than keeping one group in flight, which holds the previous
+//     stage until the next tile has arrived), so three loads stay in
+//     flight; ragged K, N and row edges are zero-filled by TMA and masked in
+//     the epilogue;
+//   * K is cut into `splits` (1, 2, 4 or 8; analog_matmul.py tc_plan, from K
+//     and the whole weight's N) near-equal runs of whole 64-deep tiles
+//     (split_begin), enough for cdiv(N, 128) x splits >= 64 blocks at one
+//     row tile: a served prefill's two row tiles then run about a block a
+//     SM, which measured fastest. The splits of an output tile are the ranks
+//     of one thread-block cluster (grid.z); each stages its f32 partial tile
+//     in its (then free) ring. After a cluster barrier, rank q
+//     owns 128 / splits rows of the tile: it adds the ranks' partials at
+//     those rows through distributed shared memory in rank order 0, 1, ...,
+//     splits - 1, adds the noise and requantizes exactly as the simt
+//     epilogue does (analog_common.cuh finish_output), 4 columns a thread
+//     (the row's seed words and scale read once), and stores whole 16-byte
+//     rows; so the draws are spread over the cluster. A second cluster
+//     barrier keeps every rank's shared memory alive until its peers have
+//     read it. One launch, no workspace;
 //   * grid.x runs over row tiles, so the row tiles of one column tile run
-//     side by side and share its weights through L2;
-//   * the epilogue maps each accumulator fragment element to its (row, col)
-//     and stages the f32 tile in the (then free) ring; one loop then adds
-//     the noise and requantizes exactly as the simt epilogue does
-//     (analog_common.cuh finish_output) and stores whole rows. Unrolled over
-//     the 64 fragment elements of a thread, the noise code (Threefry, logf,
-//     cosf) would be inlined 64 times and overflow the instruction cache.
-// A K tile's products enter every output's sum in K order and each output
-// depends only on its own row of x: a request's rows are the same bits alone
-// or in any batch, and from launch to launch.
+//     side by side and share its weights through L2.
+// Each output's sum: the wgmma products of each split's K tiles in K order,
+// then the splits in rank order. That order depends on (K, N of the whole
+// weight) only and each output only on its own row of x: a request's rows
+// are the same bits alone or in any batch, a column shard the same bits as
+// its slice of the whole call, and every launch the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
+
+#include <utility>
 
 #include "analog_common.cuh"
 
 namespace {
 
 using namespace analog;
+namespace cg = cooperative_groups;
+
+// First K tile of split q when `units` tiles are cut into `splits`
+// near-equal runs: split q takes [q * units / splits, (q + 1) * units /
+// splits). Every split is non-empty when units >= splits. tc_plan and
+// split_ranges in analog_matmul.py cut K the same way.
+__host__ __device__ __forceinline__ int split_begin(int units, int splits, int q) {
+  return (int)(((long long)q * units) / splits);
+}
 
 constexpr int T_BM = 128;
 constexpr int T_BN = 128;
@@ -90,6 +117,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One TMA copy of a 2-D box at (c0 inner, c1 outer) into this block's
+// shared memory at dst; its bytes complete the barrier's transaction.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
@@ -132,6 +161,33 @@ __device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// finish_output (analog_common.cuh) of columns c .. c + 3 of flattened row
+// r: the same operations on each output, with the row's request, seed words
+// and row scale read once
+__device__ __forceinline__ float4 finish_quad(const Params& p, int r, int c, float4 y4) {
+  float y[4] = {y4.x, y4.y, y4.z, y4.w};
+  if (p.noise_kind == NOISE_OUTPUT) {
+    const int b = r / p.M;
+    const uint32_t li = (uint32_t)(r - b * p.M);
+    const uint32_t* s = p.seed + 4 * b;
+    const uint32_t k0 = s[0], k1 = s[1], row = s[2] + li, col0 = s[3] + (uint32_t)c;
+    const float rs = p.rs[r];
+    const float* cs = p.cs + (size_t)b * p.cs_stride + c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float xi = repeat_gaussian(k0, k1, row, col0 + (uint32_t)i, p.n_repeats, p.inv_k);
+      y[i] = __fadd_rn(y[i], __fmul_rn(__fmul_rn(rs, cs[i]), xi));
+    }
+  }
+  if (p.quant_out) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = fake_quant(y[i], p.sc[3], p.sc[4], p.sc[5]);
+  }
+  return make_float4(y[0], y[1], y[2], y[3]);
+}
+
+// grid (row tiles, col tiles, splits), clusters (1, 1, splits); the K run
+// of rank q is tiles [split_begin(k_tiles, splits, q), ... (q + 1)).
 __global__ void __launch_bounds__(T_THREADS, 2)
     tc_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
               const Params p) {
@@ -147,6 +203,9 @@ __global__ void __launch_bounds__(T_THREADS, 2)
   const int row0 = blockIdx.x * T_BM;
   const int col0 = blockIdx.y * T_BN;
   const int k_tiles = (p.K + T_BK - 1) / T_BK;
+  const int splits = gridDim.z, q = blockIdx.z;  // the block's rank in its cluster
+  const int kt0 = split_begin(k_tiles, splits, q);
+  const int n_tiles = split_begin(k_tiles, splits, q + 1) - kt0;
 
   if (tid == 0) {
     for (int s = 0; s < T_STAGES; ++s) {
@@ -163,9 +222,9 @@ __global__ void __launch_bounds__(T_THREADS, 2)
 
   if (wg == T_CONSUMERS) {
     if (tid == T_CONSUMERS * 128) {  // the producer
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % T_STAGES;
-        if (kt >= T_STAGES) mbar_wait(empty + 8 * s, ((kt / T_STAGES) - 1) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % T_STAGES, kt = kt0 + i;
+        if (i >= T_STAGES) mbar_wait(empty + 8 * s, ((i / T_STAGES) - 1) & 1);
         const uint32_t a = ring + s * STAGE_BYTES, b = a + A_BYTES;
         mbar_expect_tx(full + 8 * s, STAGE_BYTES);
         tma_load_2d(a, &map_x, full + 8 * s, kt * T_BK, row0);
@@ -174,9 +233,9 @@ __global__ void __launch_bounds__(T_THREADS, 2)
       }
     }
   } else {
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % T_STAGES;
-      mbar_wait(full + 8 * s, (kt / T_STAGES) & 1);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % T_STAGES;
+      mbar_wait(full + 8 * s, (i / T_STAGES) & 1);
       const uint32_t a = ring + s * STAGE_BYTES + wg * (64 * 128), b = ring + s * STAGE_BYTES + A_BYTES;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -210,13 +269,48 @@ __global__ void __launch_bounds__(T_THREADS, 2)
         *reinterpret_cast<float2*>(ct + r * T_CT + c) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
   }
-  __syncthreads();
+
+  // the splits: rank q adds the cluster's partial tiles at its rows in rank
+  // order and finishes them, 4 columns (one 16-byte store) a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int own = T_BM / splits;
 #pragma unroll 1
-  for (int e = tid; e < T_BM * T_BN; e += T_THREADS) {
-    const int rl = e / T_BN, cl = e % T_BN;
+  for (int e = tid; e < own * (T_BN / 4); e += T_THREADS) {
+    const int rl = q * own + e / (T_BN / 4), cl = (e % (T_BN / 4)) * 4;
     const int r = row0 + rl, c = col0 + cl;
-    if (r < rows && c < p.N) p.out[(size_t)r * p.N + c] = finish_output(p, r, c, ct[rl * T_CT + cl]);
+    if (r >= rows || c >= p.N) continue;  // N % 8 == 0: c < N puts all 4 columns in
+    float* src = ct + rl * T_CT + cl;
+    float4 y = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, 0));
+    for (int pr = 1; pr < splits; ++pr) {
+      const float4 t = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, pr));
+      y = make_float4(__fadd_rn(y.x, t.x), __fadd_rn(y.y, t.y), __fadd_rn(y.z, t.z),
+                      __fadd_rn(y.w, t.w));
+    }
+    *reinterpret_cast<float4*>(p.out + (size_t)r * p.N + c) = finish_quad(p, r, c, y);
   }
+  cluster.sync();  // no rank leaves while a peer may still read its tile
+}
+
+// Launch `kernel` on grid (gx, gy, splits) with the splits of each (gx, gy)
+// as one thread-block cluster (1, 1, splits); one split is a plain launch
+// (each block its own cluster of one).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads, int smem,
+                           cudaStream_t s, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.z > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -257,23 +351,30 @@ bool make_map(CUtensorMap* map, const void* base, int outer, int inner, int ld, 
 
 // Launch on `stream`; returns the first CUDA error (0 on success). x and w
 // bf16, K % 8 == 0, N % 8 == 0, x and w 16-byte aligned, w's rows ldw
-// elements apart (ldw % 8 == 0; a column shard's K order is the whole
-// weight's: every 64-deep K tile in order). grid_m row tiles
-// and grid_n column tiles of 128 come from tc_plan in analog_matmul.py.
+// elements apart (ldw % 8 == 0; a column shard's plan comes from the whole
+// weight's N). grid_m row tiles and grid_n column tiles of 128 and the
+// splits of K (1, 2, 4 or 8) come from tc_plan in analog_matmul.py.
 extern "C" int analog_tc_launch(const void* x, const void* w, const float* rs, const float* cs,
                                 int cs_stride, const float* wq, const float* sc,
                                 const uint32_t* seed, float* out, int B, int M, int K, int N,
                                 int ldw, int noise_kind, int quant_out, int n_repeats, float inv_k,
-                                int grid_m, int grid_n, void* stream) {
+                                int grid_m, int grid_n, int splits, void* stream) {
   const Params p = make_params(x, w, rs, cs, cs_stride, wq, sc, seed, out, B, M, K, N, ldw,
                                noise_kind, 0, 0, quant_out, n_repeats, inv_k);
+  if (splits < 1 || splits > 8 || (splits & (splits - 1)) != 0 || (K + T_BK - 1) / T_BK < splits)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_w;
   if (!make_map(&map_x, x, B * M, K, K, T_BM) || !make_map(&map_w, w, K, N, ldw, T_BK))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e =
-      cudaFuncSetAttribute(tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  tc_kernel<<<dim3(grid_m, grid_n), T_THREADS, T_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_x, map_w, p);
+  static bool ready = false;  // the shared memory limit is raised once a process
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const cudaError_t l = launch_cluster(tc_kernel, dim3(grid_m, grid_n, splits), T_THREADS, T_SMEM,
+                                       static_cast<cudaStream_t>(stream), map_x, map_w, p);
+  if (l != cudaSuccess) return (int)l;
   return (int)cudaGetLastError();
 }

@@ -172,11 +172,11 @@ class ServingEngine:
 
     ``max_entries`` bounds the step cache (LRU; default unbounded).
     ``max_queue`` bounds the scheduler queue (``QueueFull`` past it).
-    ``fault_plan`` arms the injection sites, whenever it is set (the
-    reference arms its cache's executable guard only when a plan is given
-    at construction; the port's guard reads the plan at every call, so a
-    plan set later fires too; ``fault_plan = None`` models repaired
-    hardware). ``max_retries`` bounds a faulted request's retries and
+    ``fault_plan`` arms the injection sites. As in the reference, the
+    executable guard is armed only by a plan given at construction (it
+    then reads the plan at every call, so ``fault_plan = None`` silences it
+    and models repaired hardware); the drift and probe sites read the plan
+    whenever it is set. ``max_retries`` bounds a faulted request's retries and
     ``k_ladder`` is the calibrated ladder of uniform K that retries and the
     drift response climb. ``fault_log`` keeps the last ``fault_log_maxlen``
     fault and policy events. ``policy`` builds a ``PrecisionGovernor``;
@@ -262,9 +262,10 @@ class ServingEngine:
             if self.fault_plan is not None:
                 self.fault_plan.check_executable(key)
 
-        #: the built steps (serving/cache.py); the fault guard runs before
-        #: every call
-        self.exe_cache = ExecutableCache(max_entries=max_entries, fault_hook=_exe_guard)
+        #: the built steps (serving/cache.py); the fault guard, armed by a
+        #: plan given here, runs before every call
+        self.exe_cache = ExecutableCache(
+            max_entries=max_entries, fault_hook=_exe_guard if fault_plan is not None else None)
         #: steps on the card with the "cuda" backend are CUDA graphs: every
         #: phase (prefill, decode, insert) of every family (dense, griffin,
         #: xlstm, moe: no shape in a forward depends on the data)

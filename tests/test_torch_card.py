@@ -22,10 +22,22 @@ from repro_torch.quant.affine import QuantParams  # noqa: E402
 
 #: (route, (B, M, K, N), calibrated quantizers) of calls each route takes:
 #: weight at decode (M <= ``M_DECODE``, with and without quantizers) and
-#: at prefill, which run different kernels
+#: at prefill, which run different kernels; tc at each cluster size its
+#: plan gives (1, 2, 4 and 8 splits of K); decode and tc at ragged K and N,
+#: decode at K = 8192 and at 4, 8 and 16 rows a block; rows that fill part
+#: of a tile (decode: 5 rows in a tile of 8, 17 in two of 16; tc: 140 rows
+#: in two of 128)
 ROUTE_CASES = [
     ("decode", (3, 1, 64, 40), False),
+    ("decode", (3, 1, 1096, 72), True),
+    ("decode", (2, 2, 4000, 1000), False),
+    ("decode", (5, 1, 2056, 136), False),
+    ("decode", (17, 1, 1024, 200), True),
+    ("decode", (3, 1, 8192, 512), False),
     ("tc", (3, 9, 64, 40), False),
+    ("tc", (3, 9, 520, 40), False),
+    ("tc", (3, 40, 1096, 72), False),
+    ("tc", (2, 70, 4000, 1000), False),
     ("simt", (2, 9, 36, 20), False),
     ("weight", (3, 1, 64, 40), False),
     ("weight", (3, 2, 64, 40), True),
@@ -58,6 +70,8 @@ def test_route_kernel_matches_plain_on_card(route, shape, quant, cuda_device):
     w = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(np.float32))
     weight = route in ("simt", "weight")
     cfg, e = (AnalogConfig.weight(0.1), 5.0) if weight else (AnalogConfig.shot(), 10.0)
+    if quant and not weight:  # thermal noise: quantizers of x, w and the output
+        cfg, e = AnalogConfig.thermal(0.01), 4.0
     seed = torch.from_numpy(np.arange(4 * b, dtype=np.int32).reshape(b, 4))
     xb, wb = x.to(torch.bfloat16).to(cuda_device), w.to(torch.bfloat16).to(cuda_device)
     sq = None
@@ -223,8 +237,11 @@ def test_recurrent_and_moe_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_dev
     assert torch.equal(alone[~pad[:2]], padded[:2][~pad[:2]])
 
 
-#: (route, (B, M, K, N)) of the shard checks: N / tp a multiple of 8 at tp = 2, 4
+#: (route, (B, M, K, N)) of the shard checks: N / tp a multiple of 8 at tp = 2, 4;
+#: tc at 1, 4 and 8 splits of K
 SHARD_CASES = [("decode", (3, 1, 256, 128)), ("tc", (3, 9, 256, 128)),
+               ("decode", (3, 1, 1096, 512)), ("tc", (3, 9, 1096, 512)),
+               ("decode", (3, 1, 4096, 256)), ("tc", (3, 70, 4096, 256)),
                ("simt", (2, 9, 72, 64)), ("weight", (3, 1, 256, 128)),
                ("weight", (3, 9, 256, 128))]
 

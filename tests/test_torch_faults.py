@@ -355,17 +355,40 @@ def test_call_guard_fires_pre_dispatch(env):
         [(e["phase"], e["call"]) for e in plan.log] == [("prefill", 1)]
 
 
-def test_plan_set_after_construction_arms_the_guard(env):
-    """The guard reads the plan at each call: a plan assigned to a running
-    engine fires its call faults (the port has no executable cache whose
-    hook is fixed at construction)."""
+@pytest.fixture(scope="module")
+def guard_cache():
+    """One executable cache for the reference engines of the guard test, so
+    each executable compiles once (an engine keeps the hook it armed)."""
+    return JExecutableCache()
+
+
+@pytest.mark.parametrize("when", ["construction", "after", "cleared"])
+def test_guard_armed_as_the_reference(env, guard_cache, when):
+    """The executable guard is armed only by a plan given at construction,
+    in both packages: such a plan fires its call fault (no retry budget: a
+    structured ``Failed``); a plan set on a running engine leaves the guard
+    unarmed (no fault: the served token); a plan given and then set to
+    None is silent. Both engines give the same outcome and count the same
+    faults. One new token a request: only the prefill is built."""
     prompts, keys = _traffic(1)
-    eng = port_engine(env)
-    eng.fault_plan = FaultPlan(exe_faults=[("prefill", 0)])
-    uids, res = _serve(eng, [(prompts[0], dict(n_repeats=1, max_new_tokens=2, key=keys[0]))])
-    assert eng.stats["exe_faults"] == 1 and eng.stats["retried"] == 1
-    assert eng.fault_log[0]["promoted"] == {uids[0]: 2}
-    assert isinstance(res[uids[0]], np.ndarray)
+    sub = [(prompts[0], dict(n_repeats=1, max_new_tokens=1, key=keys[0]))]
+    out = []
+    for make, plan_cls in ((port_engine, FaultPlan), (ref_engine, JFaultPlan)):
+        plan = plan_cls(exe_faults=[("prefill", 0)])
+        eng = make(env, plan=plan if when != "after" else None, max_retries=0)
+        if make is ref_engine:
+            guard_cache.fault_hook = eng.exe_cache.fault_hook
+            eng.exe_cache = guard_cache
+        eng.fault_plan = {"construction": plan, "after": plan, "cleared": None}[when]
+        uids, res = _serve(eng, sub)
+        out.append((eng.stats["exe_faults"], eng.stats["failed"], _outcome(res[uids[0]])))
+    assert out[0] == out[1]
+    faults, failed, outcome = out[0]
+    assert (faults, failed) == ((1, 1) if when == "construction" else (0, 0))
+    if when == "construction":
+        assert outcome[0] == "Failed"
+    else:
+        assert len(outcome) == 1  # the request's token
 
 
 # --------------------------------------------------------------------------

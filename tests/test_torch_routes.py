@@ -108,6 +108,43 @@ def test_route_takes_refuses():
 
 KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096), (4000, 1000), (16, 8),
       (8, 256), (40, 20 * 8), (100000, 8), (1000, 300000)]
+#: the analog site shapes (K, N) of granite-3-8b, recurrentgemma-2b and
+#: granite-20b
+PLAN_SITES = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096),
+              (2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
+              (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144)]
+#: shared memory a block can take on the H100 (227 KB)
+SMEM_MAX = 232448
+
+
+def _check_split(ranges, k, step, min_rows):
+    """The splits cover K exactly, in order, in whole ``step``-row granules
+    (the last may end at a ragged K), each at least ``min_rows`` long but
+    for a ragged last one, and fit one portable cluster."""
+    assert len(ranges) in (1, 2, 4, 8)
+    begin = 0
+    for q, (b, e) in enumerate(ranges):
+        assert b == begin and b % step == 0 and e > b
+        assert e % step == 0 or e == k
+        if len(ranges) > 1:
+            assert e - b > min_rows - step if q == len(ranges) - 1 else e - b >= min_rows
+        begin = e
+    assert begin == k
+
+
+def _decode_ranges(plan, k):
+    return [(q * plan["kc"], min(k, (q + 1) * plan["kc"])) for q in range(plan["splits"])]
+
+
+def _tc_ranges(plan, k):
+    return am.split_ranges(plan["k_tiles"], plan["splits"], am.TC_BK, k)
+
+
+def _decode_smem(plan):
+    """The decode block's shared memory: its x slice as f32, a room that
+    later takes the k lanes' reduction (8 lanes x 4 rows x 32 threads'
+    columns)."""
+    return max(plan["kc"] * plan["rt"] * 4, 8 * 4 * plan["cpt"] * 32 * 4)
 
 
 @pytest.mark.parametrize("rows", [1, 4, 16])
@@ -123,22 +160,79 @@ def test_decode_plan_covers_k_and_n(k, n, rows):
     for s in range(splits):
         covered[s * kc: min(k, (s + 1) * kc)] += 1
     assert (covered == 1).all()
+    assert _decode_smem(plan) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("rows,k,n", [(256, 4096, 12800), (120, 4000, 1000), (128, 8, 8),
+                                      (129, 12800, 4096), (5, 40, 136)])
+def test_tc_plan_covers(rows, k, n):
+    plan = am.tc_plan(rows, k, n)
+    assert (plan["grid_m"] - 1) * am.TC_BM < rows <= plan["grid_m"] * am.TC_BM
+    assert (plan["grid_n"] - 1) * am.TC_BN < n <= plan["grid_n"] * am.TC_BN
+    assert (plan["k_tiles"] - 1) * am.TC_BK < k <= plan["k_tiles"] * am.TC_BK
+
+
+@pytest.mark.parametrize("rows", [1, 64, 256, 300])
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_tc_plan_splits_k_into_a_cluster(k, n, rows):
+    """The tc route's splits cover K in whole 64-deep tiles, at least
+    ``TC_MIN_SPLIT`` a split, in one portable cluster (1, 2, 4 or 8), and
+    the block's shared memory fits the H100."""
+    plan = am.tc_plan(rows, k, n)
+    _check_split(_tc_ranges(plan, k), k, am.TC_BK, am.TC_MIN_SPLIT * am.TC_BK)
+    assert plan["smem"] <= SMEM_MAX
 
 
 @pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
 def test_decode_split_never_depends_on_rows(k, n):
     """The order of every output's sum is fixed by the split of K: it must
     be the same for a request alone as in any batch."""
-    splits = {(p["kc"], p["splits"]) for p in (am.decode_plan(k, n, r) for r in range(1, 65))}
+    splits = {(p["kc"], p["splits"]) for p in (am.decode_plan(k, n, r) for r in range(1, 301))}
     assert len(splits) == 1
 
 
+@pytest.mark.parametrize("k,n", KN, ids=lambda v: str(v))
+def test_tc_split_never_depends_on_rows(k, n):
+    plans = {(p["k_tiles"], p["splits"], p["grid_n"])
+             for p in (am.tc_plan(r, k, n) for r in range(1, 301))}
+    assert len(plans) == 1
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("k,n", PLAN_SITES, ids=lambda v: str(v))
+def test_shard_plan_splits_k_as_the_whole(k, n, tp):
+    """A column shard (``plan_n`` = N, N / tp columns) takes the whole
+    call's split of K, so it sums in the whole call's order."""
+    for rows in (1, 4, 16):
+        whole, shard = am.decode_plan(k, n, rows), am.decode_plan(k, n // tp, rows, plan_n=n)
+        assert _decode_ranges(shard, k) == _decode_ranges(whole, k)
+    for rows in (64, 256):
+        whole, shard = am.tc_plan(rows, k, n), am.tc_plan(rows, k, n // tp, plan_n=n)
+        assert _tc_ranges(shard, k) == _tc_ranges(whole, k)
+
+
 def test_decode_plan_fills_the_card_at_granite_sites():
-    """At least 3 blocks for each of the H100's 132 SMs at every granite-3-8b
-    site (k/v is held to 512 by the 32-row granule of a split)."""
+    """decode: at least 3 blocks for each of the H100's 132 SMs at every
+    granite-3-8b site (k/v is held to 512 by the 32-row granule of a
+    split). tc, at every site of granite-3-8b, recurrentgemma-2b and
+    granite-20b: the splits are the least power of two up to 8 that give
+    64 blocks at one row tile (so the two row tiles of a served prefill run
+    about a block a SM), unless a split would fall below ``TC_MIN_SPLIT``
+    K tiles. granite-3-8b k/v (4096 -> 1024): tc 8 column tiles x 8 splits
+    of 8 K tiles, against 8 blocks unsplit."""
     for k, n in KN[:4]:
         plan = am.decode_plan(k, n, 4)
         assert plan["splits"] * plan["col_tiles"] >= 3 * 132, (k, n, plan)
+    for k, n in PLAN_SITES:
+        t = am.tc_plan(256, k, n)
+        tiles, splits, units = t["grid_n"], t["splits"], t["k_tiles"]
+        assert splits in (1, 2, 4, 8)
+        assert (tiles * splits >= am.TC_BLOCKS or splits == 8
+                or units < 2 * splits * am.TC_MIN_SPLIT), (k, n)
+        assert splits == 1 or (tiles * splits // 2 < am.TC_BLOCKS
+                               and units >= splits * am.TC_MIN_SPLIT), (k, n)
+    kv = am.tc_plan(256, 4096, 1024)
+    assert (kv["grid_n"], kv["splits"], kv["k_tiles"] // kv["splits"]) == (8, 8, 8)
 
 
 @pytest.mark.parametrize("rows", [1, 3, 4, 5, 8, 9, 16, 17, 64, 16 * am.M_DECODE])
@@ -186,15 +280,6 @@ def test_weight_plan_fills_two_waves_at_granite_sites():
         for rows in (1, 32, 64):
             plan = am.weight_plan(k, n, rows)
             assert plan["splits"] * plan["col_tiles"] >= 2 * am.WEIGHT_WAVE, (k, n, rows, plan)
-
-
-@pytest.mark.parametrize("rows,k,n", [(256, 4096, 12800), (120, 4000, 1000), (128, 8, 8),
-                                      (129, 12800, 4096), (5, 40, 136)])
-def test_tc_plan_covers(rows, k, n):
-    plan = am.tc_plan(rows, k, n)
-    assert (plan["grid_m"] - 1) * am.TC_BM < rows <= plan["grid_m"] * am.TC_BM
-    assert (plan["grid_n"] - 1) * am.TC_BN < n <= plan["grid_n"] * am.TC_BN
-    assert (plan["k_tiles"] - 1) * am.TC_BK < k <= plan["k_tiles"] * am.TC_BK
 
 
 def _raw(b, m, k, n, dtype=F32):
@@ -340,3 +425,111 @@ def test_weight_split_keeps_the_function(shape, n_repeats, per_request_cs):
         for ref in (want, plain[i]):
             atol = 3e-5 * (float(np.abs(ref).max()) + 1e-6)
             np.testing.assert_allclose(got[i], ref, atol=atol, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the decode and tc routes' split of K, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _split_sum(x, w, ranges, lanes, groups):
+    """The order in which the decode (``lanes`` = 8, ``groups`` = 8) and tc
+    (1, 1) routes sum each output, in f32 PyTorch: in each split of K,
+    ``lanes`` chains, chain l adding the products of rows l, l + lanes, ...
+    in K order, the chains added in order; then the splits: group g adds
+    splits g, g + groups, ... in order, and the groups are added in order
+    (the decode route's second pass; one group is rank order). Elementwise,
+    so a row's sum never depends on the other rows."""
+    x, w = x.float(), w.float()
+    parts = []
+    for b, e in ranges:
+        steps = -(-(e - b) // lanes)
+        pad = steps * lanes - (e - b)
+        xs = torch.nn.functional.pad(x[..., b:e], (0, pad)).reshape(*x.shape[:-1], steps, lanes)
+        ws = torch.nn.functional.pad(w[b:e], (0, 0, 0, pad)).reshape(steps, lanes, w.shape[1])
+        acc = torch.zeros((lanes, *x.shape[:-1], w.shape[1]))
+        for j in range(steps):
+            acc = acc + xs[..., j, :].movedim(-1, 0)[..., None] * ws[j][:, None, None, :]
+        part = acc[0]
+        for lane in range(1, lanes):
+            part = part + acc[lane]
+        parts.append(part)
+    total = None
+    for g in range(min(groups, len(parts))):
+        group = parts[g]
+        for q in range(g + groups, len(parts), groups):
+            group = group + parts[q]
+        total = group if total is None else total + group
+    return total
+
+
+def _split_emulation(route, o, n_repeats):
+    """What the route computes: the split sum, then the plain version's
+    epilogue (its noise term alone, from x = 0, and the output quantizer)."""
+    b, m, k = o["x"].shape
+    n = o["w"].shape[1]
+    if route == "decode":
+        ranges, lanes, groups = _decode_ranges(am.decode_plan(k, n, b * m), k), 8, 8
+    else:
+        ranges, lanes, groups = _tc_ranges(am.tc_plan(b * m, k, n), k), 1, 1
+    y = _split_sum(o["x"], o["w"], ranges, lanes, groups)
+    noise = analog_matmul_ref_raw(torch.zeros_like(o["x"]), o["w"], o["row_scale"], o["col_scale"],
+                                  o["wq"], o["scalars"], o["seed"], noise_kind=o["noise_kind"],
+                                  n_repeats=n_repeats)
+    y = y + noise
+    if o["quant_out"]:
+        sc = o["scalars"].reshape(-1)
+        y = torch.clamp(torch.round(y / sc[3]) + sc[4], 0.0, float(sc[5]))
+        y = (y - sc[4]) * sc[3]
+    return y, len(ranges)
+
+
+@pytest.mark.parametrize("n_repeats,requant", [(1, False), (4, True)], ids=["K1", "K4-requant"])
+@pytest.mark.parametrize("shape", [(2, 1, 4096, 1024), (3, 2, 4000, 1000), (2, 9, 4096, 1024),
+                                   (3, 40, 4000, 1000)], ids=str)
+def test_split_sum_keeps_the_function(shape, n_repeats, requant):
+    """The decode route (M = 1, 2; 125-128 splits of 32 rows) and the tc
+    route (M = 9, 40; granite k/v 4096 -> 1024 in 8 splits) at granite k/v
+    and a ragged shape: summed per split and the splits added in the
+    route's order, the result is within the reference's
+    rule (``3e-5 * max|y|``, ``rtol = 1e-4``, one output bin under
+    requant) of the plain version, request by request, and of the JAX
+    reference's raw function (request 0); and the last request alone is
+    its rows of the batch, bit for bit."""
+    b, m, k, n = shape
+    route = "decode" if m <= am.M_DECODE else "tc"
+    x, w = _bf16_data(b, m, k, n, seed=12)
+    jcfg, cfg, e = _configs(route, requant)
+    jsq = sq = None
+    if requant:
+        jsq = JSiteQuant(oqp=calibrate_minmax(jnp.asarray(x) @ jnp.asarray(w)))
+        sq = SiteQuant(oqp=QuantParams(torch.from_numpy(np.array(jsq.oqp.x_min)),
+                                       torch.from_numpy(np.array(jsq.oqp.x_max)), jsq.oqp.bits))
+    keys = [jax.random.fold_in(jax.random.PRNGKey(6), u) for u in range(b)]
+    seed = key_seed(np.asarray(jnp.stack(keys)), "cpu")
+    o = ops.prepare_operands(torch.from_numpy(x).to(BF16), torch.from_numpy(w).to(BF16),
+                             energy=torch.tensor(e), seed=seed, cfg=cfg, sq=sq)
+    assert am.select_route(b, m, k, n, BF16, o["noise_kind"], o["quant_x"], o["quant_w"],
+                           o["quant_out"]) == route
+    got, splits = _split_emulation(route, o, n_repeats)
+    assert splits == (128 if route == "decode" else 8) if k == 4096 else splits > 1
+    plain = analog_matmul_ref_raw(
+        o["x"], o["w"], o["row_scale"], o["col_scale"], o["wq"], o["scalars"], o["seed"],
+        noise_kind=o["noise_kind"], quant_out=o["quant_out"], n_repeats=n_repeats).numpy()
+    seeds = o["seed"].numpy().view(np.uint32)
+    want = np.asarray(jref_raw(  # request 0 (the plain version is held to it elsewhere)
+        jnp.asarray(x[0]), jnp.asarray(w), jnp.asarray(o["row_scale"][0].numpy()),
+        jnp.asarray(o["col_scale"][0].numpy()), jnp.asarray(o["wq"].numpy()),
+        jnp.asarray(o["scalars"].numpy()), jnp.asarray(seeds[:1]),
+        noise_kind=o["noise_kind"], quant_out=o["quant_out"], n_repeats=n_repeats,
+    ))
+    for i, ref in [(0, want)] + list(enumerate(plain)):
+        atol = 3e-5 * (float(np.abs(ref).max()) + 1e-6)
+        if requant:
+            atol = max(atol, float(jsq.oqp.delta) * 1.01)
+        np.testing.assert_allclose(got[i].numpy(), ref, atol=atol, rtol=1e-4)
+    i = b - 1  # the last request alone: its rows of the batch
+    solo = {t: o[t][i:i + 1] for t in ("x", "row_scale", "seed")}
+    solo["col_scale"] = o["col_scale"][i % o["col_scale"].shape[0]][None]
+    alone, _ = _split_emulation(route, dict(o, **solo), n_repeats)
+    assert torch.equal(alone[0], got[i])

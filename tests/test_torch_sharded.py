@@ -249,10 +249,15 @@ def test_shard_launch_plans_split_k_as_the_whole(k, n, tp):
         whole, shard = am.weight_plan(k, n, rows), am.weight_plan(k, n // tp, rows, plan_n=n)
         assert (shard["kc"], shard["splits"]) == (whole["kc"], whole["splits"])
         assert shard["col_tiles"] == -(-(n // tp) // am.WEIGHT_BN)
-    assert am.tc_plan(64, k, n // tp)["k_tiles"] == am.tc_plan(64, k, n)["k_tiles"]
+    for rows in (64, 256):
+        whole, shard = am.tc_plan(rows, k, n), am.tc_plan(rows, k, n // tp, plan_n=n)
+        assert (shard["k_tiles"], shard["splits"]) == (whole["k_tiles"], whole["splits"])
+        assert shard["grid_n"] == -(-(n // tp) // am.TC_BN)
     if n >= 4096:  # granite's sites: without plan_n a shard would split K another way
         assert am.decode_plan(k, n // tp, 4)["kc"] != am.decode_plan(k, n, 4)["kc"]
         assert am.weight_plan(k, n // tp, 1)["kc"] != am.weight_plan(k, n, 1)["kc"]
+    if n in (12800, 7680):  # ... and so would the tc route at gate/up
+        assert am.tc_plan(64, k, n // tp)["splits"] != am.tc_plan(64, k, n)["splits"]
 
 
 # ---------------------------------------------------------------------------
