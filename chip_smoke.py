@@ -122,7 +122,12 @@ one layer's shape, six steps of 4 x 2,048 tokens with bf16 weights and
 moments and remat, the loss falling, two repeated steps bit-equal, ms a
 step, device ms, tokens/s, peak memory and the model-FLOPs share); the
 Eq.-14 calibration at LM scale on the same weights and depth on the
-"torch" backend (``calibrate_lm``, no kernel launched); and demo-100m
+"torch" backend (``calibrate_lm``, no kernel launched); the other three
+families the same way, each followed by its calibration on its weights
+(``train_griffin``: recurrentgemma-2b at full width and depth, 4 x 2,048;
+``train_xlstm``: xlstm-1.3b at full width and depth, 2 x 64;
+``train_moe``: grok-1 at full width and the one layer whose state fits,
+2 x 1,024), with the kernels each step runs; and demo-100m
 through the fault-tolerant driver with two simulated failures, bit-equal
 to a clean run, with its checkpoints' bytes and seconds
 (``train_driver``). Every phase that fails raises; each prints its
@@ -242,9 +247,10 @@ GRAD_CHECK_REL = 1e-3
 #: xlstm-1.3b's long prompt (one bucket of its length: 4 chunks of 512 carry
 #: the recurrent state) and its new tokens
 XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 2048, 4
-#: ... at 16 of xlstm-1.3b's 48 layers, two of its groups (cut to keep the
-#: whole run inside its time)
-XLSTM_LONG_LAYERS = 16
+#: ... at 8 of xlstm-1.3b's 48 layers, one of its groups: 7 mLSTM blocks and
+#: the sLSTM (cut to keep the whole run inside its time: 16 layers until the
+#: family train phases came)
+XLSTM_LONG_LAYERS = 8
 #: the MoE models' depths: grok-1 at 4 of its 64 layers, llama4-maverick at
 #: 2 of its 48 (one dense and one MoE layer); full depth does not fit one card
 GROK_LAYERS, LLAMA4_LAYERS = 4, 2
@@ -266,7 +272,7 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "graphs_granite20",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
-          "calibrate_lm", "train_driver")
+          "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -1331,7 +1337,8 @@ def _profile(fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler,
     device activity only: the host's op events, thousands a forward, took
     seconds of the run to record and average) and the host wall time of
-    that profiled call; ``profile_s`` is the whole profile's cost."""
+    that profiled call, with the count of kernels it ran; ``profile_s`` is
+    the whole profile's cost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1349,6 +1356,7 @@ def _profile(fn):
     top = sorted(events, key=dev, reverse=True)[:8]
     return out, dict(
         profiled_wall_ms=wall_ms, device_ms=sum(dev(e) for e in events) / 1e3,
+        kernels=sum(e.count for e in events),
         top=[dict(name=e.key[:60], ms=dev(e) / 1e3, calls=e.count) for e in top],
         profile_s=time.perf_counter() - t0,
     )
@@ -3497,12 +3505,17 @@ def phase_llama4_fit():
 
 #: the train phase (granite-3-8b at full width, bf16 weights, ``TrainConfig()``
 #: defaults: bf16 moments, clip 1.0; remat): rows and positions a step, the
-#: steps (the first untimed), the least depth, the share of the card's memory
+#: steps (the first untimed), the share of the card's memory
 #: the reckoned depth may fill, and what the reckoning holds back beside the
 #: weights, gradients, moments and the layers' saved inputs: one layer's
 #: recompute, a loss chunk's logits and the allocator's slack
-TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_MIN_LAYERS = 4, 2048, 6, 8
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 6
 TRAIN_PEAK_SHARE, TRAIN_RESERVE_BYTES = 0.8, 10 * 2**30
+#: the least depth ``train_depth`` may reckon for each trained config:
+#: recurrentgemma-2b and xlstm-1.3b train at full depth; grok-1's one layer
+#: holds 4.9 B parameters (8 experts of 3 x 6,144 x 32,768), so one
+TRAIN_MIN_LAYERS = {"granite-3-8b": 8, "recurrentgemma-2b": 26, "xlstm-1.3b": 48,
+                    "grok-1-314b": 1}
 #: the attention backward's check at one layer's shape (B, T, H, KH, D), f32
 #: with TF32 off, against autograd through a plain masked softmax
 ATTN_CHECK, ATTN_GRAD_REL = (1, 2048, 32, 8, 128), 1e-4
@@ -3515,30 +3528,47 @@ DRIVER_T, DRIVER_B = 256, 8
 #: calibration example's penalty weight, learning rate and start (4x budget)
 CAL_LM_B, CAL_LM_T, CAL_LM_STEPS, CAL_LM_TARGET = 4, 512, 4, 2.0
 CAL_LM_LAM, CAL_LM_LR, CAL_LM_INIT_MULT = 20.0, 0.05, 4.0
+#: the family train phases, each followed by the LM calibration on its
+#: weights: phase -> (config, rows, positions, the calibration's positions
+#: at ``CAL_LM_B`` rows). xlstm's sLSTM is a loop over time and its mLSTM
+#: chunk scan a loop over requests (small launches, in the forward, the
+#: recompute and the backward), and the host launches every kernel (on an
+#: H100 80GB HBM3 at 700.00 W: 489,034 kernels and 17.5 s a step at 4 x 512,
+#: 112,513 and 6.1 s at 4 x 64), so its rows and positions are cut to keep the
+#: phase's seconds; grok's tokens are cut so that its expert buffers fit
+#: beside 52 GB of state
+FAMILY_TRAIN = {"train_griffin": ("recurrentgemma-2b", 4, 2048, CAL_LM_T),
+                "train_xlstm": ("xlstm-1.3b", 2, 64, 64),
+                "train_moe": ("grok-1-314b", 2, 1024, CAL_LM_T)}
+#: a family phase's train steps (the first untimed), all on one batch so
+#: that a falling loss is the optimizer's and not the batches' spread (at
+#: 2 x 1,024 tokens grok's loss moved 0.03 from batch to batch on the same
+#: card), and its calibration steps
+FAMILY_TRAIN_STEPS, FAMILY_CAL_STEPS = 3, 2
 
 
-def train_depth(CONFIG) -> int:
+def train_depth(CONFIG, rows=TRAIN_B, positions=TRAIN_T) -> int:
     """The most layers of ``CONFIG`` whose training state fits
     ``TRAIN_PEAK_SHARE`` of the card: 8 bytes a parameter (bf16 weights,
-    gradients and two moments), each layer's saved input (B T d bf16,
-    remat) and ``TRAIN_RESERVE_BYTES``; reckoned before any weight is made.
-    Raises below ``TRAIN_MIN_LAYERS``."""
+    gradients and two moments) of the embedding, the lm_head (vocabulary
+    padding included) and the mean layer, each layer's saved input (rows x
+    positions x d bf16, remat) and ``TRAIN_RESERVE_BYTES``; reckoned before
+    any weight is made. Raises below the config's ``TRAIN_MIN_LAYERS``."""
     import torch
 
-    from repro_torch.configs import reduced_depth
-
     _, total = torch.cuda.mem_get_info()
-    one, two = (reduced_depth(CONFIG, n_layers=n, name=CONFIG.name) for n in (1, 2))
-    per_layer = two.param_count() - one.param_count()
-    fixed = one.param_count() - per_layer + (CONFIG.padded_vocab - CONFIG.vocab_size) * 2 * \
-        CONFIG.d_model
-    saved = TRAIN_B * TRAIN_T * CONFIG.d_model * 2
+    c = CONFIG
+    heads = 1 if c.tie_embeddings else 1 + c.n_codebooks  # the embedding, the lm_head(s)
+    fixed = heads * c.vocab_size * c.d_model
+    per_layer = (c.param_count() - fixed) / c.n_layers
+    fixed += heads * (c.padded_vocab - c.vocab_size) * c.d_model
+    saved = rows * positions * c.d_model * 2
     depth = int((TRAIN_PEAK_SHARE * total - TRAIN_RESERVE_BYTES - 8 * fixed)
                 // (8 * per_layer + saved))
-    if depth < TRAIN_MIN_LAYERS:
-        raise AssertionError(f"training {CONFIG.name} fits {depth} layers, under "
-                             f"{TRAIN_MIN_LAYERS}")
-    return min(CONFIG.n_layers, depth)
+    floor = TRAIN_MIN_LAYERS[c.name]
+    if depth < floor:
+        raise AssertionError(f"training {c.name} fits {depth} layers, under {floor}")
+    return min(c.n_layers, depth)
 
 
 def _attention_backward_check(cfg):
@@ -3590,37 +3620,52 @@ def _attention_backward_check(cfg):
     return row
 
 
-def phase_train(CONFIG=None):
-    """granite-3-8b trained at full width: the depth ``train_depth``
-    reckons, bf16 weights from seed 0, ``TrainConfig()``, remat; the
-    attention backward checked first (``_attention_backward_check``). Then
-    ``TRAIN_STEPS`` steps of ``markov_batch`` at ``TRAIN_B`` x ``TRAIN_T``:
-    the loss finite at every step and lower at the last; ms a step (median
-    of steps 2 on, unprofiled), one more step profiled (device ms, idle
-    share), tokens/s, the peak against the card's memory, and the
-    model-FLOPs share (6 N tokens + the attention's matmuls over the step's
-    seconds at the bf16 spec peak). Then two steps again from the same
-    weights and a fresh optimizer: the parameters equal those after the
-    first run's second step bit for bit. Returns the depth-cut config."""
+def _train_flops(cfg, rows, positions) -> float:
+    """Model FLOPs of a train step: 6 N a token over the matmul parameters
+    (N: the active ones in MoE, top-k experts a token; the embedding is a
+    gather unless it is also the tied lm_head), plus the attention's and
+    the mLSTM chunk's score and value matmuls, 6 B H hd T S with S the keys
+    a query sees (T, or the window in local attention; the chunk in an
+    mLSTM block), causal halving included as in ``phase_train``."""
+    from repro_torch.models import lm
+
+    n = cfg.active_param_count() - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    if cfg.family == "xlstm":
+        g, per = lm.group_structure(cfg)
+        seen = min(positions, cfg.attn_kv_chunk, 512)  # lm._xlstm_group's chunk
+        mix = 6 * rows * cfg.d_model * positions * seen * g * (per - 1)
+    else:
+        layers = cfg.n_layers
+        seen = positions
+        if cfg.family == "griffin":  # the tail layers are recurrent
+            layers = cfg.griffin_pattern.count("attn") * lm.group_structure(cfg)[0]
+            seen = min(positions, cfg.local_window)
+        mix = 6 * rows * cfg.n_heads * cfg.head_dim * positions * seen * layers
+    return 6 * n * rows * positions + mix
+
+
+def _train_run(phase, CONFIG, cfg, batches, **extra):
+    """A train step on each of ``batches`` but the last on ``cfg`` (bf16
+    weights from seed 0, ``TrainConfig()``, remat): the loss finite at
+    every step and lower at the last; ms a step (median of steps 2 on,
+    unprofiled), a step on the last batch profiled (device ms, idle share,
+    kernels launched), tokens/s, the peak against the card's memory and
+    the model-FLOPs share (``_train_flops`` over the step's seconds at the
+    bf16 spec peak). Then two steps again from the same weights and a
+    fresh optimizer: the parameters equal those after the first run's
+    second step bit for bit. Logs the row under ``phase`` and returns the
+    repeat's parameters (two steps from seed 0)."""
     import statistics
 
     import torch
 
-    from repro_torch.configs import reduced_depth
-    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
     from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
     from repro_torch.models import lm
     from repro_torch.tree import leaves
 
-    if CONFIG is None:
-        from repro_torch.configs.granite_3_8b import CONFIG
-    attn = _attention_backward_check(CONFIG)
-    depth = train_depth(CONFIG)
-    cfg = reduced_depth(CONFIG, n_layers=depth, name=CONFIG.name)
     tcfg = TrainConfig()
-    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B,
-                           seed=7)
-    batches = [markov_batch(data, i) for i in range(TRAIN_STEPS + 1)]
+    n_steps = len(batches) - 1
+    rows, positions = batches[0]["tokens"].shape
     step = make_train_step(cfg, None, tcfg)
 
     def fresh():
@@ -3633,7 +3678,7 @@ def phase_train(CONFIG=None):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     losses, norms, ms, after_two = [], [], [], None
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         def one(i=i):
             state[0], state[1], m = step(state[0], state[1], batches[i])
             return m
@@ -3644,12 +3689,10 @@ def phase_train(CONFIG=None):
         if i == 1:  # the state the repeat below must reproduce
             after_two = [p.to("cpu", copy=True) for p in leaves(state[0])]
     peak = torch.cuda.max_memory_allocated()
-    _, prof = _profile(lambda: step(state[0], state[1], batches[TRAIN_STEPS]))
+    _, prof = _profile(lambda: step(state[0], state[1], batches[n_steps]))
     step_ms = statistics.median(ms[1:])
-    tokens = TRAIN_B * TRAIN_T
-    n_matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model  # the embedding is a gather
-    attn_flops = 6 * TRAIN_B * cfg.n_heads * cfg.head_dim * TRAIN_T**2 * cfg.n_layers
-    flops = 6 * n_matmul * tokens + attn_flops
+    tokens = rows * positions
+    flops = _train_flops(cfg, rows, positions)
     _, total = torch.cuda.mem_get_info()
     state = None
     _free()
@@ -3657,25 +3700,69 @@ def phase_train(CONFIG=None):
     for i in range(2):
         params, opt, _ = step(params, opt, batches[i])
     equal = [bool(torch.equal(p, a.to("cuda"))) for p, a in zip(leaves(params), after_two)]
-    params = opt = after_two = None
+    opt = after_two = None
     _free()
-    row = dict(config=cfg.name, layers=cfg.n_layers, of_layers=CONFIG.n_layers,
-               params=cfg.param_count(), batch=[TRAIN_B, TRAIN_T], losses=losses,
+    row = dict(config=cfg.name, family=cfg.family, layers=cfg.n_layers,
+               of_layers=CONFIG.n_layers, params=cfg.param_count(),
+               active_params=cfg.active_param_count(), batch=[rows, positions], losses=losses,
                grad_norms=norms, step_ms=ms, ms_a_step=step_ms, init_s=init_s,
                device_ms=prof["device_ms"], idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
-               profiled_wall_ms=prof["profiled_wall_ms"], top=prof["top"],
-               tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak / 2**30,
+               profiled_wall_ms=prof["profiled_wall_ms"], profile_s=prof["profile_s"],
+               kernels_a_step=prof["kernels"],
+               top=prof["top"], tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak / 2**30,
                card_gib=total / 2**30, peak_share=peak / total, model_flops=flops,
                mfu_of_bf16_spec_peak=flops / (step_ms / 1e3 * BF16_FLOPS_S),
-               repeat_equal=equal, attention=attn, card=card())
-    log("train", **row)
+               repeat_equal=equal, **extra, card=card())
+    log(phase, **row)
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"train: losses {losses}")
+        raise AssertionError(f"{phase}: losses {losses}")
     if not all(equal):
-        raise AssertionError(f"train: two runs of 2 steps differ at leaves {equal}")
+        raise AssertionError(f"{phase}: two runs of 2 steps differ at leaves {equal}")
     if peak > TRAIN_PEAK_SHARE * total:
-        raise AssertionError(f"train: peak {peak} bytes over {TRAIN_PEAK_SHARE} of {total}")
+        raise AssertionError(f"{phase}: peak {peak} bytes over {TRAIN_PEAK_SHARE} of {total}")
+    return params
+
+
+def phase_train(CONFIG=None):
+    """granite-3-8b trained at full width: the depth ``train_depth``
+    reckons, the attention backward checked first
+    (``_attention_backward_check``), then ``_train_run`` of
+    ``TRAIN_STEPS`` steps at ``TRAIN_B`` x ``TRAIN_T``, each on its own
+    batch. Returns the depth-cut config."""
+    from repro_torch.configs import reduced_depth
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+
+    if CONFIG is None:
+        from repro_torch.configs.granite_3_8b import CONFIG
+    attn = _attention_backward_check(CONFIG)
+    cfg = reduced_depth(CONFIG, n_layers=train_depth(CONFIG), name=CONFIG.name)
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B,
+                           seed=7)
+    _train_run("train", CONFIG, cfg, [markov_batch(data, i) for i in range(TRAIN_STEPS + 1)],
+               attention=attn)
     return cfg
+
+
+def phase_train_family(phase):
+    """A family of ``FAMILY_TRAIN`` trained at full width and the depth
+    ``train_depth`` reckons at the phase's rows and positions
+    (recurrentgemma-2b and xlstm-1.3b whole, grok-1 at one layer):
+    ``_train_run`` of ``FAMILY_TRAIN_STEPS`` steps on one batch, then the
+    LM calibration on the repeat's weights (``phase_calibrate_lm``, logged
+    as ``calibrate_<family>``). The analog kernels take no part, as in the
+    reference's training."""
+    from repro_torch.configs import get_config, reduced_depth
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+
+    arch, rows, positions, cal_positions = FAMILY_TRAIN[phase]
+    full = get_config(arch)
+    cfg = reduced_depth(full, n_layers=train_depth(full, rows, positions), name=full.name)
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=positions, global_batch=rows,
+                           seed=7)
+    one = markov_batch(data, 0)
+    params = _train_run(phase, full, cfg, [one] * (FAMILY_TRAIN_STEPS + 1), one_batch=True)
+    phase_calibrate_lm(cfg, params, name=phase.replace("train", "calibrate"),
+                       steps=FAMILY_CAL_STEPS, positions=cal_positions)
 
 
 def phase_train_driver():
@@ -3754,14 +3841,15 @@ def phase_train_driver():
                              f"{faulty.restarts}, losses {losses}")
 
 
-def phase_calibrate_lm(cfg):
-    """Eq. 14 at LM scale on the train phase's config (its depth, bf16
-    weights from seed 0): ``make_calibrate_step`` with shot noise on the
-    "torch" backend (the kernel has no backward), ``CAL_LM_STEPS`` steps
-    of ``markov_batch`` at ``CAL_LM_B`` x ``CAL_LM_T`` from a uniform start
+def phase_calibrate_lm(cfg, params=None, name="calibrate_lm", steps=CAL_LM_STEPS,
+                       positions=CAL_LM_T):
+    """Eq. 14 at LM scale on a train phase's config (its depth; ``params``,
+    or bf16 weights from seed 0): ``make_calibrate_step`` with shot noise
+    on the "torch" backend (the kernel has no backward), ``steps`` steps
+    of ``markov_batch`` at ``CAL_LM_B`` x ``positions`` from a uniform start
     at ``CAL_LM_INIT_MULT`` x the budget: NLL and loss finite, the penalty
     falling, no kernel route launched; ms a step, peak GiB, the mean
-    energy a MAC after each step."""
+    energy a MAC after each step. Logged under ``name``."""
     import torch
 
     from repro_torch.core.analog import AnalogConfig
@@ -3775,21 +3863,22 @@ def phase_calibrate_lm(cfg):
     from repro_torch.tree import map_leaves
 
     _free()
-    params = lm.init_params(cfg, seed=0, device="cuda")
+    if params is None:
+        params = lm.init_params(cfg, seed=0, device="cuda")
     step = make_calibrate_step(cfg, analog_cfg=AnalogConfig.shot(backend="torch"),
-                               seq_len=CAL_LM_T, target_e_per_mac=CAL_LM_TARGET, lam=CAL_LM_LAM,
+                               seq_len=positions, target_e_per_mac=CAL_LM_TARGET, lam=CAL_LM_LAM,
                                lr=CAL_LM_LR)
     log_e = map_leaves(lambda _p, t: t.cuda(),
                        uniform_log_energies(step.macs, CAL_LM_INIT_MULT * CAL_LM_TARGET))
     opt = adam_init(log_e, AdamConfig(lr=CAL_LM_LR))
-    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=CAL_LM_T, global_batch=CAL_LM_B,
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=positions, global_batch=CAL_LM_B,
                            seed=7)
-    batches = [markov_batch(data, i) for i in range(CAL_LM_STEPS)]
+    batches = [markov_batch(data, i) for i in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(am.LAUNCHES)
     nll, loss, e_mac, ms = [], [], [], []
-    for i in range(CAL_LM_STEPS):
+    for i in range(steps):
         (log_e, opt, m), wall = _wall_ms(
             lambda i=i: step(log_e, opt, params, batches[i], prng.fold_in(prng.PRNGKey(0), i)))
         nll.append(float(m["nll"]))
@@ -3799,16 +3888,16 @@ def phase_calibrate_lm(cfg):
             e_mac.append(float(avg_energy_per_mac(to_energy(log_e), step.macs)))
     launched = _launch_delta(before)
     penalty = [a - b for a, b in zip(loss, nll)]
-    log("calibrate_lm", config=cfg.name, layers=cfg.n_layers, batch=[CAL_LM_B, CAL_LM_T],
+    log(name, config=cfg.name, layers=cfg.n_layers, batch=[CAL_LM_B, positions],
         target_e_per_mac=CAL_LM_TARGET, nll=nll, loss=loss, penalty=penalty,
         e_per_mac_after_step=e_mac, step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         kernel_launches=launched, card=card())
     params = None
     _free()
     if not (all(map(math.isfinite, nll + loss)) and penalty[-1] < penalty[0]):
-        raise AssertionError(f"calibrate_lm: nll {nll}, loss {loss}")
+        raise AssertionError(f"{name}: nll {nll}, loss {loss}")
     if any(launched.values()):
-        raise AssertionError(f"calibrate_lm launched kernel routes {launched}")
+        raise AssertionError(f"{name} launched kernel routes {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -4238,7 +4327,9 @@ def main() -> int:
                          "step, pad and whole-path phases; graphs runs graphs_griffin and "
                          "graphs_granite20 on those models' weights; tp and int8 run on granite-3-8b's "
                          "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
-                         "and grok-1's; calibrate_lm on train's config); default all")
+                         "and grok-1's; calibrate_lm on train's config; train_griffin, "
+                         "train_xlstm and train_moe each calibrate on their weights); default "
+                         "all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -4456,6 +4547,11 @@ def main() -> int:
                    reduced_depth(GRANITE, n_layers=train_depth(GRANITE), name=GRANITE.name))
     if "calibrate_lm" in run:
         timed("calibrate_lm", phase_calibrate_lm, trained)
+    trained = None
+    for phase in FAMILY_TRAIN:  # each with its calibration on its weights
+        if phase in run:
+            _free()
+            timed(phase, phase_train_family, phase)
     if "train_driver" in run:
         _free()
         timed("train_driver", phase_train_driver)

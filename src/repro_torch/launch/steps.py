@@ -8,10 +8,12 @@ placement (parameter and ZeRO-1 optimizer shardings, ``compressed_psum``)
 comes with sharded training (ROADMAP A). The serving steps are the
 engine's (``serving/tiers.py``).
 
-The train step updates the parameters and the optimizer state in place,
-as the reference's donates them. Its gradients accumulate in the
+Every family trains and calibrates (dense, griffin, xlstm, moe). The
+train step updates the parameters and the optimizer state in place, as
+the reference's donates them. Its gradients accumulate in the
 parameters' dtype (the reference's ``g0 = zeros_like(p)``): every
-layer-stacked leaf is handed to the loss as a list of per-layer views,
+layer-stacked leaf is handed to the loss as a list of per-layer views
+(mLSTM and expert leaves as lists of per-block or per-expert views),
 each an autograd leaf whose ``.grad`` is the matching slice of one
 preallocated gradient buffer, so the backward adds each layer's gradient
 in place and no stacked gradient is assembled from slices.
@@ -34,9 +36,6 @@ from repro_torch.tree import map_leaves
 
 F32 = torch.float32
 Tree = Any
-#: the parameter subtrees whose leaves stack one entry a layer group (or a
-#: griffin tail layer) on their leading axis
-STACKED = ("blocks", "tail")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,20 +71,23 @@ def batch_tensors(batch, device) -> dict:
 def _grad_leaves(params: Tree, grads: Tree) -> Tree:
     """``params`` as autograd leaves accumulating into ``grads``: a stacked
     leaf becomes a list of per-layer views (``lm`` indexes a list as it
-    indexes the stacked tensor), each with ``.grad`` preset to its slice of
-    the gradient buffer, which the backward then adds to in place."""
+    indexes the stacked tensor), an mLSTM or expert leaf a list of lists,
+    one view a block or expert (``lm.stacked_axes``); each view's ``.grad``
+    is preset to its slice of the gradient buffer, which the backward then
+    adds to in place. So no layer's or expert's gradient is scattered into
+    a zero tensor of its whole stack first."""
 
     def leaf(p, g):
         v = p.detach().requires_grad_()
         v.grad = g
         return v
 
-    def one(path, p, g):
-        if path[0] in STACKED:
-            return [leaf(p[i], g[i]) for i in range(p.shape[0])]
-        return leaf(p, g)
+    def views(p, g, depth):
+        if depth == 0:
+            return leaf(p, g)
+        return [views(p[i], g[i], depth - 1) for i in range(p.shape[0])]
 
-    return map_leaves(one, params, grads)
+    return map_leaves(lambda path, p, g: views(p, g, lm.stacked_axes(path)), params, grads)
 
 
 def make_train_step(cfg: ModelConfig, mesh=None, tcfg: TrainConfig = TrainConfig()):

@@ -25,9 +25,10 @@ class MatmulHook:
     def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w.to(x.dtype))
 
-    def batched(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Expert-batched matmul: (E, ..., K) @ (E, K, N)."""
-        return torch.stack([torch.matmul(x[e], w[e].to(x.dtype)) for e in range(w.shape[0])])
+    def batched(self, site: str, x: torch.Tensor, w) -> torch.Tensor:
+        """Expert-batched matmul: (E, ..., K) @ (E, K, N); ``w`` may be a
+        list of the E (K, N) weights (a train step's gradient views)."""
+        return torch.stack([torch.matmul(x[e], w[e].to(x.dtype)) for e in range(len(w))])
 
 
 @dataclasses.dataclass
@@ -95,7 +96,7 @@ class AnalogHook(MatmulHook):
                 s: v[i] for s, v in self.expert_seeds.items()})
 
     def batched(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        n_e = w.shape[0]
+        n_e = len(w)
         energy = self._site_energy(site)
         energy = energy.expand(n_e) if energy.dim() == 0 else energy
         seeds = self.expert_seeds[site]

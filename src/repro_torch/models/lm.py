@@ -1,5 +1,5 @@
-"""Language model; port of ``repro/models/lm.py`` (every family: the forward;
-the dense family: the train loss).
+"""Language model; port of ``repro/models/lm.py`` (every family: the forward
+and the train loss).
 
 Families:
 
@@ -54,6 +54,7 @@ and copies nothing to the device: a CUDA graph can hold it
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -308,6 +309,24 @@ def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
+#: the parameter subtrees whose leaves stack one entry a layer group (or a
+#: griffin tail layer) on their leading axis
+STACKED = ("blocks", "tail")
+#: the MoE block's expert-batched leaves: (G, E * split, ...)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_in", "w_down")
+
+
+def stacked_axes(path: tuple) -> int:
+    """How many leading axes of the parameter at ``path`` index layers the
+    forward takes one at a time: 2 for an mLSTM leaf (group, block) and an
+    expert leaf (group, expert), 1 for another stacked leaf, 0 else."""
+    if path[0] not in STACKED:
+        return 0
+    if path[1] == "mlstm" or (path[1] == "moe" and len(path) == 3 and path[2] in EXPERT_LEAVES):
+        return 2
+    return 1
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights at the reference's shapes and scales, drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed``. Stacked
@@ -323,7 +342,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
             return out
         # a stacked leaf a layer at a time, and an expert (or mLSTM block)
         # at a time where it has one more stacked dim
-        parts = out if path[0] in ("blocks", "tail") else out[None]
+        parts = out if path[0] in STACKED else out[None]
         if len(leaf.shape) >= 4:
             parts = parts.flatten(0, 1)
         for part in parts:
@@ -733,22 +752,33 @@ def _sublayer(x, cfg: ModelConfig, hook, i: int, kind: str, ln1, ln2, mix_p, ffn
     return x + ffn(rms_norm(x, ln2, cfg.norm_eps))
 
 
-def _xlstm_group(x, gp, cfg: ModelConfig, hooks, *, mode, cache, pad_mask):
+def _xlstm_group(x, gp, cfg: ModelConfig, hooks, *, mode, cache, pad_mask, remat=False):
     """One xlstm group: ``m`` mLSTM blocks, then the sLSTM block, each a
     pre-norm residual. ``hooks[j]``: block j's hook. ``cache``: the
     group's state views (``C``, ``n``, ``m`` with the blocks leading, the
     sLSTM's ``sc``, ``sn``, ``sh``, ``sm``), read in decode and written in
-    place; None in a prefill that keeps no cache."""
+    place; None in a prefill that keeps no cache. ``remat`` (training):
+    each mLSTM block is recomputed in the backward on its own, as the
+    reference's ``mlstm_one`` is, so the group's recompute keeps one
+    block's chunk-scan residuals alive at a time."""
     m = group_structure(cfg)[1] - 1
     decode = mode == "decode"
-    for j in range(m):
+
+    def mlstm_one(x, j, views):
         pj = {k: v[j] for k, v in gp["mlstm"].items()}
-        views = None if cache is None else (cache["C"][j], cache["n"][j], cache["m"][j])
         y, st = xlstm_lib.mlstm_block(
             rms_norm(x, pj["ln"], cfg.norm_eps), pj, hooks[j], n_heads=cfg.n_heads,
             chunk=min(cfg.attn_kv_chunk, 512), state=views if decode else None, decode=decode,
             pad_mask=pad_mask)
-        x = x + y
+        return x + y, st
+
+    for j in range(m):
+        views = None if cache is None else (cache["C"][j], cache["n"][j], cache["m"][j])
+        if remat:
+            x, st = torch.utils.checkpoint.checkpoint(mlstm_one, x, j, views,
+                                                      use_reentrant=False)
+        else:
+            x, st = mlstm_one(x, j, views)
         for view, new in zip(views or (), st):
             view.copy_(new)
     views = None if cache is None else tuple(cache[k] for k in ("sc", "sn", "sh", "sm"))
@@ -822,7 +852,9 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
 
     ``remat``: each layer group runs under ``torch.utils.checkpoint``
     (non-reentrant), its activations recomputed in the backward, as the
-    reference's train-mode scan body is (``cfg.remat``).
+    reference's train-mode scan body is (``cfg.remat``); inside a group,
+    as in the reference, each griffin sublayer and each xlstm mLSTM block
+    is checkpointed again. Griffin's tail layers run outside both.
 
     ``hook``: the matmul hook of a digital forward (``analog`` None),
     ``MatmulHook`` by default; the serving tiers pass their own. A tree of
@@ -884,6 +916,10 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                                       rows_per_key=analog.rows_per_key, expert_seeds=ex))
         return out
 
+    # the reference's per-sublayer remat of a griffin group (more than one
+    # sublayer): without it the group's recompute keeps every sublayer's
+    # scan levels alive in the backward
+    sub_remat = remat and cfg.family == "griffin" and len(cfg.griffin_pattern) > 1
     # int8 serving: the int8 tree stays resident, each bf16 layer is transient
     deq = dequantize_params if isinstance(params, Int8Params) else (lambda tree: tree)
     gcache = None if cache is None else cache["groups"]
@@ -893,7 +929,8 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
         layer_hooks = hooks("groups", gi, sites, table, rows[gi])
         if cfg.family == "xlstm":
             lc = None if gcache is None else {k: v[gi] for k, v in gcache.items()}
-            return _xlstm_group(h, gp, cfg, layer_hooks, mode=mode, cache=lc, pad_mask=pad_mask)
+            return _xlstm_group(h, gp, cfg, layer_hooks, mode=mode, cache=lc, pad_mask=pad_mask,
+                                remat=remat)
         for i, kind in enumerate(_kinds(cfg)):
             hook = layer_hooks[i]
             if gcache is None:
@@ -910,9 +947,14 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                 ffn = lambda y, hook=hook, i=i: mlp(y, gp[f"mlp{i}"], hook, prefix=f"mlp{i}",
                                                     mlp_type=cfg.mlp_type)
             mix = gp[f"rec{i}"] if kind == "rec" else gp[f"attn{i}"]
-            h = _sublayer(h, cfg, hook, i, kind, gp[f"ln1_{i}"], gp[f"ln2_{i}"], mix, ffn,
-                          rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
-                          lengths=lengths)
+            sub = functools.partial(_sublayer, cfg=cfg, hook=hook, i=i, kind=kind,
+                                    ln1=gp[f"ln1_{i}"], ln2=gp[f"ln2_{i}"], mix_p=mix, ffn=ffn,
+                                    rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
+                                    lengths=lengths)
+            if sub_remat:  # griffin: each sublayer recomputed on its own
+                h = torch.utils.checkpoint.checkpoint(sub, h, use_reentrant=False)
+            else:
+                h = sub(h)
         return h
 
     for gi in range(g):
@@ -989,12 +1031,9 @@ def train_loss(params, batch, cfg: ModelConfig, analog: Optional[AnalogSpec] = N
     ``cfg.remat``, then ``chunked_xent`` over the lm_head. Under
     ``analog`` the lm_head is an analog site too, at ``analog.energies
     ["lm_head"]`` with the key ``fold_key(analog.key, 0x1A57)``, as in the
-    reference. The dense family; the train-mode forwards of griffin, xlstm
-    and moe are not ported yet."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"train_loss of the {cfg.family} family is not ported (ROADMAP A: training of the "
-            "griffin, xlstm and moe families)")
+    reference. Every family: a stacked leaf may come as a list of
+    per-layer tensors (``launch.steps``' gradient views), an expert or
+    mLSTM leaf as a list of lists (``stacked_axes``)."""
     batch = _as_batch(batch)
     h = forward_hidden(params, _embed_inputs(params, batch, cfg), cfg, analog=analog,
                        remat=cfg.remat)

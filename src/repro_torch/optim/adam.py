@@ -11,6 +11,7 @@ steps are the reference's, operation for operation.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -83,18 +84,27 @@ def adam_update(grads: Tree, state: AdamState, params: Tree,
 
 #: elements of a leaf taken at once by ``adam_update_`` (and
 #: ``clip.global_norm``): a larger leaf goes in slices along its leading
-#: axis, bounding the float32 temporaries (about eight copies of a slice)
+#: axes, bounding the float32 temporaries (about eight copies of a slice)
 #: whatever the leaf's size
 SLICE_ELEMS = 1 << 25
 
 
 def leading_slices(t: torch.Tensor):
     """Index tuples covering ``t`` in slices of its leading axis of at most
-    ``SLICE_ELEMS`` elements (one row at least; ``()`` for a 0-d tensor)."""
-    if t.dim() == 0:
+    ``SLICE_ELEMS`` elements (one row at least; ``()`` for a 0-d tensor).
+    Where a row of a tensor of three or more axes is larger (a layer of
+    MoE experts, (E, d, f)), each row is cut the same way along the next
+    axis."""
+    return _slices(tuple(t.shape))
+
+
+def _slices(shape: tuple) -> list:
+    if not shape:
         return [()]
-    rows = t.shape[0]
-    per = max(1, SLICE_ELEMS // max(1, t.numel() // max(rows, 1)))
+    rows, row = shape[0], math.prod(shape[1:])
+    if row > SLICE_ELEMS and len(shape) > 2:
+        return [(i,) + rest for i in range(rows) for rest in _slices(shape[1:])]
+    per = max(1, SLICE_ELEMS // max(1, row))
     return [(slice(lo, lo + per),) for lo in range(0, rows, per)]
 
 

@@ -371,12 +371,6 @@ def test_train_loss_and_grads_match_reference(dtype, remat):
         assert err <= rel * np.abs(jg).max() + np.abs(jg - ex).max(), (path, err)
 
 
-def test_train_loss_refuses_other_families():
-    cfg = get_smoke_config("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.train_loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, cfg)
-
-
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
