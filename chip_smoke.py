@@ -130,17 +130,27 @@ families the same way, each followed by its calibration on its weights
 2 x 1,024), with the kernels each step runs; and demo-100m
 through the fault-tolerant driver with two simulated failures, bit-equal
 to a clean run, with its checkpoints' bytes and seconds
-(``train_driver``). Every phase that fails raises; each prints its
-seconds. The last line is ``{"ok":
+(``train_driver``). The paper's CNN path (``conv``): ``analog_conv2d``
+(f32 patches, the simt route) at ResNet-50's 23 conv shapes and its fc
+at batch 16, shot noise, K = 1 and 4, with and without 8-bit quantizers,
+each against the plain version, the paper-table CNN end to end, faulty
+controls, each shape's ms against its bound and the largest batch it
+takes. Data-parallel training (``train_dp``): granite-3-8b at full width
+on 2 data shards with ZeRO-1 moments, 3 steps as one device at 2
+microbatches, as the local mesh and as 2 processes on the card over
+gloo, bit-equal, with the collectives' ms and bytes. Every phase that
+fails raises; each prints its seconds. The last line is ``{"ok":
 true, "device": {...}}``; without a CUDA device it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -272,7 +282,8 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "graphs_granite20",
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
-          "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver")
+          "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver", "conv",
+          "train_dp")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -294,9 +305,9 @@ SOURCE = {
 }
 REPLACES = "src/repro/kernels/analog_matmul.py:208"
 #: the main paths whose launches each route's entry of the kernels line
-#: counts: the serves for decode, tc and weight; simt serves no path since
-#: the weight route, so its count is 0 there. ``check_launches`` counts each
-#: route's launches in the phases that hold it against the plain version.
+#: counts: the serves for decode, tc and weight; the convolutions (f32
+#: patches) for simt. ``check_launches`` counts each route's launches in the
+#: phases that hold it against the plain version.
 DENSE_PATHS = ("serve_granite20", "serve_qwen14", "qwen32_fit", "serve_bert", "frontends")
 FAMILY_PATHS = ("serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit")
 TP_PATHS = ("tp", "tp_griffin", "tp_xlstm", "tp_grok")
@@ -304,7 +315,7 @@ MAIN_PATHS = {"decode": ("serve", "resilience", "graphs", "serve_griffin") + DEN
               + BERT_FOLLOWERS + FAMILY_PATHS + TP_PATHS,
               "tc": ("serve", "resilience", "graphs", "serve_griffin") + DENSE_PATHS
               + BERT_FOLLOWERS + FAMILY_PATHS + TP_PATHS,
-              "simt": (), "weight": ("serve_weight",)}
+              "simt": ("conv",), "weight": ("serve_weight",)}
 CHECK_PATHS = ("kernels", "routes", "tp_routes", "site_time")
 
 
@@ -3500,6 +3511,571 @@ def phase_llama4_fit():
     return launches
 
 # ---------------------------------------------------------------------------
+# the paper's CNN path: analog convolution through the simt route
+# ---------------------------------------------------------------------------
+
+#: the conv phase: ResNet-50's convolutions at this batch from 224 x 224,
+#: shot noise at this energy (aJ/MAC), K = 1 and 4, with and without the
+#: paper's 8-bit input, weight and output quantizers (App. A)
+CONV_B, CONV_E, CONV_REPEATS = 16, 20.0, (1, 4)
+#: the paper-table CNN (``benchmarks/common.py`` ``build_cnn``): its
+#: channels, classes, images and their side
+CNN_CHANNELS, CNN_CLASSES, CNN_IMAGES, CNN_SIZE = ((3, 16), (16, 32), (32, 32)), 10, 256, 16
+#: the shape whose faulty controls the conv phase shows
+CONV_CONTROL = "s2 3x3/2 128->128"
+
+
+def resnet50_convs() -> list:
+    """ResNet-50's 23 distinct convolution shapes (He et al. 2016, Table 1,
+    50-layer; the stride on the 3x3, as torchvision's ``resnet50``) and its
+    fc: (name, input side, kernel side, stride, Cin, Cout, occurrences in
+    one forward). Stages of 3, 4, 6 and 3 bottleneck blocks give 53
+    convolutions; stage 1's projection has its expand's shape."""
+    convs = [("conv1 7x7/2 3->64", 224, 7, 2, 3, 64, 1),
+             ("s1 1x1 64->64", 56, 1, 1, 64, 64, 1),
+             ("s1 3x3 64->64", 56, 3, 1, 64, 64, 3),
+             ("s1 1x1 64->256 (expand, projection)", 56, 1, 1, 64, 256, 4),
+             ("s1 1x1 256->64", 56, 1, 1, 256, 64, 2)]
+    for s, (side, blocks, cin, mid) in enumerate(((56, 4, 256, 128), (28, 6, 512, 256),
+                                                   (14, 3, 1024, 512)), 2):
+        out, big = side // 2, 4 * mid
+        convs += [(f"s{s} 1x1 {cin}->{mid}", side, 1, 1, cin, mid, 1),
+                  (f"s{s} 3x3/2 {mid}->{mid}", side, 3, 2, mid, mid, 1),
+                  (f"s{s} 3x3 {mid}->{mid}", out, 3, 1, mid, mid, blocks - 1),
+                  (f"s{s} 1x1 {mid}->{big}", out, 1, 1, mid, big, blocks),
+                  (f"s{s} 1x1/2 {cin}->{big} (projection)", side, 1, 2, cin, big, 1),
+                  (f"s{s} 1x1 {big}->{mid}", out, 1, 1, big, mid, blocks - 1)]
+    assert len(convs) == 23 and sum(c[-1] for c in convs) == 53
+    return convs
+
+
+def _conv_cfgs():
+    """(shot, shot with the 8-bit quantizers) on the card's backend."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.noise import SHOT, NoiseSpec
+
+    return AnalogConfig.shot(), AnalogConfig(mode="analog", noise=NoiseSpec(kind=SHOT))
+
+
+def _conv_quant(patches, w_mat):
+    """Min/max quantizers of a conv site: per-channel weight, per-tensor
+    input and output."""
+    from repro_torch.core.analog import SiteQuant
+    from repro_torch.quant.affine import calibrate_minmax
+
+    return SiteQuant(wqp=calibrate_minmax(w_mat, channel_axis=1), xqp=calibrate_minmax(patches),
+                     oqp=calibrate_minmax(patches @ w_mat))
+
+
+def _conv_close(yk, yr, sq):
+    """(max |err|, atol, ok) under the kernel rule: ``3e-5 max|y|`` plus
+    ``1e-4 |y|``, one output-quantizer bin under requant."""
+    import torch
+
+    atol = REL_ATOL * (float(yr.abs().max()) + 1e-6)
+    if sq is not None:
+        atol = max(atol, float(sq.oqp.delta) * 1.01)
+    err = (yk - yr).abs()
+    ok = bool((err <= atol + RTOL * yr.abs()).all()) and bool(torch.isfinite(yk).all())
+    return float(err.max()), atol, ok
+
+
+def _conv_site(name, side, kh, stride, cin, cout, seed, b=CONV_B):
+    """One site's f32 input (b, side, side, Cin), HWIO kernel (1/sqrt(fan-in)
+    scale) and seed words, from ``seed``; the fc (kh 0) is a (b, Cin) input
+    and a (Cin, Cout) weight."""
+    import torch
+
+    from repro_torch.core.analog import key_seed
+    from repro_torch.kernels import prng
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, cin) if kh == 0 else (b, side, side, cin)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    wshape = (cin, cout) if kh == 0 else (kh, kh, cin, cout)
+    k = torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(max(kh, 1) ** 2 * cin)
+    return x, k, key_seed(prng.PRNGKey(seed), "cuda")
+
+
+def _conv_call(x, k, stride, cfg, seed, sq, reps, backend=None):
+    """The site on ``backend`` (None: the card's): ``analog_conv2d`` at K = 1,
+    ``analog_dot`` on its patches at K = 4 (the conv itself takes no K, as
+    the reference's); the fc through ``analog_dot``."""
+    import torch
+
+    from repro_torch.core.analog import analog_conv2d, analog_dot, conv_patches, conv_weight_matrix
+
+    if backend is not None:
+        cfg = dataclasses.replace(cfg, backend=backend)
+    e = torch.tensor(CONV_E, device=x.device)
+    if x.dim() == 2:
+        return analog_dot(x, k, cfg=cfg, energy=e, seed=seed, sq=sq, n_repeats=reps)
+    if reps == 1:
+        return analog_conv2d(x, k, cfg=cfg, stride=stride, energy=e, seed=seed, sq=sq)
+    return analog_dot(conv_patches(x, k.shape[0], k.shape[1], stride), conv_weight_matrix(k),
+                      cfg=cfg, energy=e, seed=seed, sq=sq, n_repeats=reps)
+
+
+def _cnn_weights():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ws = [(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+          for cin, cout in CNN_CHANNELS]
+    head_in = CNN_CHANNELS[-1][1]
+    ws.append((rng.standard_normal((head_in, CNN_CLASSES)) / np.sqrt(head_in)).astype(np.float32))
+    return ws
+
+
+def _cnn_forward(images, ws, cfg, key):
+    """``build_cnn``'s analog apply: three 3x3 convs (stride 1, then 2),
+    ReLU, a spatial mean, an ``analog_dot`` head; conv i's seed is
+    ``site_key(fold_in(key, i), "c<i>")``, the head's ``site_key(key,
+    "head")``."""
+    import torch
+
+    from repro_torch.core.analog import analog_conv2d, analog_dot, fold_key, key_seed, site_key
+
+    e = torch.tensor(CONV_E, device=images.device)
+    h = images
+    for i, kern in enumerate(ws[:-1]):
+        h = analog_conv2d(h, kern, cfg=cfg, stride=2 if i else 1, energy=e,
+                          seed=key_seed(site_key(fold_key(key, i), f"c{i}"), images.device))
+        h = torch.relu(h)
+    return analog_dot(h.mean(dim=(1, 2)), ws[-1], cfg=cfg, energy=e,
+                      seed=key_seed(site_key(key, "head"), images.device))
+
+
+def phase_conv():
+    """The paper's CNN path on the card (``analog_conv2d``, f32 patches: the
+    simt route), under ``torch.no_grad()``.
+
+    Driven with the launch counts from zero: every ResNet-50 conv shape and
+    the fc (``resnet50_convs``) at batch ``CONV_B``, shot noise at
+    ``CONV_E`` aJ/MAC, K = 1 and 4, without and with the 8-bit quantizers,
+    each against the plain version ("tile") under the kernel rule; then the
+    paper-table CNN on ``CNN_IMAGES`` images of the port's
+    ``make_image_dataset`` against plain end to end. Every launch must be
+    simt's. Then, uncounted: faulty controls (another seed, K = 4 against
+    K = 1, no noise) at ``CONV_CONTROL`` and the CNN's another key, which
+    must fail the rule; each shape's kernel ms (L2 flushed), whole-call ms
+    and bound, the forward's sums weighted by the shapes' occurrences, the
+    heaviest shape's plain ms and ``F.conv2d``'s (the noise-free conv);
+    each shape's peak bytes an image and the largest batch that runs (the
+    grid's ``SIMT_MAX_ROWS`` and the card's free memory), conv1 run at its
+    largest batch and refused one image above it. Returns (launches by
+    route, the kernels line's simt entry)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.analog import _same_pads, conv_patches, conv_weight_matrix
+    from repro_torch.core.noise import NoiseSpec
+    from repro_torch.data import make_image_dataset
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.kernels import ops, prng
+    from repro_torch.kernels.analog_matmul import analog_matmul_raw
+    from repro_torch.kernels.ref import analog_matmul_ref_raw
+
+    shot, quant = _conv_cfgs()
+    sites = resnet50_convs() + [("fc 2048->1000", 1, 0, 1, 2048, 1000, 1)]
+    rows = []
+    torch.cuda.synchronize()
+    _zero_launches()
+    with torch.no_grad():
+        for i, (name, side, kh, stride, cin, cout, occ) in enumerate(sites):
+            x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 100 + i)
+            row = dict(site=name, input=list(x.shape), kernel=list(k.shape), stride=stride,
+                       occurrences=occ, checks=[])
+            for q in (False, True):
+                sq = None
+                if q:
+                    p2 = x if kh == 0 else conv_patches(x, kh, kh, stride).reshape(-1, kh * kh * cin)
+                    sq = _conv_quant(p2, k if kh == 0 else conv_weight_matrix(k))
+                    p2 = None
+                for reps in CONV_REPEATS:
+                    cfg = quant if q else shot
+                    yk = _conv_call(x, k, stride, cfg, seed, sq, reps)
+                    yr = _conv_call(x, k, stride, cfg, seed, sq, reps, backend="tile")
+                    err, atol, ok = _conv_close(yk, yr, sq)
+                    row["checks"].append(dict(quant=q, n_repeats=reps, max_abs_err=err,
+                                              atol=atol, ok=ok))
+                    if not ok:
+                        raise AssertionError(f"conv {name} quant={q} K={reps}: kernel vs plain "
+                                             f"{err} > {atol}")
+            row["rows"] = int(yk.numel() // cout)
+            rows.append(row)
+        images, labels = make_image_dataset(CNN_IMAGES, n_classes=CNN_CLASSES, size=CNN_SIZE,
+                                            seed=5)
+        images = torch.from_numpy(images).cuda()
+        ws = [torch.from_numpy(w).cuda() for w in _cnn_weights()]
+        key = prng.PRNGKey(0)
+        logits = _cnn_forward(images, ws, shot, key)
+        plain = _cnn_forward(images, ws, dataclasses.replace(shot, backend="tile"), key)
+        torch.cuda.synchronize()
+    launches = dict(am.LAUNCHES)
+    cnn_err, cnn_atol, cnn_ok = _conv_close(logits, plain, None)
+    if not cnn_ok or tuple(logits.shape) != (CNN_IMAGES, CNN_CLASSES):
+        raise AssertionError(f"paper CNN: kernels vs plain {cnn_err} > {cnn_atol}")
+    if set(r for r, n in launches.items() if n) != {"simt"}:
+        raise AssertionError(f"the conv path launched {launches}, not simt alone")
+
+    with torch.no_grad():
+        controls = {}
+        name, side, kh, stride, cin, cout, _ = next(s for s in sites if s[0] == CONV_CONTROL)
+        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 7)
+        want = _conv_call(x, k, stride, shot, seed, None, 1, backend="tile")
+        other = seed.clone()
+        other[1] += 1
+        quiet = dataclasses.replace(shot, noise=NoiseSpec())
+        for label, y in (("another seed", _conv_call(x, k, stride, shot, other, None, 1)),
+                         ("K=4 against K=1", _conv_call(x, k, stride, shot, seed, None, 4)),
+                         ("no noise", _conv_call(x, k, stride, quiet, seed, None, 1))):
+            err, atol, ok = _conv_close(y, want, None)
+            controls[label] = dict(max_abs_err=err, atol=atol, fails=not ok)
+        y = _cnn_forward(images, ws, shot, prng.PRNGKey(1))
+        err, atol, ok = _conv_close(y, plain, None)
+        controls["paper CNN, another key"] = dict(max_abs_err=err, atol=atol, fails=not ok)
+        if not all(c["fails"] for c in controls.values()):
+            raise AssertionError(f"a faulty conv control passed the rule: {controls}")
+        accuracy = float((logits.argmax(-1).cpu().numpy() == labels).mean())
+
+        flush = _flush_buffer()
+        free, total = torch.cuda.mem_get_info()
+        for i, (row, (name, side, kh, stride, cin, cout, occ)) in enumerate(zip(rows, sites)):
+            x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 100 + i)
+            e = torch.tensor(CONV_E, device="cuda")
+            patches = x if kh == 0 else conv_patches(x, kh, kh, stride)
+            w_mat = k if kh == 0 else conv_weight_matrix(k)
+            o = ops.prepare_operands(patches.reshape(1, -1, w_mat.shape[0]), w_mat, energy=e,
+                                     seed=seed.reshape(1, 4), cfg=shot)
+            bound, by, _ = _bound(o, 1)
+            row.update(kernel_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1), 10, flush),
+                       call_ms=cuda_ms(lambda: _conv_call(x, k, stride, shot, seed, None, 1), 5,
+                                       flush),
+                       bound_ms=bound, bound_by=by)
+            row["share_of_bound"] = bound / row["kernel_ms"]
+            _free()
+            base = torch.cuda.memory_allocated()
+            _conv_call(x, k, stride, shot, seed, None, 1)
+            torch.cuda.synchronize()
+            per_image = (torch.cuda.max_memory_allocated() - base) / CONV_B
+            by_grid = am.SIMT_MAX_ROWS // max(1, row["rows"] // CONV_B)
+            row.update(peak_bytes_an_image=per_image, largest_batch_by_grid=by_grid,
+                       largest_batch_by_memory=int(0.9 * free // per_image))
+            row["largest_batch"] = min(by_grid, row["largest_batch_by_memory"])
+            x = k = patches = o = None
+            log("conv_site", **{kk: v for kk, v in row.items() if kk != "checks"},
+                checks=row["checks"], card=card())
+        # the heaviest conv shape (by its bound) stands for simt in the kernels line
+        i, row = max(enumerate(rows[:-1]), key=lambda ir: ir[1]["bound_ms"])
+        name, side, kh, stride, cin, cout, _ = sites[i]
+        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 100 + i)
+        w_mat = conv_weight_matrix(k)
+        o = ops.prepare_operands(conv_patches(x, kh, kh, stride).reshape(1, -1, w_mat.shape[0]),
+                                 w_mat, energy=torch.tensor(CONV_E, device="cuda"),
+                                 seed=seed.reshape(1, 4), cfg=shot)
+        err, _, _ = _conv_close(_run_raw(analog_matmul_raw, o, 1),
+                                _run_raw(analog_matmul_ref_raw, o, 1), None)
+        (top, bottom), (left, right) = _same_pads(side, kh, stride), _same_pads(side, kh, stride)
+        pad = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+        w_oihw = k.permute(3, 2, 0, 1).contiguous()
+        head = dict(
+            name="analog_matmul.simt", route="cuda", source=SOURCE["simt"], replaces=REPLACES,
+            launches=launches["simt"], max_abs_err=err, ms=row["kernel_ms"],
+            plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None, site=name,
+            shape=list(o["x"].shape) + [w_mat.shape[1]], noise="output", n_repeats=1,
+            noise_free=dict(
+                ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, dict(o, noise_kind="none"), 1),
+                           10, flush),
+                library="torch.nn.functional.conv2d (f32, on the padded NCHW input)",
+                library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(pad, w_oihw,
+                                                                      stride=stride), 10, flush)))
+        x = k = o = pad = None
+        # conv1 at its largest batch, then one image more: the kernel refuses
+        name, side, kh, stride, cin, cout, _ = sites[0]
+        big = rows[0]["largest_batch"]
+        _free()
+        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 3, b=big)
+        y = _conv_call(x, k, stride, shot, seed, None, 1)
+        torch.cuda.synchronize()
+        ran = bool(torch.isfinite(y).all())
+        x = y = None
+        _free()
+        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 3, b=big + 1)
+        try:
+            _conv_call(x, k, stride, shot, seed, None, 1)
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+        x = None
+        _free()
+    if not ran or refused is None or str(am.SIMT_MAX_ROWS) not in refused:
+        raise AssertionError(f"conv1 at batch {big}: ran {ran}; at {big + 1}: {refused!r}")
+    total = {t: sum(r[t] * r["occurrences"] for r in rows) for t in ("kernel_ms", "call_ms",
+                                                                      "bound_ms")}
+    log("conv", batch=CONV_B, energy_aj=CONV_E, sites=len(rows),
+        convolutions_a_forward=sum(r["occurrences"] for r in rows[:-1]),
+        forward_kernel_ms=total["kernel_ms"], forward_call_ms=total["call_ms"],
+        forward_bound_ms=total["bound_ms"],
+        forward_share_of_bound=total["bound_ms"] / total["kernel_ms"],
+        launches=launches, cnn=dict(images=CNN_IMAGES, size=CNN_SIZE, max_abs_err=cnn_err,
+                                    atol=cnn_atol, accuracy_random_weights=accuracy),
+        controls=controls, largest_batch={r["site"]: r["largest_batch"] for r in rows},
+        conv1_largest_batch=big, refused_above=refused, simt_max_rows=am.SIMT_MAX_ROWS,
+        card=card())
+    return launches, head
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training with ZeRO-1 moments
+# ---------------------------------------------------------------------------
+
+#: the train_dp phase (granite-3-8b at full width, bf16 weights and moments,
+#: ``TrainConfig()``): data shards, rows and positions a step (each shard its
+#: half), steps, and what the depth reckoning holds back a rank beside its
+#: state (one layer's recompute at its rows, a loss chunk's logits, Adam's
+#: f32 slices, its CUDA context and the allocator's slack)
+TRAIN_DP, TRAIN_DP_B, TRAIN_DP_T, TRAIN_DP_STEPS = 2, 4, 2048, 3
+TRAIN_DP_RESERVE_BYTES = 7 * 2**30
+#: ... run at this many layers, cut from the reckoned depth (19 of 40 on an
+#: H100 80GB, whose three forms were bit-equal there too) for the whole
+#: run's time: on one card the ranks' collectives go through gloo on the
+#: host at 0.4-0.65 GB/s, and a step at 19 layers moved 12.6 GB a rank
+#: (35 s), at 8 layers 6.0 GB (13 s)
+TRAIN_DP_LAYERS = 4
+
+
+def train_dp_depth(CONFIG) -> int:
+    """The most layers of ``CONFIG`` whose ``TRAIN_DP`` ranks' training
+    state fits ``TRAIN_PEAK_SHARE`` of the card, as ``train_depth``
+    reckons it for a rank: 6 bytes a parameter (bf16 weights and gradients,
+    half of the two bf16 moments), its layers' saved inputs (its rows x
+    positions x d bf16) and ``TRAIN_DP_RESERVE_BYTES``."""
+    import torch
+
+    _, total = torch.cuda.mem_get_info()
+    c = CONFIG
+    heads = 1 if c.tie_embeddings else 1 + c.n_codebooks
+    fixed = heads * c.vocab_size * c.d_model
+    per_layer = (c.param_count() - fixed) / c.n_layers
+    fixed += heads * (c.padded_vocab - c.vocab_size) * c.d_model
+    saved = TRAIN_DP_B // TRAIN_DP * TRAIN_DP_T * c.d_model * 2
+    depth = int((TRAIN_PEAK_SHARE * total - TRAIN_DP * (TRAIN_DP_RESERVE_BYTES + 6 * fixed))
+                // (TRAIN_DP * (6 * per_layer + saved)))
+    if depth < 1:
+        raise AssertionError(f"{TRAIN_DP} ranks of {c.name} fit no layer")
+    return min(c.n_layers, depth)
+
+
+def _fingerprint(tree) -> list:
+    """Bit fingerprint of a tree of tensors on the card: for each leaf and
+    each of its ``leading_slices``, the sum of its 16-bit words and their
+    sum weighted by (position mod 65,521) + 1, both exact in int64. Equal
+    trees give equal lists; a changed bit changes the first sum, a moved
+    word the second."""
+    import torch
+
+    from repro_torch.optim.adam import leading_slices
+    from repro_torch.tree import leaves
+
+    out = []
+    for t in leaves(tree):
+        words = t.contiguous().reshape(-1).view(torch.int16)
+        for sl in leading_slices(words):
+            v = words[sl].to(torch.int64) & 0xFFFF
+            w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521 + 1
+            out.append([int(v.sum()), int((v * w).sum())])
+    return out
+
+
+def _dp_cfg(n_layers):
+    from repro_torch.configs import reduced_depth
+    from repro_torch.configs.granite_3_8b import CONFIG
+
+    return reduced_depth(CONFIG, n_layers=n_layers, name=CONFIG.name)
+
+
+def _dp_run(cfg, mesh, microbatches, profile=False) -> dict:
+    """``TRAIN_DP_STEPS`` train steps from seed 0 on ``markov_batch``es of
+    ``TRAIN_DP_B`` x ``TRAIN_DP_T`` (a mesh or one device): each step's
+    loss, gradient norm, parameter fingerprint and ms; the peak, the
+    moments' bytes here and the analog launches (none expected). With
+    ``profile``, the last step profiled (device ms, kernels)."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.kernels import analog_matmul as am
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    tcfg = TrainConfig(microbatches=microbatches)
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_DP_T,
+                           global_batch=TRAIN_DP_B, seed=7)
+    before = sum(am.LAUNCHES.values())
+    _free()
+    state = [lm.init_params(cfg, seed=0, device="cuda")]
+    state.append(make_opt_init(cfg, mesh, tcfg)(state[0]))
+    step = make_train_step(cfg, mesh, tcfg)
+    out = dict(losses=[], grad_norms=[], prints=[], step_ms=[])
+    for i in range(TRAIN_DP_STEPS):
+        def one(i=i):
+            state[0], state[1], m = step(state[0], state[1], markov_batch(data, i))
+            return m
+        if profile and i == TRAIN_DP_STEPS - 1:
+            m, prof = _profile(one)
+            ms = prof["profiled_wall_ms"]
+            out.update(device_ms=prof["device_ms"], kernels_a_step=prof["kernels"],
+                       top=prof["top"])
+        else:
+            m, ms = _wall_ms(one)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["prints"].append(_fingerprint(state[0]))
+        out["step_ms"].append(ms)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["moment_bytes"] = sum(t.numel() * t.element_size()
+                              for t in leaves(state[1].mu) + leaves(state[1].nu))
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state[0]))
+    out["analog_launches"] = sum(am.LAUNCHES.values()) - before
+    state = None
+    _free()
+    return out
+
+
+def _train_dp_worker(rank, port, out_dir, n_layers):
+    """One rank of the distributed form: a gloo group of ``TRAIN_DP`` ranks
+    on the one card (NCCL refuses two ranks on one device), CUDA tensors
+    staged through pinned host memory by ``launch/collectives.py``; the
+    collectives' seconds and bytes a step counted; its results written to
+    ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.launch.steps import zero1_regions
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TRAIN_DP, rank=rank)
+    try:
+        mesh = make_mesh_for_devices(1, group=dist.group.WORLD, data=TRAIN_DP)
+        cfg = _dp_cfg(n_layers)
+        # gloo's own rate: an all_gather of 256 MB pinned host buffers
+        pin = torch.cuda.is_available()
+        probe = torch.zeros(2**28, dtype=torch.uint8, pin_memory=pin)
+        outs = [torch.empty(2**28, dtype=torch.uint8, pin_memory=pin) for _ in range(TRAIN_DP)]
+        dist.all_gather(outs, probe)
+        t0 = time.perf_counter()
+        dist.all_gather(outs, probe)
+        gloo_gb_s = probe.numel() * (TRAIN_DP - 1) / (time.perf_counter() - t0) / 1e9
+        probe = outs = None
+        spent = {"reduce_s": 0.0, "gather_s": 0.0, "reduce_bytes": 0, "gather_bytes": 0}
+
+        def timed(fn, what):
+            def wrap(t, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(t, *args)
+                torch.cuda.synchronize()
+                spent[f"{what}_s"] += time.perf_counter() - t0
+                reg = args[0][rank] if what == "gather" else None
+                spent[f"{what}_bytes"] += (t if reg is None else t[reg]).numel() * t.element_size()
+                return out
+            return wrap
+
+        collectives.sum_in_rank_order_ = timed(collectives.sum_in_rank_order_, "reduce")
+        collectives.gather_regions_ = timed(collectives.gather_regions_, "gather")
+        res = _dp_run(cfg, mesh, 1, profile=True)
+        res.update({k: v / TRAIN_DP_STEPS for k, v in spent.items()}, gloo_gb_s=gloo_gb_s,
+                   rank=rank, cut=sum(r is not None for r in leaves(zero1_regions(cfg, mesh, rank))))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_dp():
+    """granite-3-8b at full width, trained on a data mesh of ``TRAIN_DP``
+    shards with ZeRO-1 moments at ``TRAIN_DP_LAYERS`` layers (at most the
+    depth ``train_dp_depth`` reckons, which the log names too):
+    ``TRAIN_DP_STEPS`` steps of ``TRAIN_DP_B`` x ``TRAIN_DP_T`` three ways
+    (the one-device step at ``microbatches = TRAIN_DP``, the local form in
+    this process, the distributed form as ``TRAIN_DP`` processes on the
+    card over gloo), each step's loss, gradient norm and parameters
+    (``_fingerprint``) equal across the three and the ranks; ms a step,
+    rank 0's device ms a step, the collectives' seconds and bytes a step,
+    peak GiB a rank and moment bytes a rank against one device's. Training
+    launches no analog kernel."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    fit = train_dp_depth(CONFIG)
+    depth = min(fit, TRAIN_DP_LAYERS)
+    cfg = _dp_cfg(depth)
+    one = _dp_run(cfg, None, TRAIN_DP)
+    local = _dp_run(cfg, make_mesh_for_devices(1, data=TRAIN_DP), 1)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(_train_dp_worker, args=(port, out_dir, depth), nprocs=TRAIN_DP,
+                           start_method="spawn", join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(TRAIN_DP):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    _, total = torch.cuda.mem_get_info()
+    keys = ("losses", "grad_norms", "prints")
+    forms = {"one_device_microbatches": one, "local": local,
+             **{f"rank{r['rank']}": r for r in ranks}}
+    equal = {name: all(f[k] == one[k] for k in keys) for name, f in forms.items()}
+    r0 = ranks[0]
+    log("train_dp", config=cfg.name, layers=depth, fit_layers=fit, of_layers=CONFIG.n_layers,
+        params=cfg.param_count(), data_shards=TRAIN_DP, batch=[TRAIN_DP_B, TRAIN_DP_T],
+        rows_a_rank=TRAIN_DP_B // TRAIN_DP, losses=one["losses"], grad_norms=one["grad_norms"],
+        equal_to_one_device=equal,
+        step_ms={name: f["step_ms"] for name, f in forms.items()},
+        ms_a_step=statistics.median(r0["step_ms"][1:-1]), device_ms=r0["device_ms"],
+        idle_share=max(0.0, 1.0 - r0["device_ms"] / statistics.median(r0["step_ms"][1:-1])),
+        kernels_a_step=r0["kernels_a_step"], top=r0["top"],
+        reduce_ms=r0["reduce_s"] * 1e3, reduce_bytes=r0["reduce_bytes"],
+        gather_ms=r0["gather_s"] * 1e3, gather_bytes=r0["gather_bytes"],
+        gloo_gb_s_received_a_rank=r0["gloo_gb_s"],
+        peak_gib={name: f["peak_gib"] for name, f in forms.items()},
+        peak_share_two_ranks=sum(r["peak_gib"] for r in ranks) * 2**30 / total,
+        moment_bytes={name: f["moment_bytes"] for name, f in forms.items()},
+        moment_share_a_rank=r0["moment_bytes"] / one["moment_bytes"],
+        leaves_cut=r0["cut"], spawn_s=spawn_s,
+        analog_launches={name: f["analog_launches"] for name, f in forms.items()}, card=card())
+    if not all(equal.values()):
+        raise AssertionError(f"train_dp: the forms differ from one device: {equal}")
+    if any(f["analog_launches"] for f in forms.values()):
+        raise AssertionError("train_dp launched an analog kernel")
+    if not all(map(math.isfinite, one["losses"])) or r0["moment_bytes"] > 0.6 * one["moment_bytes"]:
+        raise AssertionError(f"train_dp: losses {one['losses']}, moments a rank "
+                             f"{r0['moment_bytes']} of {one['moment_bytes']}")
+    if sum(r["peak_gib"] for r in ranks) * 2**30 > TRAIN_PEAK_SHARE * total:
+        raise AssertionError(f"train_dp: the ranks' peaks {[r['peak_gib'] for r in ranks]} GiB "
+                             f"over {TRAIN_PEAK_SHARE} of the card")
+
+
+# ---------------------------------------------------------------------------
 # training and the LM calibration
 # ---------------------------------------------------------------------------
 
@@ -4328,8 +4904,8 @@ def main() -> int:
                          "graphs_granite20 on those models' weights; tp and int8 run on granite-3-8b's "
                          "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
                          "and grok-1's; calibrate_lm on train's config; train_griffin, "
-                         "train_xlstm and train_moe each calibrate on their weights); default "
-                         "all")
+                         "train_xlstm and train_moe each calibrate on their weights; conv and "
+                         "train_dp stand alone); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -4384,6 +4960,8 @@ def main() -> int:
     site_rows = counted("site_time", phase_site_time, draw_ps) if "site_time" in run else None
     if "sweep" in run:
         timed("sweep", phase_sweep)
+    if "conv" in run:
+        by_path["conv"], conv_head = timed("conv", phase_conv)
     if run & {"serve", *SERVE_FOLLOWERS, "graphs", "tp", "int8"}:
         from repro_torch.configs.granite_3_8b import CONFIG
 
@@ -4555,11 +5133,17 @@ def main() -> int:
     if "train_driver" in run:
         _free()
         timed("train_driver", phase_train_driver)
+    if "train_dp" in run:
+        _free()
+        timed("train_dp", phase_train_dp)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))
         return 0
     kernels = []
+    # simt's main path is the convolutions: its entry is the heaviest conv
+    # shape's, the kernel check's headline beside it
+    entries["simt"] = dict(conv_head, kernel_check=entries["simt"])
     for r in ("decode", "tc", "simt", "weight"):
         entry = entries[r]
         entry["paths"] = list(MAIN_PATHS[r])

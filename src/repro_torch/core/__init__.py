@@ -9,14 +9,13 @@
   search     - min-energy binary search (<2% degradation) + the greedy
                per-layer repeat-profile searches
   profile    - frozen per-layer K-repeat schedules (learn -> freeze -> serve)
-
-The reference's ``analog_conv2d`` is not ported yet.
 """
 from repro_torch.core.analog import (
     PER_CHANNEL,
     PER_LAYER,
     AnalogConfig,
     SiteQuant,
+    analog_conv2d,
     analog_dot,
     fold_key,
     key_batch,
@@ -72,6 +71,7 @@ __all__ = [
     "ProfileSearchResult",
     "SearchResult",
     "SiteQuant",
+    "analog_conv2d",
     "apply_repeats",
     "coalesce_runs",
     "analog_dot",

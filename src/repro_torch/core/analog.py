@@ -18,6 +18,10 @@ backend seeds one generator per request from its words on the host: the
 model builds its seed table on the CPU for that backend, so no site waits
 for a device-to-host copy.
 
+``analog_conv2d`` is the paper's convolution (§II-A): im2col patches in
+float32 through ``analog_dot``, so on the card every convolution takes
+the kernel's f32 (simt) route.
+
 Under an ambient tensor-parallel mesh (``models/sharding.use_mesh``) the
 analog matmul runs column-parallel (``_maybe_sharded_analog_dot``): shard
 r draws its noise at the global column offset ``r N / tp``, so the
@@ -397,3 +401,61 @@ def analog_dot(
             for b in range(words.shape[0])
         ])
     return tile_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple:
+    """XLA's ``"SAME"`` padding of one spatial dim: (low, high) with the
+    odd element high, so ceil(n / s) outputs (asymmetric at stride 2 on
+    even sizes, unlike ``F.unfold``'s symmetric ``padding=``)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_patches(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                 padding="SAME") -> torch.Tensor:
+    """f32 im2col patches of ``x`` (B, H, W, C): (B, Ho, Wo, C * kh * kw),
+    features in (c, kh, kw) order, the bits of the reference's
+    ``jax.lax.conv_general_dilated_patches``. ``padding``: ``"SAME"``,
+    ``"VALID"`` or ((top, bottom), (left, right))."""
+    _, h, w, _ = x.shape
+    if padding == "SAME":
+        (top, bottom), (left, right) = _same_pads(h, kh, stride), _same_pads(w, kw, stride)
+    elif padding == "VALID":
+        top = bottom = left = right = 0
+    else:
+        (top, bottom), (left, right) = padding
+    nchw = torch.nn.functional.pad(x.to(torch.float32).permute(0, 3, 1, 2),
+                                   (left, right, top, bottom))
+    ho = (h + top + bottom - kh) // stride + 1
+    wo = (w + left + right - kw) // stride + 1
+    cols = torch.nn.functional.unfold(nchw, (kh, kw), stride=stride)  # (B, C kh kw, Ho Wo)
+    return cols.transpose(1, 2).reshape(x.shape[0], ho, wo, -1).contiguous()
+
+
+def conv_weight_matrix(kernel: torch.Tensor) -> torch.Tensor:
+    """An HWIO kernel (kh, kw, Cin, Cout) as the f32 (Cin kh kw, Cout)
+    matrix whose rows follow ``conv_patches``' feature order."""
+    kh, kw, cin, cout = kernel.shape
+    return kernel.to(torch.float32).permute(2, 0, 1, 3).reshape(kh * kw * cin, cout)
+
+
+def analog_conv2d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    *,
+    cfg: AnalogConfig,
+    stride: int = 1,
+    padding="SAME",
+    energy=None,
+    seed: Optional[torch.Tensor] = None,
+    sq: Optional[SiteQuant] = None,
+) -> torch.Tensor:
+    """Convolution as an im2col matmul through ``analog_dot`` (paper §II-A,
+    [25]). ``x``: (B, H, W, Cin); ``kernel``: (kh, kw, Cin, Cout); returns
+    (B, Ho, Wo, Cout). ``seed``, ``energy``, ``sq`` as ``analog_dot``'s: one
+    (4,) seed draws over all B * Ho * Wo rows as one request, as the
+    reference's one key does."""
+    kh, kw, _, _ = kernel.shape
+    patches = conv_patches(x, kh, kw, stride, padding)
+    return analog_dot(patches, conv_weight_matrix(kernel), cfg=cfg, energy=energy, seed=seed,
+                      sq=sq)

@@ -110,6 +110,13 @@ WEIGHT_KC_MAX = 2048
 WEIGHT_WAVE = 4 * 132
 WEIGHT_TARGET_BLOCKS = 2 * WEIGHT_WAVE
 
+#: simt route: 64-row output tiles on grid.y (blocks of ``grid.y`` are at
+#: most 65,535), so one call takes at most ``SIMT_MAX_ROWS`` rows (B * M,
+#: or M a request under weight noise, whose requests go on grid.z)
+SIMT_BM = 64
+GRID_YZ_MAX = 65535
+SIMT_MAX_ROWS = SIMT_BM * GRID_YZ_MAX
+
 #: kernel launches so far in this process, by route (one per
 #: ``analog_matmul_raw`` call on CUDA tensors): a run shows the main path
 #: used the kernels.
@@ -447,6 +454,11 @@ def analog_matmul_raw(
     stream = torch.cuda.current_stream(dev).cuda_stream
     kind = NOISE_KINDS[noise_kind]
     if route == "simt":
+        per_req = noise_kind == "weight"
+        rows = m if per_req else b * m
+        _require(rows <= SIMT_MAX_ROWS and (not per_req or b <= GRID_YZ_MAX),
+                 f"the simt route takes at most {SIMT_MAX_ROWS} rows a call ({SIMT_BM}-row "
+                 f"tiles on grid.y, at most {GRID_YZ_MAX}): got {rows} rows (B={b}, M={m})")
         err = library("simt").analog_matmul_launch(
             x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
             row_scale.data_ptr(), col_scale.data_ptr(), cs_stride,

@@ -36,6 +36,11 @@ class ModelConfig:
     remat: bool = True
     #: sequence positions a chunk of the cross-entropy (``chunked_xent``)
     loss_chunk: int = 1024
+    #: the training placement's rule table (``models/sharding.PROFILES``):
+    #: "tp" (tensor shards on the model axis, ZeRO-1 moments on data) or
+    #: "dp" (replicated weights, the whole mesh behind the batch and the
+    #: moments); serving ignores it
+    sharding_profile: str = "tp"
 
     # --- MoE ---------------------------------------------------------------
     n_experts: int = 0

@@ -140,7 +140,11 @@ class AnalogSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
+    """A parameter's shape, its logical axis names (``models/sharding.py``
+    maps them onto mesh axes) and its init scale."""
+
     shape: tuple
+    axes: tuple
     scale: float = 1.0
 
 
@@ -160,97 +164,97 @@ def n_tail(cfg: ModelConfig) -> int:
     return cfg.n_layers - g * per
 
 
-def _attn_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+def _attn_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Leaf]:
     d, hd, qh, kh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     s = d**-0.5
     leaves = {
-        "wq": Leaf(lead + (d, qh * hd), s),
-        "wk": Leaf(lead + (d, kh * hd), s),
-        "wv": Leaf(lead + (d, kh * hd), s),
-        "wo": Leaf(lead + (qh * hd, d), (qh * hd) ** -0.5),
+        "wq": Leaf(lead + (d, qh * hd), la + (None, "heads"), s),
+        "wk": Leaf(lead + (d, kh * hd), la + (None, "kv_heads"), s),
+        "wv": Leaf(lead + (d, kh * hd), la + (None, "kv_heads"), s),
+        "wo": Leaf(lead + (qh * hd, d), la + ("heads", None), (qh * hd) ** -0.5),
     }
     if cfg.qkv_bias:
-        leaves["bq"] = Leaf(lead + (qh * hd,), 0.0)
-        leaves["bk"] = Leaf(lead + (kh * hd,), 0.0)
-        leaves["bv"] = Leaf(lead + (kh * hd,), 0.0)
+        leaves["bq"] = Leaf(lead + (qh * hd,), la + ("heads",), 0.0)
+        leaves["bk"] = Leaf(lead + (kh * hd,), la + ("kv_heads",), 0.0)
+        leaves["bv"] = Leaf(lead + (kh * hd,), la + ("kv_heads",), 0.0)
     return leaves
 
 
-def _mlp_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+def _mlp_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Leaf]:
     d, ff = cfg.d_model, cfg.d_ff
     s = d**-0.5
     if cfg.mlp_type == "swiglu":
         return {
-            "w_gate": Leaf(lead + (d, ff), s),
-            "w_up": Leaf(lead + (d, ff), s),
-            "w_down": Leaf(lead + (ff, d), ff**-0.5),
+            "w_gate": Leaf(lead + (d, ff), la + (None, "mlp"), s),
+            "w_up": Leaf(lead + (d, ff), la + (None, "mlp"), s),
+            "w_down": Leaf(lead + (ff, d), la + ("mlp", None), ff**-0.5),
         }
     return {
-        "w_in": Leaf(lead + (d, ff), s),
-        "b_in": Leaf(lead + (ff,), 0.0),
-        "w_down": Leaf(lead + (ff, d), ff**-0.5),
-        "b_out": Leaf(lead + (d,), 0.0),
+        "w_in": Leaf(lead + (d, ff), la + (None, "mlp"), s),
+        "b_in": Leaf(lead + (ff,), la + ("mlp",), 0.0),
+        "w_down": Leaf(lead + (ff, d), la + ("mlp", None), ff**-0.5),
+        "b_out": Leaf(lead + (d,), la + (None,), 0.0),
     }
 
 
-def _moe_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Any]:
+def _moe_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Any]:
     d, e = cfg.d_model, cfg.n_experts * cfg.moe_ff_split
     ff = cfg.d_ff // cfg.moe_ff_split
     s = d**-0.5
-    el = lead + (e,)
-    leaves: Dict[str, Any] = {"router": Leaf(lead + (d, cfg.n_experts), s)}
+    el, ea = lead + (e,), la + ("experts",)
+    leaves: Dict[str, Any] = {"router": Leaf(lead + (d, cfg.n_experts), la + (None, None), s)}
     if cfg.mlp_type == "swiglu":
-        leaves["w_gate"] = Leaf(el + (d, ff), s)
-        leaves["w_up"] = Leaf(el + (d, ff), s)
+        leaves["w_gate"] = Leaf(el + (d, ff), ea + ("expert_embed", "expert_mlp"), s)
+        leaves["w_up"] = Leaf(el + (d, ff), ea + ("expert_embed", "expert_mlp"), s)
     else:
-        leaves["w_in"] = Leaf(el + (d, ff), s)
-    leaves["w_down"] = Leaf(el + (ff, d), ff**-0.5)
+        leaves["w_in"] = Leaf(el + (d, ff), ea + ("expert_embed", "expert_mlp"), s)
+    leaves["w_down"] = Leaf(el + (ff, d), ea + ("expert_mlp", "expert_embed"), ff**-0.5)
     if cfg.n_shared_experts:
-        leaves["shared"] = _mlp_leaves(cfg, lead)
+        leaves["shared"] = _mlp_leaves(cfg, lead, la)
     return leaves
 
 
-def _mlstm_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+def _mlstm_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Leaf]:
     d, h = cfg.d_model, cfg.n_heads
     s = d**-0.5
     return {
-        "w_z": Leaf(lead + (d, d), s),
-        "w_q": Leaf(lead + (d, d), s),
-        "w_k": Leaf(lead + (d, d), s),
-        "w_v": Leaf(lead + (d, d), s),
-        "w_o": Leaf(lead + (d, d), s),
-        "w_gates": Leaf(lead + (d, 2 * h), s),
-        "b_gates": Leaf(lead + (2 * h,), 0.0),
-        "norm": Leaf(lead + (d,), 0.0),
-        "ln": Leaf(lead + (d,), 0.0),
+        "w_z": Leaf(lead + (d, d), la + (None, "rnn"), s),
+        "w_q": Leaf(lead + (d, d), la + (None, "rnn"), s),
+        "w_k": Leaf(lead + (d, d), la + (None, "rnn"), s),
+        "w_v": Leaf(lead + (d, d), la + (None, "rnn"), s),
+        "w_o": Leaf(lead + (d, d), la + ("rnn", None), s),
+        "w_gates": Leaf(lead + (d, 2 * h), la + (None, None), s),
+        "b_gates": Leaf(lead + (2 * h,), la + (None,), 0.0),
+        "norm": Leaf(lead + (d,), la + (None,), 0.0),
+        "ln": Leaf(lead + (d,), la + (None,), 0.0),
     }
 
 
-def _slstm_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+def _slstm_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Leaf]:
     d, h = cfg.d_model, cfg.n_heads
     hd = d // h
     return {
-        "w_x": Leaf(lead + (d, 4 * d), d**-0.5),
-        "b": Leaf(lead + (4 * d,), 0.0),
-        "r": Leaf(lead + (4, h, hd, hd), hd**-0.5),
-        "w_o": Leaf(lead + (d, d), d**-0.5),
-        "ln": Leaf(lead + (d,), 0.0),
+        "w_x": Leaf(lead + (d, 4 * d), la + (None, "rnn"), d**-0.5),
+        "b": Leaf(lead + (4 * d,), la + (None,), 0.0),
+        "r": Leaf(lead + (4, h, hd, hd), la + (None, "heads", None, None), hd**-0.5),
+        "w_o": Leaf(lead + (d, d), la + (None, None), d**-0.5),
+        "ln": Leaf(lead + (d,), la + (None,), 0.0),
     }
 
 
-def _rec_leaves(cfg: ModelConfig, lead: tuple) -> Dict[str, Leaf]:
+def _rec_leaves(cfg: ModelConfig, lead: tuple, la: tuple) -> Dict[str, Leaf]:
     d, r, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
     return {
-        "w_gate": Leaf(lead + (d, r), d**-0.5),
-        "w_x": Leaf(lead + (d, r), d**-0.5),
-        "w_a": Leaf(lead + (r, r), r**-0.5),
-        "b_a": Leaf(lead + (r,), 0.0),
-        "w_i": Leaf(lead + (r, r), r**-0.5),
-        "b_i": Leaf(lead + (r,), 0.0),
-        "lambda": Leaf(lead + (r,), 1.0),
-        "conv_w": Leaf(lead + (cw, r), cw**-0.5),
-        "conv_b": Leaf(lead + (r,), 0.0),
-        "w_out": Leaf(lead + (r, d), r**-0.5),
+        "w_gate": Leaf(lead + (d, r), la + (None, "rnn"), d**-0.5),
+        "w_x": Leaf(lead + (d, r), la + (None, "rnn"), d**-0.5),
+        "w_a": Leaf(lead + (r, r), la + ("rnn", None), r**-0.5),
+        "b_a": Leaf(lead + (r,), la + (None,), 0.0),
+        "w_i": Leaf(lead + (r, r), la + ("rnn", None), r**-0.5),
+        "b_i": Leaf(lead + (r,), la + (None,), 0.0),
+        "lambda": Leaf(lead + (r,), la + (None,), 1.0),
+        "conv_w": Leaf(lead + (cw, r), la + ("conv", "rnn"), cw**-0.5),
+        "conv_b": Leaf(lead + (r,), la + ("rnn",), 0.0),
+        "w_out": Leaf(lead + (r, d), la + ("rnn", None), r**-0.5),
     }
 
 
@@ -273,40 +277,48 @@ def expert_sites(cfg: ModelConfig) -> list:
 
 
 def param_leaves(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and init scales of every parameter (``lm.py`` reference)."""
+    """Shapes, logical axes and init scales of every parameter (``lm.py``
+    reference)."""
     d, v = cfg.d_model, cfg.padded_vocab
     g, per = group_structure(cfg)
-    lead = (g,)
-    tree: Dict[str, Any] = {"final_ln": Leaf((d,), 0.0)}
+    lead, la = (g,), ("layers",)
+    tree: Dict[str, Any] = {"final_ln": Leaf((d,), (None,), 0.0)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = Leaf((d, v * cfg.n_codebooks), d**-0.5)
+        tree["lm_head"] = Leaf((d, v * cfg.n_codebooks), (None, "vocab"), d**-0.5)
     if cfg.frontend != "frames":
-        tree["embed"] = Leaf((v, d), 0.02)
+        tree["embed"] = Leaf((v, d), ("vocab", None), 0.02)
     blocks: Dict[str, Any] = {}
     if cfg.family == "xlstm":
-        blocks["mlstm"] = _mlstm_leaves(cfg, (g, per - 1))
-        blocks["slstm"] = _slstm_leaves(cfg, lead)
+        blocks["mlstm"] = _mlstm_leaves(cfg, (g, per - 1), ("layers", "stack"))
+        blocks["slstm"] = _slstm_leaves(cfg, lead, la)
     for i, kind in enumerate(_kinds(cfg)):
-        blocks[f"ln1_{i}"] = Leaf(lead + (d,), 0.0)
-        blocks[f"ln2_{i}"] = Leaf(lead + (d,), 0.0)
+        blocks[f"ln1_{i}"] = Leaf(lead + (d,), la + (None,), 0.0)
+        blocks[f"ln2_{i}"] = Leaf(lead + (d,), la + (None,), 0.0)
         if kind == "rec":
-            blocks[f"rec{i}"] = _rec_leaves(cfg, lead)
+            blocks[f"rec{i}"] = _rec_leaves(cfg, lead, la)
         else:
-            blocks[f"attn{i}"] = _attn_leaves(cfg, lead)
+            blocks[f"attn{i}"] = _attn_leaves(cfg, lead, la)
         if _is_moe_layer(cfg, i):
-            blocks["moe"] = _moe_leaves(cfg, lead)
+            blocks["moe"] = _moe_leaves(cfg, lead, la)
         else:
-            blocks[f"mlp{i}"] = _mlp_leaves(cfg, lead)
+            blocks[f"mlp{i}"] = _mlp_leaves(cfg, lead, la)
     tail = n_tail(cfg)
     if tail:
+        tl, tla = (tail,), ("layers",)
         tree["tail"] = {
-            "ln1": Leaf((tail, d), 0.0),
-            "ln2": Leaf((tail, d), 0.0),
-            "rec": _rec_leaves(cfg, (tail,)),
-            "mlp": _mlp_leaves(cfg, (tail,)),
+            "ln1": Leaf(tl + (d,), tla + (None,), 0.0),
+            "ln2": Leaf(tl + (d,), tla + (None,), 0.0),
+            "rec": _rec_leaves(cfg, tl, tla),
+            "mlp": _mlp_leaves(cfg, tl, tla),
         }
     tree["blocks"] = blocks
     return tree
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axis names of every parameter (the reference's
+    ``param_axes``): a tree of tuples, one name (or None) a dim."""
+    return map_leaves(lambda _p, leaf: leaf.axes, param_leaves(cfg))
 
 
 #: the parameter subtrees whose leaves stack one entry a layer group (or a

@@ -110,22 +110,31 @@ def _slices(shape: tuple) -> list:
 
 @torch.no_grad()
 def adam_update_(grads: Tree, state: AdamState, params: Tree, cfg: AdamConfig,
-                 grad_scale: Optional[torch.Tensor] = None) -> tuple[Tree, AdamState]:
+                 grad_scale: Optional[torch.Tensor] = None,
+                 regions: Optional[Tree] = None) -> tuple[Tree, AdamState]:
     """``adam_update`` in place: the parameters and moments are overwritten
     (the reference's train step donates them) and returned with the new
     step. A leaf goes in ``leading_slices``; the update is elementwise, so
     the bits are ``adam_update``'s. ``grad_scale``: a global-norm clip's
     scale, applied to each slice of the gradient as
-    ``clip_by_global_norm`` applies it (float32 product, cast back)."""
+    ``clip_by_global_norm`` applies it (float32 product, cast back).
+    ``regions``: a tree of index tuples (or None: the whole leaf); a leaf's
+    moments then hold only ``params[region]``'s (ZeRO-1), and only that
+    region of the parameter is updated."""
     step = state.step + 1
     c1, c2 = _bias_corrections(step, cfg)
 
-    def upd(_path, g, m, v, p):
+    def upd(_path, g, m, v, p, reg=None):
+        if reg is not None:
+            g, p = g[reg], p[reg]
         for sl in leading_slices(p):
             gs = g[sl] if grad_scale is None else (g[sl].to(F32) * grad_scale).to(g.dtype)
             new = _update(gs, m[sl], v[sl], p[sl], c1, c2, cfg)
             for dst, src in zip((p, m, v), new):
                 dst[sl] = src
 
-    map_leaves(upd, grads, state.mu, state.nu, params)
+    if regions is None:
+        map_leaves(upd, grads, state.mu, state.nu, params)
+    else:
+        map_leaves(upd, grads, state.mu, state.nu, params, regions)
     return params, AdamState(step=step, mu=state.mu, nu=state.nu)

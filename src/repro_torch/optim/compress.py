@@ -6,9 +6,9 @@ A gradient is quantized to int8 with one float32 scale a tensor (``max|x|
 dequantized: ``ef_int8_roundtrip`` is the stateless roundtrip the train
 step applies (the numerics of a compressed data-parallel all-reduce);
 ``ef_compress`` carries the quantization residual into the next step's
-gradient (error feedback). The reference's ``compressed_psum``, the
-collective itself, needs a data-parallel group and comes with sharded
-training.
+gradient (error feedback). ``compressed_psum`` is the collective itself
+over a ``torch.distributed`` group; the train step does not call it (the
+reference's step applies the roundtrip to the reduced gradient).
 """
 from __future__ import annotations
 
@@ -60,3 +60,22 @@ def ef_compress(grads: Tree, err: Optional[Tree]) -> Tuple[Tree, Tree]:
 
     out = map_leaves(one, grads, err)
     return (map_leaves(lambda _p, o: o[0], out), map_leaves(lambda _p, o: o[1], out))
+
+
+@torch.no_grad()
+def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """int8-compressed all-reduce over ``group``, the reference's two phases:
+    an all-reduce MAX of max|x| gives the shared scale (gmax / 127, at
+    least 1e-30); each rank's codes (rounded half to even, clipped to
+    [-127, 127]) are summed as int32, and the sum times the scale is
+    returned in float32. Exact up to one rounding a rank; the payload is a
+    quarter of float32's (carried as int32 here)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.collectives import all_reduce
+
+    x32 = x.to(F32)
+    gmax = all_reduce(torch.amax(torch.abs(x32)).reshape(1), dist.ReduceOp.MAX, group)
+    scale = torch.clamp(gmax[0] / 127.0, min=1e-30)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int32)
+    return all_reduce(q, dist.ReduceOp.SUM, group).to(F32) * scale

@@ -13,8 +13,14 @@ Failures are injected through ``failure_hook`` (raise ``SimulatedFailure``
 at chosen steps). The contract: a run with failures ends in the same
 parameters, bit for bit, as one without. Initial parameters come from
 ``lm.init_params(cfg, seed)`` (the reference's ``jax.random`` draws are
-not reproduced). The elastic ``resize`` waits for sharded training and
-the executable cache's ``mesh_fingerprint`` (ROADMAP A).
+not reproduced).
+
+The mesh is None or a mesh of data shards (``launch/steps.py``: ZeRO-1
+moments). A checkpoint holds the whole state whatever the mesh: in the
+distributed form the moments are gathered and rank 0 writes; every rank
+restores the whole state and takes its regions. So a checkpoint restores
+on any data mesh, and ``resize`` moves a run to another one. Tensor
+shards in training are not ported (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -27,9 +33,17 @@ import torch
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+from repro_torch.launch.steps import (
+    TrainConfig,
+    gather_opt_state,
+    make_opt_init,
+    make_train_step,
+    shard_opt_state,
+)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adam import adam_init
+from repro_torch.serving.cache import mesh_fingerprint
 from repro_torch.tree import map_leaves
 
 
@@ -80,8 +94,9 @@ class DriverConfig:
 class TrainDriver:
     """Trains ``model_cfg`` on ``data_cfg``'s Markov task on ``device``
     (the card unless the caller asks for the CPU), checkpointing under
-    ``ckpt_dir``. ``mesh``: None or a mesh of one shard (sharded training
-    is not ported)."""
+    ``ckpt_dir``. ``mesh``: None or a mesh of data shards (tp 1); in the
+    distributed form every rank runs a driver on the same directory and
+    rank 0 writes."""
 
     def __init__(
         self,
@@ -108,29 +123,52 @@ class TrainDriver:
         self.monitor = StragglerMonitor()
         self.metrics_log: list = []
         self.restarts = 0
-        self._step = make_train_step(model_cfg, mesh, train_cfg)
-        self._opt_init = make_opt_init(model_cfg, mesh, train_cfg)
+        self._build()
 
     # -- construction / recovery ------------------------------------------
+
+    def _build(self):
+        self._step = make_train_step(self.model_cfg, self.mesh, self.train_cfg)
+        self._opt_init = make_opt_init(self.model_cfg, self.mesh, self.train_cfg)
+
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes checkpoints (rank 0 of a distributed
+        mesh, else always)."""
+        return self.mesh is None or not self.mesh.distributed or self.mesh.data_shards()[0] == 0
 
     def _init_state(self) -> Dict[str, Any]:
         params = lm.init_params(self.model_cfg, self.seed, device=self.device)
         return {"params": params, "opt": self._opt_init(params)}
 
     def _template(self) -> Dict[str, Any]:
-        """The state's structure, shapes and dtypes with no storage."""
+        """The whole state's structure, shapes and dtypes with no storage."""
         dtype = self.model_cfg.compute_dtype
         params = map_leaves(lambda _p, leaf: torch.empty(leaf.shape, dtype=dtype, device="meta"),
                             lm.param_leaves(self.model_cfg))
-        return {"params": params, "opt": self._opt_init(params)}
+        return {"params": params, "opt": adam_init(params, self.train_cfg.adam())}
 
     def _restore_or_init(self):
         restored = self.ckpt.restore_latest(self._template())
         if restored is None:
             return 0, self._init_state()
         step, host = restored
+        opt = shard_opt_state(host["opt"], self.model_cfg, self.mesh)
         return step, {"params": map_leaves(lambda _p, t: t.to(self.device), host["params"]),
-                      "opt": _to_device(host["opt"], self.device)}
+                      "opt": _to_device(opt, self.device)}
+
+    def _save(self, step: int, state, blocking: bool) -> None:
+        """The whole state (moments gathered: a collective on a distributed
+        mesh), written by the writer."""
+        whole = {"params": state["params"],
+                 "opt": gather_opt_state(state["opt"], self.model_cfg, self.mesh)}
+        if self._writer:
+            self.ckpt.save(step, whole, blocking=blocking)
+        if self.mesh is not None and self.mesh.distributed:
+            import torch.distributed as dist
+
+            self.ckpt.wait()  # the others restore only what rank 0 has written
+            dist.barrier(group=self.mesh.group)
 
     # -- main loop ----------------------------------------------------------
 
@@ -160,16 +198,29 @@ class TrainDriver:
             if step % self.cfg.log_every == 0 or step == self.cfg.max_steps:
                 self.metrics_log.append({"step": step, "loss": loss, "dt": dt})
             if step % self.cfg.ckpt_every == 0 or step == self.cfg.max_steps:
-                self.ckpt.save(step, state, blocking=not self.cfg.ckpt_async)
+                self._save(step, state, blocking=not self.cfg.ckpt_async)
         self.ckpt.wait()
         return {"step": step, "state": state, "metrics": self.metrics_log}
 
     # -- elastic ------------------------------------------------------------
 
     def resize(self, new_mesh) -> None:
-        raise NotImplementedError(
-            "elastic resize needs sharded training and the executable cache's "
-            "mesh_fingerprint, neither ported yet (ROADMAP A)")
+        """Elastic re-mesh, the reference's: restore the live state, rebuild
+        the step for ``new_mesh``, reshard the state onto it (each data
+        shard takes its moments' regions), make a blocking save, and log
+        ``{"step", "event": "resize", "mesh_from", "mesh_to"}`` with both
+        meshes' ``mesh_fingerprint``. A later ``run()`` resumes on the new
+        mesh."""
+        step, state = self._restore_or_init()
+        whole = gather_opt_state(state["opt"], self.model_cfg, self.mesh)
+        old_fp = mesh_fingerprint(self.mesh)
+        self.mesh = new_mesh
+        self._build()
+        state = {"params": state["params"],
+                 "opt": shard_opt_state(whole, self.model_cfg, self.mesh)}
+        self._save(step, state, blocking=True)
+        self.metrics_log.append({"step": step, "event": "resize", "mesh_from": old_fp,
+                                 "mesh_to": mesh_fingerprint(self.mesh)})
 
 
 def _to_device(opt, device):

@@ -31,24 +31,27 @@ from repro_torch.tree import leaves
 
 
 def mesh_fingerprint(mesh) -> tuple:
-    """Hashable identity of a tensor-parallel mesh for cache keys.
+    """Hashable identity of a mesh for cache keys.
 
     The axis names, the axis sizes and the order of the shards' devices
     (``launch/mesh.py``: the local form runs every shard on the caller's
     device, the distributed form one shard a rank of its group), and
-    nothing else. ``()`` for no mesh, so unmeshed engines keep their exact
-    keys. Two meshes with equal fingerprints run the same steps, which is
-    what lets a reshard back to a previous mesh hit its entries.
+    nothing else; a mesh of one data shard names only its tp axis. ``()``
+    for no mesh, so unmeshed engines keep their exact keys. Two meshes
+    with equal fingerprints run the same steps, which is what lets a
+    reshard back to a previous mesh hit its entries.
     """
     if mesh is None:
         return ()
     if mesh.group is None:
-        order = tuple(f"local:{r}" for r in range(mesh.tp))
+        order = tuple(f"local:{r}" for r in range(mesh.size))
     else:
         import torch.distributed as dist
 
         order = tuple(f"rank:{r}" for r in dist.get_process_group_ranks(mesh.group))
-    return (("tp",), (mesh.tp,), order)
+    if mesh.data == 1:
+        return (("tp",), (mesh.tp,), order)
+    return (("data", "tp"), (mesh.data, mesh.tp), order)
 
 
 class ExecutableCache:

@@ -206,9 +206,9 @@ def test_recurrent_and_moe_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_dev
     cfg = ModelConfig(name="x", family="xlstm", n_layers=8, d_model=2048, n_heads=4, n_kv_heads=4,
                       d_ff=0, vocab_size=64)
     pm = {n: randn(*leaf.shape, scale=leaf.scale or 0.1).to(torch.bfloat16)
-          for n, leaf in lm._mlstm_leaves(cfg, ()).items()}
+          for n, leaf in lm._mlstm_leaves(cfg, (), ()).items()}
     ps = {n: randn(*leaf.shape, scale=leaf.scale or 0.1).to(torch.bfloat16)
-          for n, leaf in lm._slstm_leaves(cfg, ()).items()}
+          for n, leaf in lm._slstm_leaves(cfg, (), ()).items()}
     x = randn(b, 16, 2048).to(torch.bfloat16)
     mb, mb_st = xlstm.mlstm_block(x, pm, _RowHook(), n_heads=4, chunk=512)
     sb, sb_st = xlstm.slstm_block(x[:, :6], ps, _RowHook(), n_heads=4)
@@ -443,3 +443,36 @@ def test_engine_replays_solo_equal_batched_on_card(cuda_device):
     again = serve(range(3))
     assert all(np.array_equal(a, b) for a, b in zip(first, again))
     assert eng.cache_stats()["misses"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_on_card_matches_plain(stride, cuda_device):
+    """``analog_conv2d`` on the card (f32 patches: the simt route) against
+    the plain version, shot noise, under the kernel rule."""
+    from repro_torch.core.analog import analog_conv2d, key_seed
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 14, 14, 12), generator=gen, device=cuda_device)
+    k = torch.randn((3, 3, 12, 40), generator=gen, device=cuda_device) / 18.0
+    seed = key_seed(np.asarray([0, 5], np.uint32), cuda_device)
+    e = torch.tensor(20.0, device=cuda_device)
+    before = am.LAUNCHES["simt"]
+    with torch.no_grad():
+        y = analog_conv2d(x, k, cfg=AnalogConfig.shot(), stride=stride, energy=e, seed=seed)
+        want = analog_conv2d(x, k, cfg=AnalogConfig.shot(backend="tile"), stride=stride,
+                             energy=e, seed=seed)
+    assert am.LAUNCHES["simt"] == before + 1
+    atol = 3e-5 * float(want.abs().max())
+    assert bool(((y - want).abs() <= atol + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_simt_refuses_rows_beyond_its_grid(cuda_device):
+    x = torch.zeros((1, am.SIMT_MAX_ROWS + 1, 4), device=cuda_device)
+    w = torch.zeros((4, 8), device=cuda_device)
+    o = ops.prepare_operands(x, w, energy=1.0, seed=torch.zeros((1, 4), dtype=torch.int32),
+                             cfg=AnalogConfig.shot())
+    with pytest.raises(ValueError, match=str(am.SIMT_MAX_ROWS)):
+        am.analog_matmul_raw(o["x"], o["w"], o["row_scale"], o["col_scale"], o["wq"],
+                             o["scalars"], o["seed"], noise_kind=o["noise_kind"])

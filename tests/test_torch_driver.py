@@ -3,7 +3,10 @@ cases of tests/test_runtime.py:30-91 on granite3-smoke: a run with two
 simulated failures ends in the clean run's parameters bit for bit, the
 loss falls, too many restarts raise, the straggler monitor flags and
 persists, int8 gradient compression trains; the training entry point
-runs on the CPU. And the step it runs against the reference's
+runs on the CPU. On a data mesh (tests/test_runtime.py:92): a resize
+then ``run()`` ends in the uninterrupted run's state bit for bit, a
+checkpoint written on 2 data shards restores bit for bit with no mesh,
+and the resize logs its event with both meshes' fingerprints. And the step it runs against the reference's
 (``make_train_step``, one step at float32, microbatches 1 and 4, int8_ef
 off and on): loss and grad norm to 1e-5 relative, 99.9 % of the
 parameters within 1e-6 (1 + |p|) of the reference's and every one within
@@ -24,6 +27,8 @@ from repro.optim import adam as jadam  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import TokenTaskConfig  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.checkpoint.store import latest_step  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_for_devices  # noqa: E402
 from repro_torch.launch.steps import TrainConfig  # noqa: E402
 from repro_torch.runtime import train_lm  # noqa: E402
 from repro_torch.runtime.driver import (  # noqa: E402
@@ -48,11 +53,11 @@ LOSS_RTOL = 1e-5
 T = 32
 
 
-def _driver(tmp, hook=None, max_steps=24, **tkw):
+def _driver(tmp, hook=None, max_steps=24, mesh=None, **tkw):
     model = get_smoke_config("granite-3-8b")
     data = TokenTaskConfig(vocab_size=model.vocab_size, seq_len=T, global_batch=8, seed=3)
     return TrainDriver(
-        model, data, ckpt_dir=str(tmp),
+        model, data, mesh, ckpt_dir=str(tmp),
         driver_cfg=DriverConfig(max_steps=max_steps, ckpt_every=8, ckpt_async=False),
         train_cfg=TrainConfig(lr=1e-3, opt_state_dtype="float32", **tkw),
         failure_hook=hook, device="cpu",
@@ -115,9 +120,40 @@ def test_grad_compression_trains(tmp_path):
     assert losses[-1] < losses[0]
 
 
-def test_resize_waits_for_sharded_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _driver(tmp_path).resize(None)
+def _state_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(
+        leaves(a["params"]) + leaves(a["opt"].mu) + leaves(a["opt"].nu),
+        leaves(b["params"]) + leaves(b["opt"].mu) + leaves(b["opt"].nu)))
+
+
+def test_resize_then_run_resumes_bitexact(tmp_path):
+    """tests/test_runtime.py:92 on a data mesh of 2 shards: a resize to a
+    fresh mesh of the same shape mid-run, then ``run()``, ends in the
+    uninterrupted run's state bit for bit."""
+    clean = _driver(tmp_path / "clean", max_steps=16, mesh=make_mesh_for_devices(1, data=2)).run()
+    _driver(tmp_path / "resized", max_steps=8, mesh=make_mesh_for_devices(1, data=2)).run()
+    drv = _driver(tmp_path / "resized", max_steps=16, mesh=make_mesh_for_devices(1, data=2))
+    drv.resize(make_mesh_for_devices(1, data=2))
+    out = drv.run()
+    assert out["step"] == 16
+    assert _state_equal(clean["state"], out["state"])
+
+
+def test_data_mesh_checkpoint_restores_on_one_device(tmp_path):
+    """A checkpoint written on a data mesh of 2 shards holds the whole state:
+    a driver with no mesh restores it bit for bit."""
+    out = _driver(tmp_path, max_steps=8, mesh=make_mesh_for_devices(1, data=2)).run()
+    step, state = _driver(tmp_path, max_steps=8)._restore_or_init()
+    assert step == 8 and _state_equal(out["state"], state)
+
+
+def test_resize_event_fields(tmp_path):
+    _driver(tmp_path, max_steps=8).run()
+    drv = _driver(tmp_path, max_steps=16)
+    drv.resize(make_mesh_for_devices(1, data=2))
+    assert drv.metrics_log == [{"step": 8, "event": "resize", "mesh_from": (),
+                                "mesh_to": (("data", "tp"), (2, 1), ("local:0", "local:1"))}]
+    assert drv.mesh.data == 2 and latest_step(str(tmp_path)) == 8
 
 
 def test_train_lm_entry_point_runs_on_the_cpu(tmp_path, capsys):

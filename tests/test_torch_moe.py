@@ -163,7 +163,7 @@ def test_high_capacity_drops_nothing():
 def _block_params(cfg, seed=0):
     rng = np.random.default_rng(seed)
     p = lm.map_leaves(lambda _p, l: (rng.standard_normal(l.shape) * (l.scale or 0.1)).astype(
-        np.float32), lm._moe_leaves(cfg, ()))
+        np.float32), lm._moe_leaves(cfg, (), ()))
     return p, lm.map_leaves(lambda _p, a: _t(a), p), jax.tree.map(jnp.asarray, p)
 
 

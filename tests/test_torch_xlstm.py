@@ -183,7 +183,7 @@ def _block_params(kind, d=16, h=2, seed=0):
     cfg = ModelConfig(name="b", family="xlstm", n_layers=2, d_model=d, n_heads=h, n_kv_heads=h,
                       d_ff=0, vocab_size=16, slstm_ratio=2)
     rng = np.random.default_rng(seed)
-    leaves_ = lm._mlstm_leaves(cfg, ()) if kind == "mlstm" else lm._slstm_leaves(cfg, ())
+    leaves_ = lm._mlstm_leaves(cfg, (), ()) if kind == "mlstm" else lm._slstm_leaves(cfg, (), ())
     p = {k: (rng.standard_normal(l.shape) * (l.scale or 0.1)).astype(np.float32)
          for k, l in leaves_.items()}
     return p, {k: _t(v) for k, v in p.items()}, {k: jnp.asarray(v) for k, v in p.items()}
