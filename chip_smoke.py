@@ -519,12 +519,16 @@ def _bound(o, n_repeats):
 
     The larger of the bytes (each input read once, the f32 output written
     once, over the HBM rate) and the operations, the busiest of: the
-    product's FLOPs at the peak for its operands (bf16 x bf16 on the tensor
-    cores, twice for noisy weights, which take two bf16 parts; f32 operands
-    at the f32 SIMT rate) and the noise draws this call needs on the integer
-    lanes and on the SFU lanes. ``detail`` holds each term in ms, the
-    draws' on the INT32 lanes alone (``int32_only``) and the bound with the
-    product at the f32 SIMT rate (``f32_simt``).
+    product's FLOPs on the tensor cores at the bf16 peak, once for bf16
+    operands that nothing changes and once more for each operand with a lo
+    part (an f32 operand, or one after its quantizer or the weight noise,
+    is exact as two bf16 parts hi + lo, and x * w as hi*hi + hi*lo +
+    lo*hi: three bf16 products for f32 operands, two for noisy bf16
+    weights) and the noise draws this call needs on the integer lanes and
+    on the SFU lanes. ``detail`` holds each term in ms, the draws' on the
+    INT32 lanes alone (``int32_only``) and the bound with the product at the
+    f32 SIMT rate (``f32_simt``, the bound this function had until the simt
+    route multiplied on the tensor cores).
     """
     import torch
 
@@ -535,10 +539,9 @@ def _bound(o, n_repeats):
     n_bytes += b * m * n * 4
     flops = 2.0 * b * m * k * n
     draws = _draws(o, n_repeats)
-    if o["x"].dtype == torch.bfloat16:
-        product = flops * (2 if o["noise_kind"] == "weight" else 1) / BF16_FLOPS_S
-    else:
-        product = flops / F32_FLOPS_S
+    f32 = o["x"].dtype != torch.bfloat16
+    lo_parts = int(f32 or o["quant_x"]) + int(f32 or o["quant_w"] or o["noise_kind"] == "weight")
+    product = flops * (1 + lo_parts) / BF16_FLOPS_S
     terms = dict(bytes=n_bytes / HBM_BYTES_S, product=product,
                  draws_int=draws * DRAW_INT_OPS / INT_LANE_OPS_S,
                  draws_sfu=draws * DRAW_SFU_OPS / SFU_OPS_S)
@@ -3523,6 +3526,9 @@ CONV_B, CONV_E, CONV_REPEATS = 16, 20.0, (1, 4)
 CNN_CHANNELS, CNN_CLASSES, CNN_IMAGES, CNN_SIZE = ((3, 16), (16, 32), (32, 32)), 10, 256, 16
 #: the shape whose faulty controls the conv phase shows
 CONV_CONTROL = "s2 3x3/2 128->128"
+#: conv1's batch run in one call against plain: above 334 images, the most
+#: that 65,535 row tiles of 64 rows would hold
+CONV_BIG = 400
 
 
 def resnet50_convs() -> list:
@@ -3646,6 +3652,20 @@ def _cnn_forward(images, ws, cfg, key):
                       seed=key_seed(site_key(key, "head"), images.device))
 
 
+def _conv2d_library(x, k, side, kh, stride):
+    """``F.conv2d`` (f32; TF32 off, as ``main`` sets) of the site's NHWC
+    input, padded as "SAME" pads it, and HWIO kernel, laid out NCHW / OIHW
+    outside the timed call: the noise-free conv's library call."""
+    import torch
+
+    from repro_torch.core.analog import _same_pads
+
+    (top, bottom), (left, right) = _same_pads(side, kh, stride), _same_pads(side, kh, stride)
+    pad = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    return lambda: torch.nn.functional.conv2d(pad, w_oihw, stride=stride)
+
+
 def phase_conv():
     """The paper's CNN path on the card (``analog_conv2d``, f32 patches: the
     simt route), under ``torch.no_grad()``.
@@ -3659,16 +3679,17 @@ def phase_conv():
     simt's. Then, uncounted: faulty controls (another seed, K = 4 against
     K = 1, no noise) at ``CONV_CONTROL`` and the CNN's another key, which
     must fail the rule; each shape's kernel ms (L2 flushed), whole-call ms
-    and bound, the forward's sums weighted by the shapes' occurrences, the
-    heaviest shape's plain ms and ``F.conv2d``'s (the noise-free conv);
-    each shape's peak bytes an image and the largest batch that runs (the
-    grid's ``SIMT_MAX_ROWS`` and the card's free memory), conv1 run at its
-    largest batch and refused one image above it. Returns (launches by
-    route, the kernels line's simt entry)."""
+    and bound (with the f32-SIMT bound beside it), its noise-free kernel ms
+    beside ``torch.matmul``'s on the same patches and ``F.conv2d``'s, the
+    forward's sums weighted by the shapes' occurrences, the heaviest shape's
+    plain ms; each shape's peak bytes an image and the largest batch the
+    card's free memory holds (no grid limit); conv1 at ``CONV_BIG`` images
+    in one call against plain. Returns (launches by route, the kernels
+    line's simt entry)."""
     import numpy as np
     import torch
 
-    from repro_torch.core.analog import _same_pads, conv_patches, conv_weight_matrix
+    from repro_torch.core.analog import conv_patches, conv_weight_matrix
     from repro_torch.core.noise import NoiseSpec
     from repro_torch.data import make_image_dataset
     from repro_torch.kernels import analog_matmul as am
@@ -3748,21 +3769,28 @@ def phase_conv():
             w_mat = k if kh == 0 else conv_weight_matrix(k)
             o = ops.prepare_operands(patches.reshape(1, -1, w_mat.shape[0]), w_mat, energy=e,
                                      seed=seed.reshape(1, 4), cfg=shot)
-            bound, by, _ = _bound(o, 1)
+            bound, by, detail = _bound(o, 1)
+            p2, quiet = o["x"][0], dict(o, noise_kind="none")
             row.update(kernel_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, o, 1), 10, flush),
                        call_ms=cuda_ms(lambda: _conv_call(x, k, stride, shot, seed, None, 1), 5,
                                        flush),
-                       bound_ms=bound, bound_by=by)
+                       bound_ms=bound, bound_by=by, f32_simt_bound_ms=detail["f32_simt"],
+                       noise_free_ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, quiet, 1), 10,
+                                             flush),
+                       matmul_ms=cuda_ms(lambda: torch.matmul(p2, w_mat), 10, flush),
+                       conv2d_ms=None if kh == 0 else cuda_ms(
+                           _conv2d_library(x, k, side, kh, stride), 10, flush))
             row["share_of_bound"] = bound / row["kernel_ms"]
+            row["f32_simt_share"] = detail["f32_simt"] / row["kernel_ms"]
+            p2 = quiet = None
             _free()
             base = torch.cuda.memory_allocated()
             _conv_call(x, k, stride, shot, seed, None, 1)
             torch.cuda.synchronize()
             per_image = (torch.cuda.max_memory_allocated() - base) / CONV_B
-            by_grid = am.SIMT_MAX_ROWS // max(1, row["rows"] // CONV_B)
-            row.update(peak_bytes_an_image=per_image, largest_batch_by_grid=by_grid,
-                       largest_batch_by_memory=int(0.9 * free // per_image))
-            row["largest_batch"] = min(by_grid, row["largest_batch_by_memory"])
+            # memory is the only limit: the grid enumerates row tiles on grid.x
+            row.update(peak_bytes_an_image=per_image,
+                       largest_batch=int(0.9 * free // per_image))
             x = k = patches = o = None
             log("conv_site", **{kk: v for kk, v in row.items() if kk != "checks"},
                 checks=row["checks"], card=card())
@@ -3776,53 +3804,50 @@ def phase_conv():
                                  seed=seed.reshape(1, 4), cfg=shot)
         err, _, _ = _conv_close(_run_raw(analog_matmul_raw, o, 1),
                                 _run_raw(analog_matmul_ref_raw, o, 1), None)
-        (top, bottom), (left, right) = _same_pads(side, kh, stride), _same_pads(side, kh, stride)
-        pad = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
-        w_oihw = k.permute(3, 2, 0, 1).contiguous()
+        _, _, detail = _bound(o, 1)
         head = dict(
             name="analog_matmul.simt", route="cuda", source=SOURCE["simt"], replaces=REPLACES,
             launches=launches["simt"], max_abs_err=err, ms=row["kernel_ms"],
             plain_ms=cuda_ms(lambda: _run_raw(analog_matmul_ref_raw, o, 1), 3, flush),
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None, site=name,
             shape=list(o["x"].shape) + [w_mat.shape[1]], noise="output", n_repeats=1,
+            bound_terms_ms=detail, f32_simt_share=row["f32_simt_share"],
             noise_free=dict(
-                ms=cuda_ms(lambda: _run_raw(analog_matmul_raw, dict(o, noise_kind="none"), 1),
-                           10, flush),
+                ms=row["noise_free_ms"],
                 library="torch.nn.functional.conv2d (f32, on the padded NCHW input)",
-                library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(pad, w_oihw,
-                                                                      stride=stride), 10, flush)))
-        x = k = o = pad = None
-        # conv1 at its largest batch, then one image more: the kernel refuses
+                library_ms=row["conv2d_ms"],
+                matmul="torch.matmul (f32, TF32 off, on the same patches)",
+                matmul_ms=row["matmul_ms"]))
+        x = k = o = None
+        # conv1 above the old grid's 334 images, in one call, against plain
         name, side, kh, stride, cin, cout, _ = sites[0]
-        big = rows[0]["largest_batch"]
         _free()
-        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 3, b=big)
+        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 3, b=CONV_BIG)
         y = _conv_call(x, k, stride, shot, seed, None, 1)
+        want = _conv_call(x, k, stride, shot, seed, None, 1, backend="tile")
         torch.cuda.synchronize()
-        ran = bool(torch.isfinite(y).all())
-        x = y = None
+        big_err, big_atol, big_ok = _conv_close(y, want, None)
+        big_rows = int(y.numel() // cout)
+        x = y = want = None
         _free()
-        x, k, seed = _conv_site(name, side, kh, stride, cin, cout, 3, b=big + 1)
-        try:
-            _conv_call(x, k, stride, shot, seed, None, 1)
-            refused = None
-        except ValueError as err:
-            refused = str(err)
-        x = None
-        _free()
-    if not ran or refused is None or str(am.SIMT_MAX_ROWS) not in refused:
-        raise AssertionError(f"conv1 at batch {big}: ran {ran}; at {big + 1}: {refused!r}")
-    total = {t: sum(r[t] * r["occurrences"] for r in rows) for t in ("kernel_ms", "call_ms",
-                                                                      "bound_ms")}
+    if not big_ok:
+        raise AssertionError(f"conv1 at batch {CONV_BIG}: kernel vs plain {big_err} > {big_atol}")
+    total = {t: sum(r[t] * r["occurrences"] for r in rows)
+             for t in ("kernel_ms", "call_ms", "bound_ms", "f32_simt_bound_ms", "noise_free_ms",
+                       "matmul_ms")}
     log("conv", batch=CONV_B, energy_aj=CONV_E, sites=len(rows),
         convolutions_a_forward=sum(r["occurrences"] for r in rows[:-1]),
         forward_kernel_ms=total["kernel_ms"], forward_call_ms=total["call_ms"],
         forward_bound_ms=total["bound_ms"],
         forward_share_of_bound=total["bound_ms"] / total["kernel_ms"],
+        forward_f32_simt_bound_ms=total["f32_simt_bound_ms"],
+        forward_f32_simt_share=total["f32_simt_bound_ms"] / total["kernel_ms"],
+        forward_noise_free_ms=total["noise_free_ms"], forward_matmul_ms=total["matmul_ms"],
         launches=launches, cnn=dict(images=CNN_IMAGES, size=CNN_SIZE, max_abs_err=cnn_err,
                                     atol=cnn_atol, accuracy_random_weights=accuracy),
-        controls=controls, largest_batch={r["site"]: r["largest_batch"] for r in rows},
-        conv1_largest_batch=big, refused_above=refused, simt_max_rows=am.SIMT_MAX_ROWS,
+        controls=controls, largest_batch_by_memory={r["site"]: r["largest_batch"] for r in rows},
+        conv1_big=dict(images=CONV_BIG, rows=big_rows, max_abs_err=big_err, atol=big_atol,
+                       ok=big_ok),
         card=card())
     return launches, head
 

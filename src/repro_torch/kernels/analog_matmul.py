@@ -23,16 +23,26 @@ interface with ``ctypes``:
     products at up to ``M_DECODE`` rows a request, bf16 tensor-core products
     of the noisy weights split into two bf16 parts above (input quantizers
     there go to simt);
-  * ``simt`` (``csrc/analog_matmul.cu``) - everything else: f32 operands,
-    rows not a multiple of 16 bytes, input quantizers above ``M_DECODE``
-    rows.
+  * ``simt`` (``csrc/analog_matmul.cu``) - everything else: f32 operands
+    (every convolution), rows not a multiple of 16 bytes, input quantizers
+    above ``M_DECODE`` rows. Bound by the patches' bytes at conv1, by the
+    products at the 3x3 sites. Tensor-core products of split bf16 parts:
+    each operand value v (after fake-quant and weight noise) is split into
+    hi = bf16(v) and lo = bf16(v - hi) in a converting stage fed by a ring
+    of TMA or ``cp.async`` copies, and ``wgmma`` sums hi*hi + hi*lo + lo*hi
+    in f32 (an unchanged bf16 operand has no lo part); 128 x 64 tiles
+    (request under weight noise, row tile, column tile) walked on grid.x by
+    persistent clusters, no row limit; K cut into 1,
+    2, 4 or 8 runs that are the ranks of one thread-block cluster, their
+    partial tiles added in distributed shared memory in rank order
+    (``simt_plan``).
 
 ``select_route`` picks the route from the call's shapes and flags alone,
 never from the batch size. The order of every output's sum is fixed by
 (K, ``plan_n``) alone: each plan takes its split of K from them, sums each
 split in K order (the decode route over 8 k lanes) and adds the splits in
-a fixed order (the tc route in rank order); rows only pick which block
-computes an output. So a request's rows are the same bits alone or in
+a fixed order (the tc and simt routes in rank order); rows only pick
+which block computes an output. So a request's rows are the same bits alone or in
 any batch, and from launch to launch. Every route reads the weight
 through its row stride, so a column shard ``w[:, c0:c1]`` of a
 tensor-parallel call is a view, never a copy; with ``plan_n`` = the whole
@@ -110,12 +120,19 @@ WEIGHT_KC_MAX = 2048
 WEIGHT_WAVE = 4 * 132
 WEIGHT_TARGET_BLOCKS = 2 * WEIGHT_WAVE
 
-#: simt route: 64-row output tiles on grid.y (blocks of ``grid.y`` are at
-#: most 65,535), so one call takes at most ``SIMT_MAX_ROWS`` rows (B * M,
-#: or M a request under weight noise, whose requests go on grid.z)
-SIMT_BM = 64
-GRID_YZ_MAX = 65535
-SIMT_MAX_ROWS = SIMT_BM * GRID_YZ_MAX
+#: simt route: output tiles of ``SIMT_BM`` rows (64 a warpgroup, wgmma
+#: m64n64) and ``SIMT_BN`` columns; K in 32-deep steps, each split at least
+#: ``SIMT_MIN_SPLIT`` steps; the splits aim at ``SIMT_BLOCKS`` blocks a row
+#: tile (the 7x7 stage's 3x3, 784 rows: 8 column tiles x 8 splits). A ring
+#: of two f32 steps of x and w and the four bf16 parts (two steps deep): two
+#: blocks a SM.
+SIMT_BM = 128
+SIMT_BN = 64
+SIMT_BK = 32
+SIMT_MIN_SPLIT = 16
+SIMT_BLOCKS = 128
+SIMT_SMEM = (2 * SIMT_BM * 64 * 2 + 2 * 64 * SIMT_BN * 2 + 2 * (SIMT_BM + SIMT_BN) * SIMT_BK * 4
+             + 2 * 8 + 1024)
 
 #: kernel launches so far in this process, by route (one per
 #: ``analog_matmul_raw`` call on CUDA tensors): a run shows the main path
@@ -261,6 +278,23 @@ def tc_plan(rows: int, k: int, n: int, plan_n=None) -> dict:
                 splits=splits, smem=TC_RING + 2 * 3 * 8 + 1024)
 
 
+def simt_plan(rows: int, k: int, n: int, plan_n=None) -> dict:
+    """Grid of the simt route for ``rows`` (B * M, or M a request under
+    weight noise, whose requests multiply the tiles): ``row_tiles`` of
+    ``SIMT_BM``, ``col_tiles`` of ``SIMT_BN``, ``k_steps`` 32-deep K steps
+    cut into ``splits`` (1, 2, 4 or 8, one cluster) runs of whole steps
+    (``split_ranges``). The split is a function of (K, ``plan_n``) alone
+    (``plan_n`` defaults to ``n``; a column shard passes the whole weight's
+    N): enough splits for cdiv(``plan_n``, 64) x splits >= ``SIMT_BLOCKS``
+    blocks at one row tile, each at least ``SIMT_MIN_SPLIT`` steps. The
+    kernel's persistent clusters walk the tiles on grid.x: no row limit.
+    ``smem``: the block's shared memory."""
+    k_steps = _cdiv(k, SIMT_BK)
+    splits = _cluster_splits(k_steps, SIMT_MIN_SPLIT, _cdiv(plan_n or n, SIMT_BN), SIMT_BLOCKS)
+    return dict(row_tiles=_cdiv(rows, SIMT_BM), col_tiles=_cdiv(n, SIMT_BN), k_steps=k_steps,
+                splits=splits, smem=SIMT_SMEM)
+
+
 def find_nvcc() -> str:
     """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda/bin`` or ``PATH``."""
     candidates = []
@@ -327,7 +361,7 @@ def library(route: str) -> ctypes.CDLL:
         common = [p, p, p, p, i, p, p, p, p]  # x, w, rs, cs, cs_stride, wq, sc, seed, out
         if route == "simt":
             lib.analog_matmul_launch.argtypes = [
-                p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p,
+                p, p, i, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, i, i, i, p,
             ]
             lib.analog_matmul_launch.restype = i
             lib.threefry_words.argtypes = [u32, u32, u32, u32, i, i, p, p]
@@ -455,16 +489,13 @@ def analog_matmul_raw(
     kind = NOISE_KINDS[noise_kind]
     if route == "simt":
         per_req = noise_kind == "weight"
-        rows = m if per_req else b * m
-        _require(rows <= SIMT_MAX_ROWS and (not per_req or b <= GRID_YZ_MAX),
-                 f"the simt route takes at most {SIMT_MAX_ROWS} rows a call ({SIMT_BM}-row "
-                 f"tiles on grid.y, at most {GRID_YZ_MAX}): got {rows} rows (B={b}, M={m})")
+        plan = simt_plan(m if per_req else b * m, k, n, plan_n)
         err = library("simt").analog_matmul_launch(
             x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16),
             row_scale.data_ptr(), col_scale.data_ptr(), cs_stride,
             wq.data_ptr(), scalars.data_ptr(), seed.data_ptr(), out.data_ptr(),
             b, m, k, n, w.stride(0), kind, int(quant_x), int(quant_w), int(quant_out),
-            int(n_repeats), inv_k, stream,
+            int(n_repeats), inv_k, plan["row_tiles"], plan["col_tiles"], plan["splits"], stream,
         )
     else:
         x, w = _aligned(x), _aligned(w)

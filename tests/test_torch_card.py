@@ -26,7 +26,9 @@ from repro_torch.quant.affine import QuantParams  # noqa: E402
 #: plan gives (1, 2, 4 and 8 splits of K); decode and tc at ragged K and N,
 #: decode at K = 8192 and at 4, 8 and 16 rows a block; rows that fill part
 #: of a tile (decode: 5 rows in a tile of 8, 17 in two of 16; tc: 140 rows
-#: in two of 128)
+#: in two of 128); simt at ResNet-50's conv1 (K = 147: rows of 588 bytes
+#: in f32, of odd length in bf16; one split) and its 7x7 stage's 3x3 conv
+#: (784 rows, K = 4608: 8 splits), in bf16 and in f32
 ROUTE_CASES = [
     ("decode", (3, 1, 64, 40), False),
     ("decode", (3, 1, 1096, 72), True),
@@ -39,6 +41,9 @@ ROUTE_CASES = [
     ("tc", (3, 40, 1096, 72), False),
     ("tc", (2, 70, 4000, 1000), False),
     ("simt", (2, 9, 36, 20), False),
+    ("simt", (2, 1500, 147, 64), False),
+    ("simt", (2, 300, 147, 64), True),
+    ("simt", (1, 784, 4608, 512), False),
     ("weight", (3, 1, 64, 40), False),
     ("weight", (3, 2, 64, 40), True),
     ("weight", (3, 9, 64, 40), False),
@@ -68,12 +73,19 @@ def test_route_kernel_matches_plain_on_card(route, shape, quant, cuda_device):
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.standard_normal((b, m, k)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((k, n)) * 0.2).astype(np.float32))
+    # simt also takes f32 operands (the conv path): both types there
+    for dtype in (torch.bfloat16, torch.float32) if route == "simt" else (torch.bfloat16,):
+        _route_matches_plain(route, x.to(dtype).to(cuda_device), w.to(dtype).to(cuda_device),
+                             quant)
+
+
+def _route_matches_plain(route, xb, wb, quant):
+    b = xb.shape[0]
     weight = route in ("simt", "weight")
     cfg, e = (AnalogConfig.weight(0.1), 5.0) if weight else (AnalogConfig.shot(), 10.0)
     if quant and not weight:  # thermal noise: quantizers of x, w and the output
         cfg, e = AnalogConfig.thermal(0.01), 4.0
     seed = torch.from_numpy(np.arange(4 * b, dtype=np.int32).reshape(b, 4))
-    xb, wb = x.to(torch.bfloat16).to(cuda_device), w.to(torch.bfloat16).to(cuda_device)
     sq = None
     if quant:  # per-column weight ranges, tensor ranges of x and of the output
         sq = SiteQuant(wqp=_minmax(wb.float(), 0), xqp=_minmax(xb.float()),
@@ -228,7 +240,7 @@ def test_recurrent_and_moe_ops_same_bits_alone_as_in_a_batch_on_card(b, cuda_dev
                        d_ff=512, vocab_size=64, n_experts=8, top_k=2, moe_ff_split=2,
                        capacity_factor=4.0, dtype="bfloat16")
     pe = {n: randn(*leaf.shape, scale=leaf.scale).to(torch.bfloat16)
-          for n, leaf in lm._moe_leaves(mcfg, ()).items()}
+          for n, leaf in lm._moe_leaves(mcfg, (), ()).items()}
     xm = randn(b, 16, 256).to(torch.bfloat16)
     lengths = torch.tensor([16, 9] + [0] * (b - 2), device=cuda_device)
     pad = torch.arange(16, device=cuda_device)[None, :] >= lengths[:, None]
@@ -243,7 +255,8 @@ SHARD_CASES = [("decode", (3, 1, 256, 128)), ("tc", (3, 9, 256, 128)),
                ("decode", (3, 1, 1096, 512)), ("tc", (3, 9, 1096, 512)),
                ("decode", (3, 1, 4096, 256)), ("tc", (3, 70, 4096, 256)),
                ("simt", (2, 9, 72, 64)), ("weight", (3, 1, 256, 128)),
-               ("weight", (3, 9, 256, 128))]
+               ("weight", (3, 9, 256, 128)), ("simt", (2, 500, 147, 64)),
+               ("simt", (1, 784, 4608, 512))]
 
 
 @pytest.mark.cuda
@@ -468,11 +481,23 @@ def test_conv_on_card_matches_plain(stride, cuda_device):
 
 
 @pytest.mark.cuda
-def test_simt_refuses_rows_beyond_its_grid(cuda_device):
-    x = torch.zeros((1, am.SIMT_MAX_ROWS + 1, 4), device=cuda_device)
-    w = torch.zeros((4, 8), device=cuda_device)
-    o = ops.prepare_operands(x, w, energy=1.0, seed=torch.zeros((1, 4), dtype=torch.int32),
+def test_simt_takes_rows_beyond_the_old_grid_limit(cuda_device):
+    """One call of 65,535 * 64 + 64 rows (the old grid's limit, one row
+    tile more) runs, and its first and last row tiles equal the plain
+    version's under the kernel rule."""
+    rows = 65535 * 64 + 64
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((1, rows, 4), generator=gen, device=cuda_device)
+    w = torch.randn((4, 8), generator=gen, device=cuda_device)
+    o = ops.prepare_operands(x, w, energy=torch.tensor(10.0, device=cuda_device),
+                             seed=torch.arange(4, dtype=torch.int32, device=cuda_device)[None],
                              cfg=AnalogConfig.shot())
-    with pytest.raises(ValueError, match=str(am.SIMT_MAX_ROWS)):
-        am.analog_matmul_raw(o["x"], o["w"], o["row_scale"], o["col_scale"], o["wq"],
-                             o["scalars"], o["seed"], noise_kind=o["noise_kind"])
+    args = [o[t] for t in ("x", "w", "row_scale", "col_scale", "wq", "scalars", "seed")]
+    before = am.LAUNCHES["simt"]
+    got = am.analog_matmul_raw(*args, noise_kind=o["noise_kind"])
+    want = ops.analog_matmul_ref_raw(*args, noise_kind=o["noise_kind"])
+    assert am.LAUNCHES["simt"] == before + 1
+    for part in (slice(0, 64), slice(rows - 64, rows)):
+        g, r = got[0, part], want[0, part]
+        atol = 3e-5 * float(r.abs().max())
+        assert bool(((g - r).abs() <= atol + 1e-4 * r.abs()).all())

@@ -27,7 +27,6 @@ once; in them
   rank restores its regions of it.
 """
 import os
-import socket
 
 import numpy as np
 import pytest
@@ -138,14 +137,14 @@ def _psum_input(rank, shape):
     return np.random.default_rng(10 + rank).standard_normal(shape).astype(np.float32) * (1 + rank)
 
 
-def _worker(rank, port, out_dir):
+def _worker(rank, store, out_dir):
     """One gloo rank: every distributed case, its results saved for the
-    parent."""
+    parent. The ranks meet at the file ``store`` (a ``file://`` rendezvous:
+    no port is chosen ahead of its bind)."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
-                            rank=rank)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
     try:
         mesh = make_mesh_for_devices(1, group=dist.group.WORLD, data=2)
         res = {}
@@ -178,10 +177,8 @@ def ranks(tmp_path_factory):
     import torch.multiprocessing as mp
 
     out = str(tmp_path_factory.mktemp("dp2"))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    mp.start_processes(_worker, args=(port, out), nprocs=2, start_method="spawn", join=True)
+    store = os.path.join(out, "rendezvous")
+    mp.start_processes(_worker, args=(store, out), nprocs=2, start_method="spawn", join=True)
     return out, [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
 
 

@@ -10,7 +10,9 @@ version there. Tolerance: the
 reference's rule (``tests/test_kernels.py``), ``atol = 3e-5 * max|y|``,
 widened to one output-quantizer bin under requant, ``rtol = 1e-4``. The
 weight route's tensor-core form (noisy weights split into two bf16 parts)
-is held to the same rule in plain PyTorch here, before the card runs it.
+and the simt route's (both operands split into two bf16 parts, three
+products a step, the splits of K added in rank order) are held to the same
+rule in plain PyTorch here, before the card runs them.
 """
 import numpy as np
 import pytest
@@ -31,8 +33,10 @@ from repro.quant import calibrate_minmax  # noqa: E402
 from repro_torch.core.analog import AnalogConfig, SiteQuant, key_seed  # noqa: E402
 from repro_torch.kernels import analog_matmul as am  # noqa: E402
 from repro_torch.kernels import ops, prng  # noqa: E402
-from repro_torch.kernels.ref import analog_matmul_ref_raw, seed_words  # noqa: E402
+from repro_torch.kernels.ref import _fake_quant, analog_matmul_ref_raw, seed_words  # noqa: E402
+from repro_torch.core.noise import SHOT, NoiseSpec  # noqa: E402
 from repro_torch.quant.affine import QuantParams  # noqa: E402
+from repro_torch.quant.affine import calibrate_minmax as tcalibrate_minmax  # noqa: E402
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -198,6 +202,49 @@ def test_tc_split_never_depends_on_rows(k, n):
     assert len(plans) == 1
 
 
+def _simt_ranges(plan, k):
+    return am.split_ranges(plan["k_steps"], plan["splits"], am.SIMT_BK, k)
+
+
+#: ResNet-50's conv sites as (rows at batch 16, K, N): conv1, a 56x56 3x3,
+#: a 28x28 expand, the 7x7 stage's 3x3, the fc
+CONV_SITES = [(200704, 147, 64), (50176, 576, 64), (12544, 128, 512), (784, 4608, 512),
+              (16, 2048, 1000)]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 784, 200704, 65535 * 64 + 64, 2**31 - 1])
+@pytest.mark.parametrize("k,n", KN + [(147, 64), (4608, 512), (2048, 1000)],
+                         ids=lambda v: str(v))
+def test_simt_plan_covers(k, n, rows):
+    """The simt route's tiles cover the rows (above the old grid's 65,535
+    row tiles too), the columns and K; its splits cover K in whole 32-deep
+    steps, at least ``SIMT_MIN_SPLIT`` a split, in one portable cluster;
+    two blocks fit a SM."""
+    plan = am.simt_plan(rows, k, n)
+    assert (plan["row_tiles"] - 1) * am.SIMT_BM < rows <= plan["row_tiles"] * am.SIMT_BM
+    assert (plan["col_tiles"] - 1) * am.SIMT_BN < n <= plan["col_tiles"] * am.SIMT_BN
+    assert (plan["k_steps"] - 1) * am.SIMT_BK < k <= plan["k_steps"] * am.SIMT_BK
+    _check_split(_simt_ranges(plan, k), k, am.SIMT_BK, am.SIMT_MIN_SPLIT * am.SIMT_BK)
+    assert 2 * (plan["smem"] + 1024) <= 233472  # the H100's 228 KB a SM, 1 KB reserved a block
+
+
+@pytest.mark.parametrize("k,n", KN + [(147, 64), (4608, 512), (2048, 1000)],
+                         ids=lambda v: str(v))
+def test_simt_split_never_depends_on_rows(k, n):
+    plans = {(p["k_steps"], p["splits"], p["col_tiles"])
+             for p in (am.simt_plan(r, k, n) for r in [*range(1, 301), 200704, 2**31 - 1])}
+    assert len(plans) == 1
+
+
+def test_simt_plan_fills_the_card_at_resnet_sites():
+    """Small-row sites split K for blocks: the 7x7 stage's 3x3 (784 rows,
+    7 row tiles x 8 column tiles) in 8 splits, the fc (16 rows, 16 column
+    tiles) in 4; conv1's K = 147 (5 steps) is not split."""
+    splits = {(k, n): am.simt_plan(rows, k, n)["splits"] for rows, k, n in CONV_SITES}
+    assert splits[(4608, 512)] == 8 and splits[(2048, 1000)] == 4
+    assert splits[(147, 64)] == 1
+
+
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("k,n", PLAN_SITES, ids=lambda v: str(v))
 def test_shard_plan_splits_k_as_the_whole(k, n, tp):
@@ -209,6 +256,9 @@ def test_shard_plan_splits_k_as_the_whole(k, n, tp):
     for rows in (64, 256):
         whole, shard = am.tc_plan(rows, k, n), am.tc_plan(rows, k, n // tp, plan_n=n)
         assert _tc_ranges(shard, k) == _tc_ranges(whole, k)
+    for rows in (9, 784, 200704):
+        whole, shard = am.simt_plan(rows, k, n), am.simt_plan(rows, k, n // tp, plan_n=n)
+        assert _simt_ranges(shard, k) == _simt_ranges(whole, k)
 
 
 def test_decode_plan_fills_the_card_at_granite_sites():
@@ -425,6 +475,133 @@ def test_weight_split_keeps_the_function(shape, n_repeats, per_request_cs):
         for ref in (want, plain[i]):
             atol = 3e-5 * (float(np.abs(ref).max()) + 1e-6)
             np.testing.assert_allclose(got[i], ref, atol=atol, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the simt route's tensor-core form, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _parts(v):
+    """hi = bf16(v) and lo = bf16(v - hi), round to nearest even, as the
+    kernel's conversion; bf16 x bf16 products are exact in f32."""
+    hi = v.to(BF16).float()
+    return hi, (v - hi).to(BF16).float()
+
+
+def _simt_split_product(o, n_repeats, plan_n=None):
+    """What the simt kernel computes, in plain PyTorch: x and w after their
+    quantizers and the weight noise (f32, as the reference forms them), each
+    split into hi and lo bf16 parts; in each split of K (``simt_plan``) the
+    16-deep steps in K order, each adding hi*hi, then hi*lo, then lo*hi to one
+    f32 accumulator; the splits added in rank order; then the plain
+    version's epilogue (its noise term alone, from x = 0, and the output
+    quantizer). Elementwise in the rows: a row's sum never depends on the
+    other rows."""
+    x, w = o["x"].float(), o["w"].float()
+    b, m, k = x.shape
+    n = w.shape[1]
+    sc = o["scalars"].reshape(-1)
+    if o["quant_x"]:
+        x = _fake_quant(x, sc[0], sc[1], sc[2])
+    if o["quant_w"]:
+        w = _fake_quant(w, o["wq"][0:1], o["wq"][1:2], o["wq"][2:3])
+    weight = o["noise_kind"] == "weight"
+    if weight:
+        k0, k1, _, col0 = seed_words(o["seed"])
+        xi = prng.repeat_averaged_gaussian_tile(
+            k0 ^ prng.WEIGHT_STREAM_SALT, k1, 0, col0, (k, n), n_repeats)
+        w = w + o["col_scale"].float() * xi  # (B, K, N)
+    (xh, xl), (wh, wl) = _parts(x), _parts(w)
+    plan = am.simt_plan(m if weight else b * m, k, n, plan_n)
+    y = None
+    for begin, end in _simt_ranges(plan, k):
+        acc = torch.zeros((b, m, n))
+        for k16 in range(begin, end, 16):
+            s = slice(k16, min(k16 + 16, end))
+            acc = acc + torch.matmul(xh[..., s], wh[..., s, :])
+            acc = acc + torch.matmul(xh[..., s], wl[..., s, :])
+            acc = acc + torch.matmul(xl[..., s], wh[..., s, :])
+        y = acc if y is None else y + acc
+    if o["noise_kind"] == "output":
+        y = y + analog_matmul_ref_raw(torch.zeros_like(o["x"]), o["w"], o["row_scale"],
+                                      o["col_scale"], o["wq"], o["scalars"], o["seed"],
+                                      n_repeats=n_repeats)
+    if o["quant_out"]:
+        y = _fake_quant(y, sc[3], sc[4], sc[5])
+    return y, plan["splits"]
+
+
+#: (name, (B, M, K, N), operand type, config) of calls the simt route takes:
+#: ResNet-50's conv1 (K = 147) and a 3x3 site (K = 1152: 2 splits) in f32
+#: under shot noise, the odd widths of the card's simt case under weight
+#: noise, bf16 with the input quantizers above ``M_DECODE`` rows, weight
+#: noise with them
+SIMT_MODEL_CASES = [
+    ("conv1", (1, 96, 147, 64), F32, "shot"),
+    ("3x3 K=1152", (1, 24, 1152, 128), F32, "shot"),
+    ("odd widths", (2, 9, 36, 20), BF16, "weight"),
+    ("bf16 quant_x", (2, 9, 64, 40), BF16, "quant"),
+    ("weight+quant_x", (2, 9, 64, 40), BF16, "weight+quant"),
+]
+
+
+@pytest.mark.parametrize("requant", [False, True], ids=["float", "requant"])
+@pytest.mark.parametrize("n_repeats", [1, 4])
+@pytest.mark.parametrize("name,shape,dtype,kind", SIMT_MODEL_CASES,
+                         ids=[c[0] for c in SIMT_MODEL_CASES])
+def test_simt_split_parts_keep_the_function(name, shape, dtype, kind, n_repeats, requant):
+    """Split bf16 parts keep each operand to about 2^-17 of itself and drop
+    only lo*lo: summed in the kernel's order, the product stays within the
+    reference's rule (``3e-5 * max|y|``, ``rtol = 1e-4``, one output bin
+    under requant) of the plain version and of the JAX reference's raw
+    function, request by request; the last request alone is its rows of
+    the batch, bit for bit."""
+    b, m, k, n = shape
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((b, m, k)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * k**-0.5).astype(np.float32)).to(dtype)
+    cfg = {"shot": AnalogConfig(mode="analog", noise=NoiseSpec(kind=SHOT)),
+           "quant": AnalogConfig.thermal(0.01), "weight": AnalogConfig.weight(0.1),
+           "weight+quant": AnalogConfig.weight(0.1)}[kind]
+    xf, wf = x.float(), w.float()
+    oqp = tcalibrate_minmax(torch.matmul(xf, wf)) if requant else None
+    sq = SiteQuant(oqp=oqp) if requant else None
+    if kind.endswith("quant"):
+        sq = SiteQuant(wqp=tcalibrate_minmax(wf, channel_axis=1), xqp=tcalibrate_minmax(xf),
+                       oqp=oqp)
+    keys = [jax.random.fold_in(jax.random.PRNGKey(8), u) for u in range(b)]
+    seed = key_seed(np.asarray(jnp.stack(keys)), "cpu")
+    o = ops.prepare_operands(x, w, energy=torch.tensor(5.0 if "weight" in kind else 20.0),
+                             seed=seed, cfg=cfg, sq=sq)
+    assert am.select_route(b, m, k, n, dtype, o["noise_kind"], o["quant_x"], o["quant_w"],
+                           o["quant_out"]) == "simt"
+    assert o["quant_out"] == requant and o["quant_x"] == kind.endswith("quant")
+    got, splits = _simt_split_product(o, n_repeats)
+    assert splits == (2 if k == 1152 else 1)
+    kw = dict(noise_kind=o["noise_kind"], quant_x=o["quant_x"], quant_w=o["quant_w"],
+              quant_out=o["quant_out"], n_repeats=n_repeats)
+    args = [o[t] for t in ("x", "w", "row_scale", "col_scale", "wq", "scalars", "seed")]
+    plain = analog_matmul_ref_raw(*args, **kw).numpy()
+    seeds = o["seed"].numpy().view(np.uint32)
+    bins = 0.0
+    if requant:
+        bins = float(o["scalars"].reshape(-1)[3]) * 1.01
+    for i in range(b):
+        want = np.asarray(jref_raw(
+            jnp.asarray(xf[i].numpy()), jnp.asarray(wf.numpy()),
+            jnp.asarray(o["row_scale"][i].numpy()),
+            jnp.asarray(o["col_scale"][i % o["col_scale"].shape[0]].numpy()),
+            jnp.asarray(o["wq"].numpy()), jnp.asarray(o["scalars"].numpy()),
+            jnp.asarray(seeds[i:i + 1]), **kw))
+        for ref in (want, plain[i]):
+            atol = max(3e-5 * (float(np.abs(ref).max()) + 1e-6), bins)
+            np.testing.assert_allclose(got[i].numpy(), ref, atol=atol, rtol=1e-4)
+    i = b - 1  # the last request alone: its rows of the batch
+    solo = {t: o[t][i:i + 1] for t in ("x", "row_scale", "seed")}
+    solo["col_scale"] = o["col_scale"][i % o["col_scale"].shape[0]][None]
+    alone, _ = _simt_split_product(dict(o, **solo), n_repeats)
+    assert torch.equal(alone[0], got[i])
 
 
 # ---------------------------------------------------------------------------

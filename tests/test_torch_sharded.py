@@ -33,7 +33,6 @@ CPU GEMM's threading.
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -439,12 +438,13 @@ def test_mesh_shapes():
 # ---------------------------------------------------------------------------
 
 
-def _dist_worker(rank: int, world: int, port: int, out: str) -> None:
-    """One rank of the distributed mesh: serve the trace, write the tokens."""
+def _dist_worker(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of the distributed mesh: serve the trace, write the tokens.
+    The ranks meet at the file ``store`` (a ``file://`` rendezvous: no port
+    is chosen ahead of its bind, so no other process can take it)."""
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
     try:
         mesh = make_mesh_for_devices(world, group=dist.group.WORLD)
         assert list(mesh.shards()) == [rank]
@@ -455,19 +455,13 @@ def _dist_worker(rank: int, world: int, port: int, out: str) -> None:
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_distributed_mesh_tokens_equal_oracle(tmp_path):
-    world, port = 2, _free_port()
+    world, store = 2, str(tmp_path / "rendezvous")
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import test_torch_sharded as t; "
-            "t._dist_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])")
+            "t._dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])")
     outs = [str(tmp_path / f"rank{r}.json") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-c", code, here, str(r), str(world), str(port),
+    procs = [subprocess.Popen([sys.executable, "-c", code, here, str(r), str(world), store,
                                outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(world)]
     logs = []
