@@ -84,7 +84,7 @@ configuration's weights at a time: granite-20b (GELU with biases, MQA;
 ``serve_granite20``) and qwen2.5-14b (QKV bias; ``serve_qwen14``) through
 the same serve, solo and whole-path checks, launches by route and by site
 shape asserted; granite-20b's 12,000-token prompt in a 16,384 bucket
-through chunked prefill attention at 13 of its 52 layers, with its peak
+through chunked prefill attention at 4 of its 52 layers, with its peak
 memory (``granite20_long``);
 qwen2.5-32b at the deepest depth its weights fit beside the reckoned
 transients (``qwen32_fit``: a prefill and four decode steps); bert-base's
@@ -125,7 +125,7 @@ Eq.-14 calibration at LM scale on the same weights and depth on the
 "torch" backend (``calibrate_lm``, no kernel launched); the other three
 families the same way, each followed by its calibration on its weights
 (``train_griffin``: recurrentgemma-2b at full width and depth, 4 x 2,048;
-``train_xlstm``: xlstm-1.3b at full width and depth, 2 x 64;
+``train_xlstm``: xlstm-1.3b at full width, 24 of its 48 layers, 2 x 64;
 ``train_moe``: grok-1 at full width and the one layer whose state fits,
 2 x 1,024), with the kernels each step runs; and demo-100m
 through the fault-tolerant driver with two simulated failures, bit-equal
@@ -138,7 +138,14 @@ controls, each shape's ms against its bound and the largest batch it
 takes. Data-parallel training (``train_dp``): granite-3-8b at full width
 on 2 data shards with ZeRO-1 moments, 3 steps as one device at 2
 microbatches, as the local mesh and as 2 processes on the card over
-gloo, bit-equal, with the collectives' ms and bytes. Every phase that
+gloo, bit-equal, with the collectives' ms and bytes; in the same ranks,
+after their train steps, the LM calibration on 2 data shards
+(``calibrate_dp``: shot noise on the "torch" backend, 2 steps of 4 x 512,
+one device, the local mesh and the ranks; local == ranks bit for bit).
+The dry run's reckoning (``dryrun``): the train programs this run
+measured, reckoned on the meta device, each reckoned peak beside the
+measured one, and a small real step's FLOPs on the card against the
+meta reckoning of the same step. Every phase that
 fails raises; each prints its seconds. The last line is ``{"ok":
 true, "device": {...}}``; without a CUDA device it exits non-zero and
 prints no result.
@@ -159,10 +166,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+from repro_torch.launch.roofline import H100  # noqa: E402
+
 #: published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM
-#: bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
-HBM_BYTES_S = 3.35e12
-BF16_FLOPS_S = 989e12
+#: bytes/s and bf16 tensor-core FLOP/s (``launch/roofline.py``'s ``H100``),
+#: f32 FLOP/s outside the tensor cores.
+HBM_BYTES_S = H100["hbm_bw"]
+BF16_FLOPS_S = H100["peak_flops"]
 F32_FLOPS_S = 67e12
 #: lanes of an H100 SM a clock (Hopper white paper; spec, not measured) on
 #: 132 SMs at the 1.98 GHz boost clock: 64 INT32, 128 FP32 (64 of which also
@@ -228,10 +238,11 @@ LONG_PROMPT, LONG_BUCKET, LONG_GEN = 3000, 4096, 8
 #: granite-20b's long prompt: 12,000 tokens in a 16,384 bucket, 4 new tokens
 #: (global attention: one (B, H, T, T) f32 score tensor would be 51.5 GB)
 DENSE_LONG_PROMPT, DENSE_LONG_BUCKET, DENSE_LONG_GEN = 12000, 16384, 4
-#: ... at 13 of granite-20b's 52 layers (the first 13 of its own weights'
+#: ... at 4 of granite-20b's 52 layers (the first 4 of its own weights'
 #: depth; cut to keep the whole run inside its time: each of the phase's
-#: nine 12,000-token prefills costs ~0.24 s a layer)
-DENSE_LONG_LAYERS = 13
+#: nine 12,000-token prefills costs ~0.24 s a layer; 13 layers until the
+#: calibrate_dp and dryrun phases came)
+DENSE_LONG_LAYERS = 4
 #: qwen2.5-32b's fit: decode steps after the 4 x 64 prefill, and what the
 #: reckoning holds back besides the weights: init_params' f32 scratch for the
 #: largest leaf drawn whole (the 5120 x 152,064 lm_head, 3.1 GB) and 4 GB for
@@ -283,7 +294,7 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
           "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver", "conv",
-          "train_dp")
+          "train_dp", "dryrun")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -3867,8 +3878,27 @@ TRAIN_DP_RESERVE_BYTES = 7 * 2**30
 #: H100 80GB, whose three forms were bit-equal there too) for the whole
 #: run's time: on one card the ranks' collectives go through gloo on the
 #: host at 0.4-0.65 GB/s, and a step at 19 layers moved 12.6 GB a rank
-#: (35 s), at 8 layers 6.0 GB (13 s)
+#: (35 s), at 8 layers 6.0 GB (13 s), at 4 3.6 GB (10 s)
 TRAIN_DP_LAYERS = 4
+#: the LM calibration on the data mesh (``calibrate_dp``, run by the
+#: train_dp ranks after their train steps, at their depth): rows,
+#: positions, steps; shot noise on the "torch" backend from
+#: ``CAL_LM_INIT_MULT`` x ``CAL_LM_TARGET``. The one-device form holds the
+#: same noise (each shard draws the whole call and takes its rows) and sums
+#: in another order: its loss and NLL within ``CAL_DP_REL`` relative and
+#: its log energies within ``CAL_DP_LOG_E`` (4e-3 ``CAL_LM_LR``), both set
+#: from the card's readings (PERF.md); ``scripts/calibrate_dp_control.py``
+#: plants a shard that takes the wrong rows of the noise and shows where it
+#: lands against them
+CAL_DP_B, CAL_DP_T, CAL_DP_STEPS = 4, 512, 2
+CAL_DP_REL, CAL_DP_LOG_E = 1e-4, 2e-4
+#: the train phases' programs (phase -> (config, rows, positions, the
+#: measured peak bytes)), for the dry run's reckoning
+TRAIN_PEAKS: dict = {}
+#: the reckoned peak against the measured one, relative; the small real
+#: step of the FLOP check (layers, rows, positions)
+DRYRUN_PEAK_REL = 0.15
+DRYRUN_STEP = (2, 2, 512)
 
 
 def train_dp_depth(CONFIG) -> int:
@@ -3969,6 +3999,49 @@ def _dp_run(cfg, mesh, microbatches, profile=False) -> dict:
     return out
 
 
+def _cal_dp_run(cfg, mesh, seed=0) -> dict:
+    """``CAL_DP_STEPS`` LM calibration steps (``make_calibrate_step`` on
+    ``mesh``: a data mesh or one device) on bf16 weights from seed 0, shot
+    noise on the "torch" backend, batches and noise keys from ``seed``:
+    each step's loss, NLL and ms, the log energies (their values and
+    fingerprint) and E a MAC after the steps."""
+    import torch
+
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.energy import avg_energy_per_mac, to_energy, uniform_log_energies
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.kernels import prng
+    from repro_torch.launch.steps import make_calibrate_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.tree import leaves, map_leaves
+
+    _free()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    step = make_calibrate_step(cfg, mesh, analog_cfg=AnalogConfig.shot(backend="torch"),
+                               seq_len=CAL_DP_T, target_e_per_mac=CAL_LM_TARGET, lam=CAL_LM_LAM,
+                               lr=CAL_LM_LR)
+    log_e = map_leaves(lambda _p, t: t.cuda(),
+                       uniform_log_energies(step.macs, CAL_LM_INIT_MULT * CAL_LM_TARGET))
+    opt = adam_init(log_e, AdamConfig(lr=CAL_LM_LR))
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=CAL_DP_T, global_batch=CAL_DP_B,
+                           seed=7 + seed)
+    out = dict(losses=[], nlls=[], step_ms=[])
+    for i in range(CAL_DP_STEPS):
+        (log_e, opt, m), ms = _wall_ms(lambda i=i: step(log_e, opt, params, markov_batch(data, i),
+                                                        prng.fold_in(prng.PRNGKey(seed), i)))
+        out["losses"].append(float(m["loss"]))
+        out["nlls"].append(float(m["nll"]))
+        out["step_ms"].append(ms)
+    with torch.no_grad():
+        out["e_per_mac"] = float(avg_energy_per_mac(to_energy(log_e), step.macs))
+    out["log_e"] = [t.float().cpu().reshape(-1).tolist() for t in leaves(log_e)]
+    out["prints"] = _fingerprint(log_e)
+    params = None
+    _free()
+    return out
+
+
 def _train_dp_worker(rank, port, out_dir, n_layers):
     """One rank of the distributed form: a gloo group of ``TRAIN_DP`` ranks
     on the one card (NCCL refuses two ranks on one device), CUDA tensors
@@ -4018,6 +4091,9 @@ def _train_dp_worker(rank, port, out_dir, n_layers):
         res = _dp_run(cfg, mesh, 1, profile=True)
         res.update({k: v / TRAIN_DP_STEPS for k, v in spent.items()}, gloo_gb_s=gloo_gb_s,
                    rank=rank, cut=sum(r is not None for r in leaves(zero1_regions(cfg, mesh, rank))))
+        spent.update({k: 0 for k in spent})
+        res["calibrate"] = _cal_dp_run(cfg, mesh)
+        res["calibrate"].update({k: v / CAL_DP_STEPS for k, v in spent.items()})
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -4050,6 +4126,8 @@ def phase_train_dp():
     cfg = _dp_cfg(depth)
     one = _dp_run(cfg, None, TRAIN_DP)
     local = _dp_run(cfg, make_mesh_for_devices(1, data=TRAIN_DP), 1)
+    cal_one = _cal_dp_run(cfg, None)
+    cal_local = _cal_dp_run(cfg, make_mesh_for_devices(1, data=TRAIN_DP))
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         with socket.socket() as s:
@@ -4098,6 +4176,43 @@ def phase_train_dp():
     if sum(r["peak_gib"] for r in ranks) * 2**30 > TRAIN_PEAK_SHARE * total:
         raise AssertionError(f"train_dp: the ranks' peaks {[r['peak_gib'] for r in ranks]} GiB "
                              f"over {TRAIN_PEAK_SHARE} of the card")
+    _check_calibrate_dp(cfg, cal_one, cal_local, [r["calibrate"] for r in ranks])
+
+
+def cal_dp_diffs(a, b) -> tuple:
+    """Two ``_cal_dp_run``s' largest relative difference of loss and NLL
+    (over ``b``'s) and largest absolute difference of a log energy."""
+    rel = max(abs(x - y) / abs(y) for k in ("losses", "nlls") for x, y in zip(a[k], b[k]))
+    log_e = max(abs(x - y) for u, v in zip(a["log_e"], b["log_e"]) for x, y in zip(u, v))
+    return rel, log_e
+
+
+def _check_calibrate_dp(cfg, one, local, ranks):
+    """``calibrate_dp``'s line and checks: the local form and every rank
+    equal bit for bit (losses, NLLs, log energies); the one-device form
+    within ``CAL_DP_REL`` (loss, NLL) and ``CAL_DP_LOG_E`` (log
+    energies)."""
+    keys = ("losses", "nlls", "prints")
+    forms = {"one_device": one, "local": local, **{f"rank{r}": c for r, c in enumerate(ranks)}}
+    equal = {name: all(f[k] == local[k] for k in keys) for name, f in forms.items()}
+    rel, log_e_diff = cal_dp_diffs(local, one)
+    log("calibrate_dp", config=cfg.name, layers=cfg.n_layers, data_shards=TRAIN_DP,
+        batch=[CAL_DP_B, CAL_DP_T], steps=CAL_DP_STEPS, noise="shot", backend="torch",
+        losses={n: f["losses"] for n, f in forms.items()},
+        nlls={n: f["nlls"] for n, f in forms.items()},
+        ms_a_step={n: statistics.median(f["step_ms"]) for n, f in forms.items()},
+        step_ms={n: f["step_ms"] for n, f in forms.items()},
+        collective_bytes_a_step={n: f.get("reduce_bytes", 0) for n, f in forms.items()},
+        collective_ms_a_step={n: f.get("reduce_s", 0.0) * 1e3 for n, f in forms.items()},
+        e_per_mac_after={n: f["e_per_mac"] for n, f in forms.items()},
+        equal_to_local=equal, one_device_rel=rel, one_device_log_e_abs=log_e_diff,
+        bounds=dict(rel=CAL_DP_REL, log_e_abs=CAL_DP_LOG_E), card=card())
+    if not all(v for n, v in equal.items() if n != "one_device"):
+        raise AssertionError(f"calibrate_dp: the ranks differ from the local form: {equal}")
+    if not (all(map(math.isfinite, local["losses"] + local["nlls"])) and rel <= CAL_DP_REL
+            and log_e_diff <= CAL_DP_LOG_E):
+        raise AssertionError(f"calibrate_dp: one device {rel} relative, log energies "
+                             f"{log_e_diff}, losses {local['losses']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4290,6 +4405,7 @@ def _train_run(phase, CONFIG, cfg, batches, **extra):
         if i == 1:  # the state the repeat below must reproduce
             after_two = [p.to("cpu", copy=True) for p in leaves(state[0])]
     peak = torch.cuda.max_memory_allocated()
+    TRAIN_PEAKS[phase] = (cfg, rows, positions, peak)
     _, prof = _profile(lambda: step(state[0], state[1], batches[n_steps]))
     step_ms = statistics.median(ms[1:])
     tokens = rows * positions
@@ -4499,6 +4615,104 @@ def phase_calibrate_lm(cfg, params=None, name="calibrate_lm", steps=CAL_LM_STEPS
         raise AssertionError(f"{name}: nll {nll}, loss {loss}")
     if any(launched.values()):
         raise AssertionError(f"{name} launched kernel routes {launched}")
+
+
+# ---------------------------------------------------------------------------
+# the dry run's reckoning against the card
+# ---------------------------------------------------------------------------
+
+
+def _meta_train(cfg, rows, positions):
+    """(fn, hold) of one train step of ``cfg`` (``TrainConfig()``: bf16
+    moments, remat) at ``rows`` x ``positions`` on the meta device: the
+    weights, the moments and the batch held, as the train phases hold
+    them."""
+    import torch
+
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.launch.trace_analysis import meta_params
+
+    tcfg = TrainConfig()
+    params = meta_params(cfg)
+    opt = make_opt_init(cfg, None, tcfg)(params)
+    batch = {k: torch.empty((rows, positions), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, None, tcfg)
+    return (lambda: step(params, opt, batch)), (params, opt, batch)
+
+
+def phase_dryrun():
+    """The dry run's reckoning (``launch/trace_analysis.py``) against the
+    card: each train program this run measured (``TRAIN_PEAKS``: train,
+    train_griffin, train_moe) reckoned on the meta device at its depth,
+    rows and positions, with the state the phase holds (bf16 weights,
+    gradient buffers, bf16 moments), its reckoned peak within
+    ``DRYRUN_PEAK_REL`` of the measured ``max_memory_allocated``; then
+    one small real step (granite-3-8b at ``DRYRUN_STEP``) on the card
+    under the same counters (``FlopCounterMode`` among them), its FLOPs
+    equal to the meta reckoning of the same step. These programs launch
+    no analog kernel and draw no generator noise: no stand-in enters
+    them."""
+    import torch
+
+    from repro_torch.configs import reduced_depth
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
+    from repro_torch.launch.steps import TrainConfig, batch_tensors, make_opt_init, make_train_step
+    from repro_torch.launch.trace_analysis import reckon
+    from repro_torch.models import lm
+
+    missing = [p for p in ("train", "train_griffin", "train_moe") if p not in TRAIN_PEAKS]
+    if missing:
+        raise AssertionError(f"dryrun: no measured peak of {missing}: run those phases "
+                             "before it (--only train,train_griffin,train_moe,dryrun)")
+    rows_out, bad = [], []
+    for phase in ("train", "train_griffin", "train_moe"):
+        cfg, rows, positions, measured = TRAIN_PEAKS[phase]
+        fn, hold = _meta_train(cfg, rows, positions)
+        t0 = time.perf_counter()
+        _, st = reckon(fn, hold=hold)
+        row = dict(program=phase, config=cfg.name, layers=cfg.n_layers, batch=[rows, positions],
+                   reckoned_peak_gib=st.peak_bytes / 2**30, measured_peak_gib=measured / 2**30,
+                   rel=(st.peak_bytes - measured) / measured, state_gib=st.base_bytes / 2**30,
+                   dot_flops=st.dot_flops, reckon_s=time.perf_counter() - t0)
+        rows_out.append(row)
+        if abs(row["rel"]) > DRYRUN_PEAK_REL:
+            bad.append(phase)
+    layers, rows, positions = DRYRUN_STEP
+    cfg = reduced_depth(CONFIG, n_layers=layers, name=CONFIG.name)
+    fn, hold = _meta_train(cfg, rows, positions)
+    _, meta = reckon(fn, hold=hold)
+    _free()
+    tcfg = TrainConfig()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    opt = make_opt_init(cfg, None, tcfg)(params)
+    step = make_train_step(cfg, None, tcfg)
+    batch = batch_tensors(markov_batch(TokenTaskConfig(vocab_size=cfg.vocab_size,
+                                                       seq_len=positions, global_batch=rows,
+                                                       seed=7), 0), "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, real = reckon(lambda: step(params, opt, batch), device="cuda", hold=(params, opt, batch))
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    params = opt = batch = None
+    _free()
+    log("dryrun", programs=rows_out, bound=DRYRUN_PEAK_REL,
+        small_step=dict(config=cfg.name, layers=layers, batch=[rows, positions],
+                        meta_matmul_flops=meta.matmul_flops, card_matmul_flops=real.matmul_flops,
+                        meta_dot_flops=meta.dot_flops, card_dot_flops=real.dot_flops,
+                        meta_peak_gib=meta.peak_bytes / 2**30,
+                        card_tracked_peak_gib=real.peak_bytes / 2**30,
+                        card_allocated_before_gib=base / 2**30,
+                        card_max_allocated_gib=real_peak / 2**30),
+        card=card())
+    if bad:
+        raise AssertionError(f"dryrun: reckoned peaks off by more than {DRYRUN_PEAK_REL}: {bad}")
+    if meta.matmul_flops != real.matmul_flops or meta.dot_flops != real.dot_flops:
+        raise AssertionError(f"dryrun: FLOPs on meta {meta.dot_flops} != on the card "
+                             f"{real.dot_flops}")
 
 
 # ---------------------------------------------------------------------------
@@ -4929,8 +5143,9 @@ def main() -> int:
                          "graphs_granite20 on those models' weights; tp and int8 run on granite-3-8b's "
                          "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
                          "and grok-1's; calibrate_lm on train's config; train_griffin, "
-                         "train_xlstm and train_moe each calibrate on their weights; conv and "
-                         "train_dp stand alone); default all")
+                         "train_xlstm and train_moe each calibrate on their weights; train_dp "
+                         "runs calibrate_dp in its ranks; dryrun reckons the train phases run "
+                         "before it; conv stands alone); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -5161,6 +5376,9 @@ def main() -> int:
     if "train_dp" in run:
         _free()
         timed("train_dp", phase_train_dp)
+    if "dryrun" in run:
+        _free()
+        timed("dryrun", phase_dryrun)
     log("done", seconds=round(time.perf_counter() - t0, 1), card=card())
     if only != list(PHASES):
         print(json.dumps({"ok": True, "partial": only}))

@@ -4,6 +4,8 @@
 ``get_config(name)`` / ``get_smoke_config(name)`` over ``ARCHS`` (the
 configurations the port runs) and ``EXTRA_ARCHS`` (bert-base, the paper's
 own model); ``reduced_depth`` cuts a configuration's depth (and width).
+``SHAPES``, ``ShapeSpec``, ``shape_applicable`` and ``input_specs``: the
+reference's shape set (``shapes.py``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, input_specs, shape_applicable
 from repro_torch.models.config import ModelConfig
 
 #: architecture id -> module; the reference's ids, in its order
@@ -82,5 +85,5 @@ def reduced_depth(cfg: ModelConfig, *, n_layers: int, width_divisor: int = 1,
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCHS", "EXTRA_ARCHS", "get_config", "get_smoke_config", "list_archs",
-           "reduced_depth"]
+__all__ = ["ARCHS", "EXTRA_ARCHS", "SHAPES", "ShapeSpec", "get_config", "get_smoke_config",
+           "input_specs", "list_archs", "reduced_depth", "shape_applicable"]

@@ -26,6 +26,20 @@ Under an ambient tensor-parallel mesh (``models/sharding.use_mesh``) the
 analog matmul runs column-parallel (``_maybe_sharded_analog_dot``): shard
 r draws its noise at the global column offset ``r N / tp``, so the
 gathered output is bit-identical to the unsharded call.
+
+Under an ambient data shard (``models/sharding.use_data_shard``: shard r
+of ``data``, each holding 1/data of every call's rows, batch-leading) a
+call draws the noise of its rows of the whole call, so the noise does not
+depend on the cut (the reference draws over the whole logical array,
+which ``jax_threefry_partitionable`` keeps under any sharding). ``"tile"``
+and ``"cuda"`` add r times the call's flattened rows to the seed's row0
+word (the data-axis twin of the tensor shards' col0); ``"torch"`` draws
+the whole call's noise and takes its rows (``noise.standard_normal``).
+Thermal noise's input range is the whole call's: the distributed form
+reduces each shard's max and min at the site (``launch/collectives.py``);
+the local form, whose shards run one after another, refuses it
+(``ThermalRangeAcrossShards``). Stacked per-request seeds are refused on a
+data shard.
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ from repro_torch.kernels.dispatch import (
     CUDA,
     TILING_INVARIANT,
     TORCH,
+    active_data_shard,
     active_mesh,
     fused_dot,
     resolve_backend,
@@ -53,6 +68,12 @@ from repro_torch.quant.affine import QuantParams, fake_quant, ste_snap_levels
 
 PER_LAYER = "per_layer"
 PER_CHANNEL = "per_channel"
+
+
+class ThermalRangeAcrossShards(NotImplementedError):
+    """Thermal noise on the local form of a data mesh: its per-tensor input
+    range spans every shard's rows, which a shard run alone cannot see.
+    The distributed form reduces the range at each site."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,11 +253,15 @@ def _x_range(sq: Optional[SiteQuant], x: torch.Tensor) -> torch.Tensor:
     return (torch.amax(x) - torch.amin(x)).to(torch.float32)
 
 
-def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_repeats: int):
+def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_repeats: int,
+               x_range=None, rows=None):
     """One request on the ``"torch"`` backend (the reference's ``"jnp"``
     branch, ``repro/core/analog.py``): float32 operands, straight-through
     energy snapping and fake-quant, K repeats as one draw at K·E, and
-    weight, thermal or shot noise drawn from ``gen``."""
+    weight, thermal or shot noise drawn from ``gen``. ``x_range``: thermal
+    noise's input range when it spans more rows than ``x`` (a data
+    shard's); ``rows`` (r, data): a data shard's rows of the whole call's
+    output noise (``noise.standard_normal``)."""
     k_dim = w.shape[0]
     x = x.to(torch.float32)
     w = w.to(torch.float32)
@@ -259,16 +284,17 @@ def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_r
         y = torch.matmul(x_q, w_noisy)
     elif kind == noise_lib.THERMAL:
         y = torch.matmul(x_q, w_q)
-        std = noise_lib.thermal_noise_std(k_dim, _w_range(sq, w_q), _x_range(sq, x_q),
-                                          cfg.noise.sigma, energy)
-        y = y + noise_lib.sample_output_noise(gen, y.shape, std)
+        x_rng = _x_range(sq, x_q) if x_range is None or (sq is not None and sq.xqp is not None) \
+            else x_range
+        std = noise_lib.thermal_noise_std(k_dim, _w_range(sq, w_q), x_rng, cfg.noise.sigma, energy)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows)
     elif kind == noise_lib.SHOT:
         y = torch.matmul(x_q, w_q)
         # eps-safe norms: a norm's gradient is NaN at exactly zero
         w_col = torch.sqrt(torch.sum(w_q * w_q, dim=0, keepdim=True) + 1e-20)
         x_row = torch.sqrt(torch.sum(x_q * x_q, dim=-1, keepdim=True) + 1e-20)
         std = noise_lib.shot_noise_std(w_col, x_row, k_dim, energy, cfg.noise.photon_energy_aj)
-        y = y + noise_lib.sample_output_noise(gen, y.shape, std)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows)
     else:
         y = torch.matmul(x_q, w_q)
 
@@ -278,7 +304,8 @@ def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_r
 
 
 def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, seed,
-                              sq: Optional[SiteQuant], n_repeats: int) -> Optional[torch.Tensor]:
+                              sq: Optional[SiteQuant], n_repeats: int,
+                              x_range=None) -> Optional[torch.Tensor]:
     """Column-parallel analog matmul under the ambient mesh, or None to
     fall back to the unsharded call.
 
@@ -298,7 +325,9 @@ def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, 
     (``"torch"``); the fallback is the unsharded computation itself. On the
     card it also falls back where a shard would take another route than
     the whole call (``shard_keeps_route``: grok-1's 8-column router at tp
-    = 2 and 4), so the shards' sums run in the whole call's order.
+    = 2 and 4), so the shards' sums run in the whole call's order. The distributed form's
+    gather goes through ``launch/collectives.py`` (a dry mesh's records
+    it).
     """
     mesh = active_mesh()
     if mesh is None or mesh.tp <= 1:
@@ -322,14 +351,49 @@ def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, 
     else:
         raw, kw = analog_matmul_ref_raw, {}
     outs = ops.analog_matmul_shards(raw, x, w, energy=energy, seed=seed, cfg=cfg,
-                                    n_repeats=n_repeats, tp=tp, shards=mesh.shards(), **kw)
+                                    n_repeats=n_repeats, tp=tp, shards=mesh.shards(),
+                                    x_range=x_range, **kw)
     if mesh.distributed:
-        import torch.distributed as dist
+        from repro_torch.launch import collectives
 
-        mine = outs[0].contiguous()
-        outs = [torch.empty_like(mine) for _ in range(tp)]
-        dist.all_gather(outs, mine, group=mesh.group)
+        outs = collectives.all_gather(outs[0].contiguous(), mesh.tp_group)
     return torch.cat(outs, dim=-1)
+
+
+#: (device, row offset) -> the (4,) int64 row0 offset of a data shard's seed
+_ROW_OFFSETS: dict = {}
+
+
+def _row_offset_seed(seed: torch.Tensor, rows: int) -> torch.Tensor:
+    """A (4,) seed with its row0 word increased by ``rows`` as a uint32."""
+    key = (seed.device, rows)
+    off = _ROW_OFFSETS.get(key)
+    if off is None:
+        off = torch.zeros(4, dtype=torch.int64)
+        off[2] = rows
+        off = _ROW_OFFSETS[key] = off.to(seed.device)
+    # summed in int64 from the sign-extended words; the cast keeps the low
+    # 32 bits, so row0 wraps as the uint32 counter does
+    return (seed.to(torch.int64) + off).to(torch.int32)
+
+
+def _shard_x_range(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole call's input range ``max - min`` (float32) from a data
+    shard's rows: the shards' maxima and minima reduced over ``group``
+    (exact), subtracted in x's dtype as ``_x_range`` does. The gradient
+    reaches the shard that holds the global extremum, as the whole call's
+    does (ties across shards aside)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+
+    hi, lo = torch.amax(x), torch.amin(x)
+    ext = torch.stack([hi.detach(), -lo.detach()]).to(torch.float32)
+    ext = collectives.all_reduce(ext, dist.ReduceOp.MAX, group)
+    g_hi, g_lo = ext[0].to(x.dtype), (-ext[1]).to(x.dtype)
+    hi = torch.where(hi == g_hi, hi, g_hi)
+    lo = torch.where(lo == g_lo, lo, g_lo)
+    return (hi - lo).to(torch.float32)
 
 
 def analog_dot(
@@ -383,24 +447,43 @@ def analog_dot(
             'analog_dot on backend="cuda": x or the energy requires grad, and the kernel '
             'has no backward; take the gradient on backend="torch" or "tile", or run '
             "under torch.no_grad()")
+    x_range = rows = None
+    shard = active_data_shard()
+    if shard is not None and shard.data > 1:
+        if seed.dim() != 1:
+            raise NotImplementedError(
+                "a stacked per-request seed table on a data shard: its requests are cut "
+                "with the rows; pass one (4,) seed")
+        if cfg.noise.kind == noise_lib.THERMAL and (sq is None or sq.xqp is None):
+            if shard.group is None:
+                raise ThermalRangeAcrossShards(
+                    "thermal noise on the local form of a data mesh: the input range spans "
+                    "every shard's rows; run the shards as ranks (the distributed form)")
+            x_range = _shard_x_range(x, shard.group)
+        if backend == TORCH:
+            rows = (shard.r, shard.data)
+        else:
+            seed = _row_offset_seed(seed, shard.r * (x.numel() // x.shape[-1]))
     y = _maybe_sharded_analog_dot(x, w, backend=backend, cfg=cfg, energy=energy, seed=seed,
-                                  sq=sq, n_repeats=n_repeats)
+                                  sq=sq, n_repeats=n_repeats, x_range=x_range)
     if y is not None:
         return y
     if backend == CUDA:
-        return fused_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)
+        return fused_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats,
+                         x_range=x_range)
     if backend == TORCH:
         # the generators' seeds are host words: a CPU table costs no copy
         words = seed.detach().cpu().numpy()
         if words.ndim == 1:
             return _torch_dot(x, w, cfg=cfg, energy=energy, gen=_generator(words, x.device),
-                              sq=sq, n_repeats=n_repeats)
+                              sq=sq, n_repeats=n_repeats, x_range=x_range, rows=rows)
         return torch.stack([
             _torch_dot(x[b], w, cfg=cfg, energy=energy, gen=_generator(words[b], x.device),
                        sq=sq, n_repeats=n_repeats)
             for b in range(words.shape[0])
         ])
-    return tile_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats)
+    return tile_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats,
+                    x_range=x_range)
 
 
 def _same_pads(n: int, k: int, s: int) -> tuple:

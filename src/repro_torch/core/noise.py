@@ -13,6 +13,7 @@ Threefry gaussians (``kernels/prng.py``) instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -67,13 +68,30 @@ def shot_noise_std(
     return w_col_norms * x_row_norms / torch.sqrt(photons * float(np.float32(n_macs)))
 
 
-def sample_output_noise(gen: torch.Generator, shape, std, dtype=torch.float32) -> torch.Tensor:
+def standard_normal(gen: torch.Generator, shape, dtype=torch.float32, rows=None) -> torch.Tensor:
+    """N(0, 1) of ``shape`` drawn from ``gen`` on its device. ``rows`` (r,
+    data): data shard r's rows of the whole call's draw, whose flattened
+    rows (every dim but the last) are ``data`` times ``shape``'s; a
+    generator's stream cannot skip to a row, so the whole draw is made
+    (data x the draws) and the shard's rows taken: the bits of the same
+    rows of the one-device call."""
+    shape = tuple(shape)
+    if rows is None:
+        return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+    r, data = rows
+    m = math.prod(shape[:-1])
+    whole = torch.randn((data * m, shape[-1]), generator=gen, device=gen.device, dtype=dtype)
+    return whole[r * m:(r + 1) * m].reshape(shape)
+
+
+def sample_output_noise(gen: torch.Generator, shape, std, dtype=torch.float32,
+                        rows=None) -> torch.Tensor:
     """Reparameterized additive Gaussian output noise, ``std * N(0, 1)``,
     drawn from ``gen`` on its device; ``std`` broadcasts against ``shape``.
     The reparameterization (paper §V, [55]) makes the result differentiable
-    with respect to ``std`` and so to the energies."""
-    xi = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=dtype)
-    return xi * std
+    with respect to ``std`` and so to the energies. ``rows``: as
+    ``standard_normal``'s."""
+    return standard_normal(gen, shape, dtype, rows) * std
 
 
 def perturb_weights(gen: torch.Generator, w, w_range, sigma_w: float, energy) -> torch.Tensor:

@@ -50,7 +50,9 @@ weight's N every route splits K as the whole call does, so a shard at seed
 col0 = c0 gives exactly columns c0:c1 of the whole call.
 ``analog_matmul_raw`` keeps the reference's signature
 plus a leading request axis: for a CPU tensor it runs the plain version
-(``kernels/ref.py``); for a CUDA tensor it launches its route or raises.
+(``kernels/ref.py``); for a CUDA tensor it launches its route or raises;
+a meta tensor (the dry run's, which allocates nothing) is reckoned by
+``reckon_on_meta`` without a launch.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tally
 from repro_torch.kernels.ref import analog_matmul_ref_raw
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -399,6 +402,25 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
 
+def reckon_on_meta(route: str, x: torch.Tensor, w: torch.Tensor, plan_n=None) -> torch.Tensor:
+    """The dry run's stand-in for a call on meta tensors
+    (``launch/trace_analysis.py``): no kernel runs and ``LAUNCHES`` is not
+    touched. Returns the empty (B, M, N) float32 output, makes and drops
+    the route's workspace as the launch would (decode and weight: splits x
+    rows x N float32; tc and simt add their partials in shared memory), and
+    adds the call's 2·B·M·K·N FLOPs and one site to the open tally."""
+    b, m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((b, m, n), dtype=torch.float32, device=x.device)
+    if route in ("decode", "weight"):
+        plan = (decode_plan(k, n, b * m, plan_n) if route == "decode"
+                else weight_plan(k, n, m, plan_n))
+        torch.empty((plan["splits"], b * m, n), dtype=torch.float32, device=x.device)
+    tally.add("analog_flops", 2.0 * b * m * k * n)
+    tally.add("analog_sites", 1)
+    return out
+
+
 def analog_matmul_raw(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -455,6 +477,8 @@ def analog_matmul_raw(
         _require(route_takes(route, m, k, n, x.dtype, noise_kind, quant_x, quant_w),
                  f"route {route!r} does not compute {noise_kind} noise on {x.dtype} "
                  f"(K={k}, N={n}, quant_x={quant_x}, quant_w={quant_w})")
+    if x.device.type == "meta":  # the dry run's reckoning: nothing launches
+        return reckon_on_meta(route, x, w, plan_n)
     if x.device.type == "cpu":
         return analog_matmul_ref_raw(
             x, w, row_scale, col_scale, wq, scalars, seed, noise_kind=noise_kind,

@@ -49,6 +49,13 @@ def active_mesh():
     return sharding.get_mesh()
 
 
+def active_data_shard():
+    """The ambient data shard, or None (``models/sharding.use_data_shard``)."""
+    from repro_torch.models import sharding
+
+    return sharding.get_data_shard()
+
+
 def resolve_backend(cfg, x: torch.Tensor) -> str:
     """``"cuda"``, ``"tile"`` or ``"torch"`` (never ``"auto"``) for an
     analog matmul on x."""
@@ -58,19 +65,20 @@ def resolve_backend(cfg, x: torch.Tensor) -> str:
     return backend
 
 
-def fused_dot(x, w, *, cfg, energy, seed, sq=None, n_repeats: int = 1):
+def fused_dot(x, w, *, cfg, energy, seed, sq=None, n_repeats: int = 1, x_range=None):
     """The kernel path: quant -> matmul -> K-repeat noise -> requant."""
     from repro_torch.kernels import ops
 
     return ops.analog_matmul(
-        x, w, energy=energy, seed=seed, cfg=cfg, sq=sq, n_repeats=n_repeats, device=x.device
+        x, w, energy=energy, seed=seed, cfg=cfg, sq=sq, n_repeats=n_repeats, device=x.device,
+        x_range=x_range,
     )
 
 
-def tile_dot(x, w, *, cfg, energy, seed, sq=None, n_repeats: int = 1):
+def tile_dot(x, w, *, cfg, energy, seed, sq=None, n_repeats: int = 1, x_range=None):
     """The plain path with the kernel's math and noise draws."""
     from repro_torch.kernels import ops
 
     return ops.analog_matmul_reference(
-        x, w, energy=energy, seed=seed, cfg=cfg, sq=sq, n_repeats=n_repeats
+        x, w, energy=energy, seed=seed, cfg=cfg, sq=sq, n_repeats=n_repeats, x_range=x_range
     )

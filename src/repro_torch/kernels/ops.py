@@ -54,11 +54,15 @@ def _scalars(packed: tuple, dev) -> torch.Tensor:
     return t
 
 
-def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq=None) -> dict:
+def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq=None,
+                     x_range=None) -> dict:
     """Raw kernel operands for ``x3`` (B, M, K) @ ``w`` (K, N).
 
     ``seed`` is the (B, 4) int32 table of uint32 words (k0, k1, row0, col0),
-    one row per request.
+    one row per request. ``x_range``: thermal noise's input range of the
+    one request, taken over rows beyond ``x3`` (a data shard's call: the
+    whole call's range, ``core.analog.analog_dot``); None takes it from
+    ``x3`` (or the calibrated ``xqp``).
     """
     b, m, k = x3.shape
     n = w.shape[1]
@@ -72,6 +76,8 @@ def prepare_operands(x3: torch.Tensor, w: torch.Tensor, *, energy, seed, cfg, sq
     ones_row = torch.ones((b, m, 1), dtype=F32, device=dev)
     if kind == noise_lib.THERMAL:
         w_rng, x_rng = _ranges(sq, w, x3)
+        if x_range is not None:
+            x_rng = x_range.to(F32).reshape(1, 1, 1)
         col = noise_lib.thermal_noise_std(k, w_rng, x_rng, cfg.noise.sigma, e_col)
         row = ones_row
         noise_kind = "output"
@@ -166,7 +172,7 @@ def shard_seeds(seed: torch.Tensor, tp: int, n_local: int) -> torch.Tensor:
 
 
 def analog_matmul_shards(raw, x, w, *, energy, seed, cfg, n_repeats: int, tp: int,
-                         shards: Sequence[int], sq=None, **raw_kw):
+                         shards: Sequence[int], sq=None, x_range=None, **raw_kw):
     """Column shards of one analog matmul ``(..., K) @ (K, N)``: shard r is
     columns ``[r N / tp, (r + 1) N / tp)`` drawn at its global col0, a list
     of (..., N / tp) outputs for ``shards``. Site quantizers (``sq``) only
@@ -175,12 +181,13 @@ def analog_matmul_shards(raw, x, w, *, energy, seed, cfg, n_repeats: int, tp: in
     The operands are prepared once over the whole weight (one pass of the
     column norms or ranges, which each shard slices) and every shard reads
     its columns of the weight in place. ``raw`` is ``analog_matmul_raw``
-    (``raw_kw``: its ``plan_n``) or the plain version.
+    (``raw_kw``: its ``plan_n``) or the plain version. ``x_range``: as
+    ``prepare_operands``'.
     """
     if tp > 1 and sq is not None:
         raise ValueError("column shards take no site quantizers (the sharded path falls back)")
     lead, x3, seed = _requests(x, seed)
-    o = prepare_operands(x3, w, energy=energy, seed=seed, cfg=cfg, sq=sq)
+    o = prepare_operands(x3, w, energy=energy, seed=seed, cfg=cfg, sq=sq, x_range=x_range)
     nl = w.shape[1] // tp
     if tp == 1:
         seeds, wq = o["seed"][None], o["wq"]
@@ -198,26 +205,29 @@ def analog_matmul_shards(raw, x, w, *, energy, seed, cfg, n_repeats: int, tp: in
     return outs
 
 
-def _run(raw, x, w, energy, seed, cfg, sq, n_repeats) -> torch.Tensor:
+def _run(raw, x, w, energy, seed, cfg, sq, n_repeats, x_range=None) -> torch.Tensor:
     """The whole call: ``analog_matmul_shards``' one shard at tp = 1."""
     (y,) = analog_matmul_shards(raw, x, w, energy=energy, seed=seed, cfg=cfg, sq=sq,
-                                n_repeats=n_repeats, tp=1, shards=(0,))
+                                n_repeats=n_repeats, tp=1, shards=(0,), x_range=x_range)
     return y
 
 
 def analog_matmul(
-    x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1, device="cuda"
+    x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1, device="cuda", x_range=None
 ) -> torch.Tensor:
     """Fused analog matmul ``(..., K) @ (K, N)`` on ``device`` (the CUDA
     kernel there; the plain version on ``device="cpu"``).
 
     ``seed``: a (4,) int32 seed (one request: every row of x) or a (B, 4)
     table whose row b seeds ``x[b]`` (stacked per-request streams).
+    ``x_range``: as ``prepare_operands``'.
     """
     dev = resolve_device(device)
-    return _run(analog_matmul_raw, x.to(dev), w.to(dev), energy, seed.to(dev), cfg, sq, n_repeats)
+    return _run(analog_matmul_raw, x.to(dev), w.to(dev), energy, seed.to(dev), cfg, sq, n_repeats,
+                x_range)
 
 
-def analog_matmul_reference(x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1) -> torch.Tensor:
+def analog_matmul_reference(x, w, *, energy, seed, cfg, sq=None, n_repeats: int = 1,
+                            x_range=None) -> torch.Tensor:
     """The plain version with identical noise draws, on x's device."""
-    return _run(analog_matmul_ref_raw, x, w, energy, seed, cfg, sq, n_repeats)
+    return _run(analog_matmul_ref_raw, x, w, energy, seed, cfg, sq, n_repeats, x_range)

@@ -1,9 +1,12 @@
-"""Step functions of training and of the LM calibration; port of
+"""Step functions of training, serving and the LM calibration; port of
 ``repro/launch/steps.py`` (``TrainConfig``, ``make_train_step``,
-``make_opt_init``, ``make_calibrate_step``).
+``make_opt_init``, ``make_prefill_step``, ``make_decode_step``,
+``make_calibrate_step``).
 
-There is no jit: each ``make_*`` returns a plain callable. The serving
-steps are the engine's (``serving/tiers.py``).
+There is no jit: each ``make_*`` returns a plain callable. The engine
+serves through its own tiers (``serving/tiers.py``); ``make_prefill_step``
+and ``make_decode_step`` are the reference's step API, which the dry run
+(``launch/dryrun.py``) reckons.
 
 Every family trains and calibrates (dense, griffin, xlstm, moe). The
 train step updates the parameters and the optimizer state in place, as
@@ -26,8 +29,26 @@ AdamW. Each leaf's moments are cut among the shards along the dim its
 where it does not divide), each shard updates its region of the
 parameters, and the regions are gathered. At ``microbatches = 1`` a mesh
 of ``data`` shards equals the one-device step at ``microbatches = data``
-bit for bit, in either form of the mesh. Tensor-parallel training (``tp``
-> 1) and a sharded ``make_calibrate_step`` are not ported (ROADMAP A).
+bit for bit, in either form of the mesh. Tensor-parallel training (``tp`` > 1) is not
+ported (ROADMAP A).
+
+The LM calibration takes a mesh of data shards too, as the reference's
+step shards the batch over "data" and replicates the log energies and
+their Adam state: shard r's rows run under ``models.sharding
+.use_data_shard``, so every analog site draws the noise of its rows of
+the whole call (``core/analog.py``); the shards' NLLs and energy
+gradients are added in shard order in their dtype (over the ranks with
+``collectives.sum_in_rank_order_``) and divided by ``data``, the
+penalty and its gradient added once after, and Adam steps the replicated
+log energies with the same bits on every rank. Thermal noise needs the
+distributed form (its input range spans the shards); MoE needs whole
+expert groups in a shard (``MoEGroupsAcrossShards``).
+
+The serving steps cut the batch's rows by ``data`` the same way (a batch
+that ``data`` does not divide runs whole on every shard, as the
+reference's shape-aware placement replicates it) and run under the
+mesh's tensor shards (``use_mesh``: the analog sites' columns). In the
+distributed form a step returns its shard's rows.
 """
 from __future__ import annotations
 
@@ -41,7 +62,14 @@ from repro_torch.core.energy import log_energy_penalty, to_energy
 from repro_torch.launch import collectives
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import PROFILES, tree_shardings, zero1_axes
+from repro_torch.models.sharding import (
+    PROFILES,
+    DataShard,
+    tree_shardings,
+    use_data_shard,
+    use_mesh,
+    zero1_axes,
+)
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update, adam_update_
 from repro_torch.optim.clip import clip_scale, global_norm
 from repro_torch.optim.compress import ef_int8_roundtrip
@@ -79,11 +107,40 @@ def _data_shards(mesh, what: str) -> int:
     return mesh.data
 
 
-def _one_device(mesh, what: str) -> None:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.size} shards: the sharded LM calibration is not ported "
-            "(ROADMAP A); pass mesh=None")
+class MoEGroupsAcrossShards(NotImplementedError):
+    """A data shard of an MoE model whose tokens are not whole expert
+    groups: the reference's groups come from the flattened tokens of the
+    whole batch (``models/moe.py``), so a group would span shards, and
+    its routing and capacity would need an exchange the port does not
+    make."""
+
+
+def _shard_rows(cfg: ModelConfig, rows: int, tokens: int, dp: int, what: str) -> int:
+    """Rows a data shard takes of ``rows`` (``tokens`` a row); raises on a
+    cut that would split an MoE expert group."""
+    if rows % dp:
+        raise ValueError(f"{what}: a batch of {rows} rows in {dp} data shards")
+    per = rows // dp
+    if cfg.family == "moe" and dp > 1 and (per * tokens) % cfg.moe_group_size:
+        raise MoEGroupsAcrossShards(
+            f"{what}: a data shard of {per} x {tokens} tokens is not whole expert groups of "
+            f"{cfg.moe_group_size}; take rows x tokens a shard a multiple of moe_group_size")
+    return per
+
+
+def _shard(mesh, r: int, dp: int):
+    """Data shard r's ambient place (None for one shard)."""
+    if dp == 1:
+        return None
+    return DataShard(r, dp, mesh.data_group if mesh.distributed else None)
+
+
+def _tokens(batch: dict) -> int:
+    """Positions a row of a batch dict holds (the patch prefix counted)."""
+    if "labels" in batch:
+        return batch["labels"].shape[1]
+    t = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    return t + (batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0)
 
 
 def zero1_dims(cfg: ModelConfig, mesh) -> dict:
@@ -282,22 +339,162 @@ def make_calibrate_step(cfg: ModelConfig, mesh=None, *, analog_cfg: AnalogConfig
     ``target_e_per_mac`` over ``energy_macs(cfg, seq_len)``, and Adam at
     ``lr`` steps the log energies. ``metrics``: ``{"loss", "nll"}``. The
     gradient needs a backend with a backward (``"torch"`` or ``"tile"``);
-    the CUDA kernel has none."""
-    _one_device(mesh, "make_calibrate_step")
+    the CUDA kernel has none. ``mesh``: None or a mesh of data shards
+    (module docstring); ``key`` is one (2,) key."""
+    dp = _data_shards(mesh, "make_calibrate_step")
     macs = lm.energy_macs(cfg, seq_len)
     adam_cfg = AdamConfig(lr=lr)
+    group = mesh.data_group if mesh is not None and mesh.distributed and dp > 1 else None
+
+    def grads_of(log_e, fn):
+        """(fn(energies), the gradient tree of its value over ``log_e``)."""
+        le = map_leaves(lambda _p, t: t.detach().requires_grad_(), log_e)
+        value = fn(to_energy(le))
+        value.backward()
+        return value.detach(), map_leaves(
+            lambda _p, t: torch.zeros_like(t) if t.grad is None else t.grad, le)
 
     def step(log_e, opt_state, params, batch, key):
         batch = batch_tensors(batch, params["final_ln"].device)
-        le = map_leaves(lambda _p, t: t.detach().requires_grad_(), log_e)
-        e = to_energy(le)
-        nll = lm.train_loss(params, batch, cfg,
-                            analog=lm.AnalogSpec(cfg=analog_cfg, energies=e, key=key))
-        loss = nll + log_energy_penalty(e, macs, target_e_per_mac, lam)
-        loss.backward()
-        grads = map_leaves(lambda _p, t: torch.zeros_like(t) if t.grad is None else t.grad, le)
+        rows = next(iter(batch.values())).shape[0]
+        per = _shard_rows(cfg, rows, _tokens(batch), dp, "make_calibrate_step")
+        nll = grads = None
+        for r in range(1) if mesh is None else mesh.data_shards():
+            part = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+            with use_data_shard(_shard(mesh, r, dp)):
+                part_nll, part_grads = grads_of(log_e, lambda e, part=part: lm.train_loss(
+                    params, part, cfg, analog=lm.AnalogSpec(cfg=analog_cfg, energies=e, key=key)))
+            if nll is None:
+                nll, grads = part_nll, part_grads
+            else:  # in shard order, as the ranks' sum below
+                nll = nll + part_nll
+                map_leaves(lambda _p, g, t: g.add_(t), grads, part_grads)
+        if group is not None:
+            for g in leaves(grads):
+                collectives.sum_in_rank_order_(g, group)
+            nll = collectives.sum_in_rank_order_(nll.reshape(1), group)[0]
+        nll = nll / dp
+        map_leaves(lambda _p, g: g.div_(dp), grads)
+        pen, pen_grads = grads_of(
+            log_e, lambda e: log_energy_penalty(e, macs, target_e_per_mac, lam))
+        map_leaves(lambda _p, g, t: g.add_(t), grads, pen_grads)
         log_e, opt_state = adam_update(grads, opt_state, log_e, adam_cfg)
-        return log_e, opt_state, {"loss": loss.detach(), "nll": nll.detach()}
+        return log_e, opt_state, {"loss": nll + pen, "nll": nll}
 
     step.macs = macs
+    return step
+
+
+# ---------------------------------------------------------------------------
+# serving (prefill + decode), optionally analog
+# ---------------------------------------------------------------------------
+
+
+def _check_tree(params, param_tree) -> None:
+    if param_tree is not None and type(params) is not type(param_tree):
+        raise TypeError(f"the step was made for a {type(param_tree).__name__} tree, "
+                        f"called with a {type(params).__name__}")
+
+
+def _serving_parts(cfg: ModelConfig, mesh, rows: int, tokens: int, what: str):
+    """[(data shard or None, rows slice)] this process runs: each shard's
+    rows, or the whole batch once where ``data`` does not divide it (the
+    reference replicates such a batch)."""
+    dp = 1 if mesh is None else mesh.data
+    if dp == 1 or rows % dp:
+        return [(None, slice(None))]
+    per = _shard_rows(cfg, rows, tokens, dp, what)
+    return [(_shard(mesh, r, dp), slice(r * per, (r + 1) * per)) for r in mesh.data_shards()]
+
+
+def _cache_rows(cfg: ModelConfig, cache, rows: slice):
+    """Views of ``cache``'s rows ``rows`` along each leaf's batch dim."""
+    if rows == slice(None):
+        return cache
+
+    def take(_path, leaf, axis):
+        return leaf[(slice(None),) * axis + (rows,)]
+
+    return map_leaves(take, cache, lm.cache_batch_axes(cfg))
+
+
+def _tp_mesh(mesh):
+    return mesh if mesh is not None and mesh.tp > 1 else None
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, cache_len: Optional[int] = None,
+                      analog_cfg: Optional[AnalogConfig] = None, param_tree=None):
+    """``step(params, batch, energies, key) -> (cache, logits)``: ``lm.prefill``
+    of a batch dict (or a bare token tensor), then ``lm.logits_last``;
+    analog under ``analog_cfg`` (``energies`` an ``init_energy_tree``, one
+    (2,) ``key``), digital otherwise (``energies``, ``key`` unread). The
+    cache holds ``cache_len`` positions (default the prompt's, or the
+    window). ``mesh``: the analog sites run as its tensor shards, the
+    batch's rows are cut by its data shards (module docstring): ``batch``
+    is the whole batch; in the distributed form the cache and the logits
+    are the shard's rows.
+    ``param_tree``: the tree the step serves when it is not the bf16 one
+    (an int8 tree, ``quant.weights.quantize_params``'s); the reference
+    places its shards by it, the port places nothing and checks that
+    ``params`` has its type."""
+
+    def step(params, batch, energies, key):
+        _check_tree(params, param_tree)
+        batch = lm._as_batch(batch)
+        h_rows = next(iter(batch.values())).shape[0]
+        analog = None if analog_cfg is None else lm.AnalogSpec(
+            cfg=analog_cfg, energies=energies, key=key)
+        t = _tokens(batch)
+        parts = _serving_parts(cfg, mesh, h_rows, t, "make_prefill_step")
+        length = cache_len
+        if length is None:
+            w = lm._window(cfg)
+            length = t if w is None else max(t, w)
+        sizes = [len(range(h_rows)[rows]) for _s, rows in parts]
+        cache = lm.init_cache(cfg, sum(sizes), length, device=params["final_ln"].device)
+        logits, lo = [], 0
+        with use_mesh(_tp_mesh(mesh)):
+            for (shard, rows), n in zip(parts, sizes):
+                part = {k: v[rows] for k, v in batch.items()}
+                # this process's cache holds its parts' rows, in order
+                views = _cache_rows(cfg, cache, slice(lo, lo + n) if len(parts) > 1 else
+                                    slice(None))
+                lo += n
+                with use_data_shard(shard):
+                    _, h_last = lm.prefill(params, part, cfg, analog=analog, cache_len=length,
+                                           cache=views)
+                logits.append(lm.logits_last(params, h_last, cfg))
+        return cache, torch.cat(logits)
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None, analog_cfg: Optional[AnalogConfig] = None,
+                     param_tree=None):
+    """``step(params, cache, batch, pos, energies, key) -> (logits,
+    cache)``: one ``lm.decode_step`` at positions ``pos`` (an int, or a
+    (B,) tensor), the cache updated in place, as the reference donates it.
+    ``mesh``, ``analog_cfg``, ``param_tree``: as ``make_prefill_step``'s:
+    ``batch`` and ``pos`` are the whole batch's; in the distributed form
+    ``cache`` is the shard's, as the prefill step returned it."""
+
+    def step(params, cache, batch, pos, energies, key):
+        _check_tree(params, param_tree)
+        batch = lm._as_batch(batch)
+        h_rows = next(iter(batch.values())).shape[0]
+        analog = None if analog_cfg is None else lm.AnalogSpec(
+            cfg=analog_cfg, energies=energies, key=key)
+        dev = params["final_ln"].device
+        pos = torch.as_tensor(pos).to(dev).long().reshape(-1).expand(h_rows)
+        local = mesh is None or not mesh.distributed
+        logits = []
+        with use_mesh(_tp_mesh(mesh)):
+            for shard, rows in _serving_parts(cfg, mesh, h_rows, 1, "make_decode_step"):
+                part = {k: v[rows] for k, v in batch.items()}
+                view = _cache_rows(cfg, cache, rows if local else slice(None))
+                with use_data_shard(shard):
+                    out, _ = lm.decode_step(params, view, part, pos[rows], cfg, analog=analog)
+                logits.append(out)
+        return torch.cat(logits), cache
+
     return step

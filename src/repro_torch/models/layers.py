@@ -20,7 +20,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models.hooks import MatmulHook
-from repro_torch.reduce import row_norm, row_sum
+from repro_torch.reduce import contraction, row_norm, row_sum
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -339,7 +339,7 @@ def decode_attention(
     pos_b = pos.reshape(-1, 1).expand(b, 1)
     q5 = q.reshape(b, kh, g, 1, d).to(F32)
     kt = k_cache.permute(0, 2, 1, 3).to(F32)[:, :, None]  # (B, KH, 1, S, D)
-    scores = row_sum(q5 * kt) * scale  # (B, KH, G, S)
+    scores = row_sum(contraction(q5 * kt)) * scale  # (B, KH, G, S)
     valid = (slot_pos <= pos_b) & (slot_pos >= 0)
     if window is not None:
         valid &= (pos_b - slot_pos) < window
@@ -347,7 +347,7 @@ def decode_attention(
     e = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
     p = e / row_sum(e, keepdim=True)
     vt = v_cache.permute(0, 2, 3, 1).to(F32)[:, :, None]  # (B, KH, 1, D, S)
-    out = row_sum(p[:, :, :, None, :] * vt)  # (B, KH, G, D)
+    out = row_sum(contraction(p[:, :, :, None, :] * vt))  # (B, KH, G, D)
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -16,12 +16,19 @@ placement to cut each leaf's Adam moments among the data shards (ZeRO-1,
 nothing else: as under ``SERVING_RULES``, every tensor outside
 ``analog_dot`` (activations, caches, tokens, keys) is whole on every
 shard.
+
+``use_data_shard`` carries a data shard's place (``DataShard``: shard r
+of ``data``, and the data group of the distributed form) to the calls
+inside it, as ``use_mesh`` carries the mesh: ``analog_dot`` then draws
+its noise at the shard's global rows (``kernels.dispatch
+.active_data_shard``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 from repro_torch.tree import map_leaves
 
@@ -90,6 +97,33 @@ def use_mesh(mesh):
         yield mesh
     finally:
         set_mesh(prev)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """Data shard ``r`` of ``data``: its rows of every analog call are the
+    r-th 1/data of the whole call's flattened rows. ``group``: the data
+    shards' process group (or a dry one) in the distributed form, None in
+    the local form, where the shards run one after another."""
+
+    r: int
+    data: int
+    group: Optional[Any] = None
+
+
+def get_data_shard() -> Optional[DataShard]:
+    return getattr(_state, "data_shard", None)
+
+
+@contextlib.contextmanager
+def use_data_shard(shard: Optional[DataShard]):
+    """``shard`` (a ``DataShard`` or None) as the ambient data shard."""
+    prev = get_data_shard()
+    _state.data_shard = shard
+    try:
+        yield shard
+    finally:
+        _state.data_shard = prev
 
 
 def set_rules(rules: Optional[dict]) -> None:

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.hooks import MatmulHook
 from repro_torch.models.layers import _chunk
-from repro_torch.reduce import row_norm, row_sum
+from repro_torch.reduce import contraction, row_norm, row_sum
 
 F32 = torch.float32
 NEG = -1e30
@@ -127,8 +127,8 @@ def mlstm_decode(q, k, v, log_i, log_f, state):
     iw = torch.exp(li - m_t)
     c_t = fw[..., None, None] * c0 + iw[..., None, None] * (kt[..., :, None] * vt[..., None, :])
     n_t = fw[..., None] * n0 + iw[..., None] * kt
-    num = row_sum((qt[..., :, None] * c_t).transpose(-1, -2))  # (B, H, E)
-    den = torch.maximum(torch.abs(row_sum(qt * n_t)), torch.exp(-m_t))
+    num = row_sum(contraction(qt[..., :, None] * c_t).transpose(-1, -2))  # (B, H, E)
+    den = torch.maximum(torch.abs(row_sum(contraction(qt * n_t))), torch.exp(-m_t))
     h_t = (num / den[..., None]).reshape(b, 1, h, d)
     return h_t.to(q.dtype), (c_t, n_t, m_t)
 

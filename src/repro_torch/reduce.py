@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tally
+
 BLOCK = 32
 F32 = torch.float32
 
@@ -37,3 +39,11 @@ def row_norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     while x.shape[-1] > BLOCK:
         x = torch.linalg.vector_norm(_blocks(x), dim=-1, dtype=F32)
     return torch.linalg.vector_norm(x, dim=-1, keepdim=keepdim, dtype=F32)
+
+
+def contraction(p: torch.Tensor) -> torch.Tensor:
+    """``p``, an elementwise product about to be summed by ``row_sum`` (a
+    contraction that is not a matmul), its 2 x numel FLOPs added to the
+    open tally (``repro_torch.tally``)."""
+    tally.add("contraction_flops", 2.0 * p.numel())
+    return p
