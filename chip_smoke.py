@@ -142,9 +142,15 @@ gloo, bit-equal, with the collectives' ms and bytes; in the same ranks,
 after their train steps, the LM calibration on 2 data shards
 (``calibrate_dp``: shot noise on the "torch" backend, 2 steps of 4 x 512,
 one device, the local mesh and the ranks; local == ranks bit for bit).
+Tensor-parallel training (``train_tp``): granite-3-8b at full width on 2
+tensor shards (Megatron's column and row shards, the vocab-parallel
+loss), 3 steps of 2 x 2,048 as one device, the local form and 2
+processes on the card over gloo (train_dp's, after their own steps):
+local == ranks bit for bit, both within a stated bound of one device, a
+rank's parameter bytes, peak and tp collectives' ms and bytes.
 The dry run's reckoning (``dryrun``): the train programs this run
-measured, reckoned on the meta device, each reckoned peak beside the
-measured one, and a small real step's FLOPs on the card against the
+measured (train_tp's as a rank on a dry mesh), reckoned on the meta
+device, each reckoned peak beside the measured one, and a small real step's FLOPs on the card against the
 meta reckoning of the same step. Every phase that
 fails raises; each prints its seconds. The last line is ``{"ok":
 true, "device": {...}}``; without a CUDA device it exits non-zero and
@@ -294,7 +300,7 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
           "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver", "conv",
-          "train_dp", "dryrun")
+          "train_dp", "train_tp", "dryrun")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -3892,8 +3898,22 @@ TRAIN_DP_LAYERS = 4
 #: lands against them
 CAL_DP_B, CAL_DP_T, CAL_DP_STEPS = 4, 512, 2
 CAL_DP_REL, CAL_DP_LOG_E = 1e-4, 2e-4
+#: the train_tp phase: granite-3-8b at full width and train_dp's depth,
+#: positions and steps, ``TRAIN_TP_B`` rows (half train_dp's, for the
+#: run's time), on ``TRAIN_TP`` tensor shards, three ways (the one-device
+#: step, the local form in this process, ``TRAIN_TP`` gloo processes on the
+#: card: train_dp's own processes when the run has both phases). The local
+#: form and the ranks run the same shards and add in the same order: equal
+#: bit for bit. Both hold the one-device step's loss and gradient norm
+#: within ``TRAIN_TP_REL`` (relative; bf16 partials summed over the
+#: shards), set from the card's readings (PERF.md); a rank holds at most
+#: ``TRAIN_TP_PARAM_SHARE`` of one device's parameter bytes
+TRAIN_TP, TRAIN_TP_B, TRAIN_TP_REL, TRAIN_TP_PARAM_SHARE = 2, 2, 2e-3, 0.6
+#: train_tp's ranks' results when train_dp's processes ran them after
+#: their own steps (no second pair of processes to start and warm)
+_TP_RANKS: list = []
 #: the train phases' programs (phase -> (config, rows, positions, the
-#: measured peak bytes)), for the dry run's reckoning
+#: measured peak bytes[, tensor shards])), for the dry run's reckoning
 TRAIN_PEAKS: dict = {}
 #: the reckoned peak against the measured one, relative; the small real
 #: step of the FLOP check (layers, rows, positions)
@@ -3951,33 +3971,43 @@ def _dp_cfg(n_layers):
     return reduced_depth(CONFIG, n_layers=n_layers, name=CONFIG.name)
 
 
-def _dp_run(cfg, mesh, microbatches, profile=False) -> dict:
+def _dp_run(cfg, mesh, microbatches, profile=False, keep=False, counting=None,
+            prints=_fingerprint, rows=TRAIN_DP_B) -> dict:
     """``TRAIN_DP_STEPS`` train steps from seed 0 on ``markov_batch``es of
-    ``TRAIN_DP_B`` x ``TRAIN_DP_T`` (a mesh or one device): each step's
-    loss, gradient norm, parameter fingerprint and ms; the peak, the
-    moments' bytes here and the analog launches (none expected). With
-    ``profile``, the last step profiled (device ms, kernels)."""
+    ``rows`` x ``TRAIN_DP_T`` (a mesh or one device; a rank of a
+    tensor mesh on its shard of the weights): each step's loss, gradient
+    norm, parameters' ``prints`` and ms; the steps' peak (the state held),
+    the parameters' and moments' bytes here and the analog launches (none
+    expected). With ``profile``, the last step profiled (device ms,
+    kernels); ``keep``: the parameters returned too; ``counting``: a dict
+    whose ``"on"`` is True while a step runs."""
     import torch
 
     from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
     from repro_torch.kernels import analog_matmul as am
-    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step, shard_params
     from repro_torch.models import lm
     from repro_torch.tree import leaves
 
     tcfg = TrainConfig(microbatches=microbatches)
-    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_DP_T,
-                           global_batch=TRAIN_DP_B, seed=7)
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_DP_T, global_batch=rows,
+                           seed=7)
     before = sum(am.LAUNCHES.values())
     _free()
-    state = [lm.init_params(cfg, seed=0, device="cuda")]
+    state = [shard_params(lm.init_params(cfg, seed=0, device="cuda"), cfg, mesh)]
+    _free()
     state.append(make_opt_init(cfg, mesh, tcfg)(state[0]))
     step = make_train_step(cfg, mesh, tcfg)
-    out = dict(losses=[], grad_norms=[], prints=[], step_ms=[])
+    out = dict(losses=[], grad_norms=[], prints=[], step_ms=[], peak_gib=0.0)
+    counting = {} if counting is None else counting
     for i in range(TRAIN_DP_STEPS):
         def one(i=i):
+            counting["on"] = True
             state[0], state[1], m = step(state[0], state[1], markov_batch(data, i))
+            counting["on"] = False
             return m
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         if profile and i == TRAIN_DP_STEPS - 1:
             m, prof = _profile(one)
             ms = prof["profiled_wall_ms"]
@@ -3985,15 +4015,17 @@ def _dp_run(cfg, mesh, microbatches, profile=False) -> dict:
                        top=prof["top"])
         else:
             m, ms = _wall_ms(one)
+        out["peak_gib"] = max(out["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
-        out["prints"].append(_fingerprint(state[0]))
+        out["prints"].append(prints(state[0]))
         out["step_ms"].append(ms)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["moment_bytes"] = sum(t.numel() * t.element_size()
                               for t in leaves(state[1].mu) + leaves(state[1].nu))
     out["param_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state[0]))
     out["analog_launches"] = sum(am.LAUNCHES.values()) - before
+    if keep:
+        out["params"] = leaves(state[0])
     state = None
     _free()
     return out
@@ -4042,12 +4074,13 @@ def _cal_dp_run(cfg, mesh, seed=0) -> dict:
     return out
 
 
-def _train_dp_worker(rank, port, out_dir, n_layers):
+def _train_dp_worker(rank, port, out_dir, n_layers, with_tp=False):
     """One rank of the distributed form: a gloo group of ``TRAIN_DP`` ranks
     on the one card (NCCL refuses two ranks on one device), CUDA tensors
     staged through pinned host memory by ``launch/collectives.py``; the
-    collectives' seconds and bytes a step counted; its results written to
-    ``out_dir/rank<r>.json``."""
+    collectives' seconds and bytes a step counted; ``with_tp``: then
+    train_tp's distributed form on the same group (``_tp_rank_run``); its
+    results written to ``out_dir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -4086,6 +4119,7 @@ def _train_dp_worker(rank, port, out_dir, n_layers):
                 return out
             return wrap
 
+        plain = collectives.sum_in_rank_order_, collectives.gather_regions_
         collectives.sum_in_rank_order_ = timed(collectives.sum_in_rank_order_, "reduce")
         collectives.gather_regions_ = timed(collectives.gather_regions_, "gather")
         res = _dp_run(cfg, mesh, 1, profile=True)
@@ -4094,13 +4128,16 @@ def _train_dp_worker(rank, port, out_dir, n_layers):
         spent.update({k: 0 for k in spent})
         res["calibrate"] = _cal_dp_run(cfg, mesh)
         res["calibrate"].update({k: v / CAL_DP_STEPS for k, v in spent.items()})
+        collectives.sum_in_rank_order_, collectives.gather_regions_ = plain
+        if with_tp:
+            res["train_tp"] = _tp_rank_run(rank, n_layers)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_train_dp():
+def phase_train_dp(with_tp=False):
     """granite-3-8b at full width, trained on a data mesh of ``TRAIN_DP``
     shards with ZeRO-1 moments at ``TRAIN_DP_LAYERS`` layers (at most the
     depth ``train_dp_depth`` reckons, which the log names too):
@@ -4111,7 +4148,8 @@ def phase_train_dp():
     (``_fingerprint``) equal across the three and the ranks; ms a step,
     rank 0's device ms a step, the collectives' seconds and bytes a step,
     peak GiB a rank and moment bytes a rank against one device's. Training
-    launches no analog kernel."""
+    launches no analog kernel. ``with_tp`` (the run has train_tp too): the
+    ranks then run train_tp's distributed form (``_TP_RANKS``)."""
     import shutil
     import socket
 
@@ -4134,8 +4172,9 @@ def phase_train_dp():
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         t0 = time.perf_counter()
-        mp.start_processes(_train_dp_worker, args=(port, out_dir, depth), nprocs=TRAIN_DP,
-                           start_method="spawn", join=True)
+        with_tp = with_tp and TRAIN_TP == TRAIN_DP
+        mp.start_processes(_train_dp_worker, args=(port, out_dir, depth, with_tp),
+                           nprocs=TRAIN_DP, start_method="spawn", join=True)
         spawn_s = time.perf_counter() - t0
         ranks = []
         for r in range(TRAIN_DP):
@@ -4143,6 +4182,7 @@ def phase_train_dp():
                 ranks.append(json.load(f))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    _TP_RANKS[:] = [r.pop("train_tp") for r in ranks] if with_tp else []
     _, total = torch.cuda.mem_get_info()
     keys = ("losses", "grad_norms", "prints")
     forms = {"one_device_microbatches": one, "local": local,
@@ -4177,6 +4217,162 @@ def phase_train_dp():
         raise AssertionError(f"train_dp: the ranks' peaks {[r['peak_gib'] for r in ranks]} GiB "
                              f"over {TRAIN_PEAK_SHARE} of the card")
     _check_calibrate_dp(cfg, cal_one, cal_local, [r["calibrate"] for r in ranks])
+
+
+def _tp_rank_run(rank, n_layers) -> dict:
+    """train_tp's distributed form in one rank of a gloo group of
+    ``TRAIN_TP`` ranks on the one card, each holding its tensor shard of
+    the weights: ``_dp_run``'s results (its parameters' fingerprint its
+    shard's), with the tp collectives' seconds, calls and received bytes a
+    step (every exchange passes ``collectives._gather``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    mesh = make_mesh_for_devices(TRAIN_TP, group=dist.group.WORLD)
+    counting = {"on": False}
+    spent = {"s": 0.0, "calls": 0, "bytes": 0}
+    gather = collectives._gather
+
+    def timed(t, group):
+        if not counting["on"]:
+            return gather(t, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(t, group)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        spent["bytes"] += t.numel() * t.element_size() * (len(out) - 1)
+        return out
+
+    collectives._gather = timed
+    try:
+        res = _dp_run(_dp_cfg(n_layers), mesh, 1, profile=True, counting=counting,
+                      rows=TRAIN_TP_B)
+    finally:
+        collectives._gather = gather
+    res.update({f"tp_{k}": v / TRAIN_DP_STEPS for k, v in spent.items()}, rank=rank)
+    return res
+
+
+def _train_tp_worker(rank, port, out_dir, n_layers):
+    """One rank of train_tp's distributed form in a process of its own
+    (the run has no train_dp): ``_tp_rank_run``, written to
+    ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TRAIN_TP, rank=rank)
+    try:
+        res = _tp_rank_run(rank, n_layers)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp():
+    """granite-3-8b at full width trained on ``TRAIN_TP`` tensor shards
+    (Megatron's column and row shards, the vocab-parallel loss) at
+    train_dp's depth, positions and steps and ``TRAIN_TP_B`` rows, three
+    ways: the one-device step, the local form in this process (the shards
+    in turn inside each block), ``TRAIN_TP`` gloo processes on the card
+    (train_dp's, ``_TP_RANKS``, when it ran; they share the card and talk
+    through the host: correctness and a rank's memory, not speed). The
+    local form equals the ranks bit for bit (losses, gradient norms, each
+    tensor shard's ``_fingerprint``: rank t's shard against the local
+    form's weights cut as rank t holds them); both hold the one-device
+    step's losses and gradient norms within ``TRAIN_TP_REL``; a rank holds
+    at most ``TRAIN_TP_PARAM_SHARE`` of one device's parameter bytes; no
+    analog kernel runs. Logged: ms a step of each form, a rank's parameter
+    and moment bytes against one device's, peak GiB a rank, the tp
+    collectives' ms, calls and received bytes a step, the parameters'
+    distance from one device's after the steps."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models.sharding import take_tensor_shard, tensor_plan
+
+    depth = min(train_dp_depth(CONFIG), TRAIN_DP_LAYERS)
+    cfg = _dp_cfg(depth)
+    plan = tensor_plan(cfg, TRAIN_TP)
+    one = _dp_run(cfg, None, 1, keep=True, rows=TRAIN_TP_B)
+    local = _dp_run(cfg, make_mesh_for_devices(TRAIN_TP), 1, keep=True, rows=TRAIN_TP_B,
+                    prints=lambda p: [_fingerprint(take_tensor_shard(p, plan, TRAIN_TP, t))
+                                      for t in range(TRAIN_TP)])
+    with torch.no_grad():
+        diff = [(a.float() - b.float()).abs() for a, b in zip(local["params"], one["params"])]
+        param_max = max(float(d.max()) for d in diff)
+        param_equal = sum(int((d == 0).sum()) for d in diff) / sum(d.numel() for d in diff)
+    diff = one["params"] = local["params"] = None
+    _free()
+    ranks, spawn_s = list(_TP_RANKS), None
+    if not ranks:  # no train_dp processes ran them: processes of their own
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            t0 = time.perf_counter()
+            mp.start_processes(_train_tp_worker, args=(port, out_dir, depth), nprocs=TRAIN_TP,
+                               start_method="spawn", join=True)
+            spawn_s = time.perf_counter() - t0
+            for r in range(TRAIN_TP):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    forms = {"one_device": one, "local": local, **{f"rank{r['rank']}": r for r in ranks}}
+    equal = {name: all(f[k] == local[k] for k in ("losses", "grad_norms"))
+             for name, f in forms.items()}
+    for r in ranks:  # rank r holds tensor shard r
+        equal[f"rank{r['rank']}"] &= r["prints"] == [p[r["rank"]] for p in local["prints"]]
+    rel = {name: max(abs(x - y) / abs(y) for k in ("losses", "grad_norms")
+                     for x, y in zip(f[k], one[k])) for name, f in forms.items()}
+    r0 = ranks[0]
+    med = lambda f: statistics.median(f["step_ms"][1:])  # noqa: E731
+    TRAIN_PEAKS["train_tp"] = (cfg, TRAIN_TP_B, TRAIN_DP_T,
+                               max(r["peak_gib"] for r in ranks) * 2**30, TRAIN_TP)
+    log("train_tp", config=cfg.name, layers=depth, of_layers=CONFIG.n_layers,
+        params=cfg.param_count(), tensor_shards=TRAIN_TP, batch=[TRAIN_TP_B, TRAIN_DP_T],
+        ranks_in="train_dp's processes" if spawn_s is None else "processes of their own",
+        losses={n: f["losses"] for n, f in forms.items()},
+        grad_norms={n: f["grad_norms"] for n, f in forms.items()},
+        equal_to_local=equal, rel_to_one_device=rel, bound=TRAIN_TP_REL,
+        param_max_abs_local_vs_one=param_max, param_share_bit_equal=param_equal,
+        ms_a_step={n: med(f) for n, f in forms.items()},
+        step_ms={n: f["step_ms"] for n, f in forms.items()},
+        device_ms_rank0=r0["device_ms"], kernels_a_step_rank0=r0["kernels_a_step"],
+        top_rank0=r0["top"],
+        tp_collective_ms_a_step=r0["tp_s"] * 1e3, tp_collective_calls_a_step=r0["tp_calls"],
+        tp_collective_bytes_received_a_step=r0["tp_bytes"],
+        peak_gib={n: f["peak_gib"] for n, f in forms.items()},
+        param_bytes={n: f["param_bytes"] for n, f in forms.items()},
+        moment_bytes={n: f["moment_bytes"] for n, f in forms.items()},
+        param_share_a_rank=r0["param_bytes"] / one["param_bytes"],
+        moment_share_a_rank=r0["moment_bytes"] / one["moment_bytes"], spawn_s=spawn_s,
+        analog_launches={n: f["analog_launches"] for n, f in forms.items()}, card=card())
+    if not all(v for n, v in equal.items() if n != "one_device"):
+        raise AssertionError(f"train_tp: the ranks differ from the local form: {equal}")
+    if any(f["analog_launches"] for f in forms.values()):
+        raise AssertionError("train_tp launched an analog kernel")
+    if not (all(map(math.isfinite, local["losses"])) and rel["local"] <= TRAIN_TP_REL):
+        raise AssertionError(f"train_tp: {rel['local']} from one device (bound {TRAIN_TP_REL}), "
+                             f"losses {local['losses']}")
+    if max(r["param_bytes"] for r in ranks) > TRAIN_TP_PARAM_SHARE * one["param_bytes"]:
+        raise AssertionError(f"train_tp: a rank holds {[r['param_bytes'] for r in ranks]} of "
+                             f"{one['param_bytes']} parameter bytes")
 
 
 def cal_dp_diffs(a, b) -> tuple:
@@ -4622,29 +4818,34 @@ def phase_calibrate_lm(cfg, params=None, name="calibrate_lm", steps=CAL_LM_STEPS
 # ---------------------------------------------------------------------------
 
 
-def _meta_train(cfg, rows, positions):
+def _meta_train(cfg, rows, positions, tp=1):
     """(fn, hold) of one train step of ``cfg`` (``TrainConfig()``: bf16
     moments, remat) at ``rows`` x ``positions`` on the meta device: the
     weights, the moments and the batch held, as the train phases hold
-    them."""
+    them; at ``tp`` > 1 tensor shard 0's step on a dry mesh of ``tp``
+    shards (its weights, its collectives recorded)."""
     import torch
 
-    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step
+    from repro_torch.launch.collectives import DryGroup, Recorder
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import TrainConfig, make_opt_init, make_train_step, shard_params
     from repro_torch.launch.trace_analysis import meta_params
 
     tcfg = TrainConfig()
-    params = meta_params(cfg)
-    opt = make_opt_init(cfg, None, tcfg)(params)
+    mesh = None if tp == 1 else Mesh(tp=tp, group=DryGroup(tp, Recorder()))
+    params = shard_params(meta_params(cfg), cfg, mesh)
+    opt = make_opt_init(cfg, mesh, tcfg)(params)
     batch = {k: torch.empty((rows, positions), dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
-    step = make_train_step(cfg, None, tcfg)
+    step = make_train_step(cfg, mesh, tcfg)
     return (lambda: step(params, opt, batch)), (params, opt, batch)
 
 
 def phase_dryrun():
     """The dry run's reckoning (``launch/trace_analysis.py``) against the
     card: each train program this run measured (``TRAIN_PEAKS``: train,
-    train_griffin, train_moe) reckoned on the meta device at its depth,
+    train_griffin, train_moe, and a rank of train_tp: tensor shard 0 on a
+    dry mesh of its shards) reckoned on the meta device at its depth,
     rows and positions, with the state the phase holds (bf16 weights,
     gradient buffers, bf16 moments), its reckoned peak within
     ``DRYRUN_PEAK_REL`` of the measured ``max_memory_allocated``; then
@@ -4662,17 +4863,19 @@ def phase_dryrun():
     from repro_torch.launch.trace_analysis import reckon
     from repro_torch.models import lm
 
-    missing = [p for p in ("train", "train_griffin", "train_moe") if p not in TRAIN_PEAKS]
+    programs = ("train", "train_griffin", "train_moe", "train_tp")
+    missing = [p for p in programs if p not in TRAIN_PEAKS]
     if missing:
         raise AssertionError(f"dryrun: no measured peak of {missing}: run those phases "
-                             "before it (--only train,train_griffin,train_moe,dryrun)")
+                             "before it (--only train,train_griffin,train_moe,train_tp,dryrun)")
     rows_out, bad = [], []
-    for phase in ("train", "train_griffin", "train_moe"):
-        cfg, rows, positions, measured = TRAIN_PEAKS[phase]
-        fn, hold = _meta_train(cfg, rows, positions)
+    for phase in programs:
+        cfg, rows, positions, measured, *tp = TRAIN_PEAKS[phase]
+        fn, hold = _meta_train(cfg, rows, positions, *tp)
         t0 = time.perf_counter()
         _, st = reckon(fn, hold=hold)
         row = dict(program=phase, config=cfg.name, layers=cfg.n_layers, batch=[rows, positions],
+                   tensor_shards=(tp or [1])[0],
                    reckoned_peak_gib=st.peak_bytes / 2**30, measured_peak_gib=measured / 2**30,
                    rel=(st.peak_bytes - measured) / measured, state_gib=st.base_bytes / 2**30,
                    dot_flops=st.dot_flops, reckon_s=time.perf_counter() - t0)
@@ -5145,7 +5348,7 @@ def main() -> int:
                          "and grok-1's; calibrate_lm on train's config; train_griffin, "
                          "train_xlstm and train_moe each calibrate on their weights; train_dp "
                          "runs calibrate_dp in its ranks; dryrun reckons the train phases run "
-                         "before it; conv stands alone); default all")
+                         "before it, train_tp's a rank; conv stands alone); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
@@ -5375,7 +5578,10 @@ def main() -> int:
         timed("train_driver", phase_train_driver)
     if "train_dp" in run:
         _free()
-        timed("train_dp", phase_train_dp)
+        timed("train_dp", phase_train_dp, "train_tp" in run)
+    if "train_tp" in run:
+        _free()
+        timed("train_tp", phase_train_tp)
     if "dryrun" in run:
         _free()
         timed("dryrun", phase_dryrun)

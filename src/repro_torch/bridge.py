@@ -8,6 +8,9 @@ subtrees where the model has tail layers, and the (G, m) mLSTM and
 (G, E) expert leaves at their shapes). Both packages then compute
 from identical weights. Shapes are checked against ``lm.param_leaves``;
 dtypes are kept (numpy bfloat16 arrays become ``torch.bfloat16``).
+``tensor_shard_tree`` cuts a whole parameter tree (numpy or tensors) into
+tensor shard t's (``models.sharding.tensor_plan``, contiguous slices: a
+rank's layout) and ``gather_tensor_shards`` joins the shards' trees back.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.models.sharding import join_tensor_shards, take_tensor_shard, tensor_plan
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -56,3 +60,13 @@ def energies_from_numpy(tree, cfg, device="cuda"):
                 raise ValueError(f"{sub}/{s}: shape {np.shape(tree[sub][s])} != {shapes[sub][s]}")
         out[sub] = {s: _to_torch(tree[sub][s], dev).to(torch.float32) for s in sites}
     return out
+
+
+def tensor_shard_tree(tree, cfg, tp: int, t: int):
+    """Tensor shard ``t`` of ``tp`` of a whole parameter tree."""
+    return take_tensor_shard(tree, tensor_plan(cfg, tp), tp, t)
+
+
+def gather_tensor_shards(trees, cfg, tp: int):
+    """The whole parameter tree from its ``tp`` shards' trees, in order."""
+    return join_tensor_shards(trees, tensor_plan(cfg, tp))

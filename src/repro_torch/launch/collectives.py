@@ -1,5 +1,6 @@
-"""The collectives of data-parallel training over a ``torch.distributed``
-group, with bits that do not depend on the reduction's algorithm.
+"""The collectives of data- and tensor-parallel training over a
+``torch.distributed`` group, with bits that do not depend on the
+reduction's algorithm.
 
 ``sum_in_rank_order_`` adds each rank's tensor in rank order in the
 tensor's own dtype (each add one rounding, as the one-device step's
@@ -16,6 +17,17 @@ buffers stay bounded whatever a leaf's size. ``all_gather`` and
 ``all_reduce`` are the other collectives of the port (the tensor shards'
 gather, thermal noise's range on a data mesh, ``compressed_psum``): every
 collective passes this module.
+
+The tensor shards' collectives (``copy_to_tp``, ``reduce_from_tp``,
+``reduce_scatter_tp``, ``max_over_tp``, ``sum_over_tp_``) take the tensor
+shards this process computes (``models.sharding.TensorShard``s, in shard
+order): every shard of the local form, which runs them in turn inside
+each sharded block (group None), or the one shard of a rank (its tp
+group). They are Megatron's *f* and *g* and their kin, as autograd
+functions where a gradient flows; the local form adds the shards' tensors
+in shard order, a rank adds the ranks' in rank order
+(``sum_in_rank_order_``), so the two forms give the same bits.
+``mesh_subgroups`` makes a mesh's tp and data subgroups.
 
 A ``DryGroup`` (a dry mesh's group, ``launch/mesh.py``
 ``make_production_mesh``) communicates nothing: each collective on it
@@ -217,3 +229,175 @@ def gather_regions_(t: torch.Tensor, regions: list, group) -> torch.Tensor:
             if r != me:
                 t[reg][sl].copy_(p, non_blocking=True)
     return t
+
+
+def mesh_subgroups(group, data: int, tp: int) -> tuple:
+    """(tp group, data group) of this rank in a mesh of ``data`` x ``tp``
+    ranks over ``group`` (rank ``d * tp + t`` holds data shard d and
+    tensor shard t): ``dist.new_group`` of every tp row and every data
+    column, made by every rank in the same order (``new_group`` is a
+    collective of the default group)."""
+    import torch.distributed as dist
+
+    glob = [dist.get_global_rank(group, r) for r in range(data * tp)]
+    me = dist.get_rank(group)
+    rows = [dist.new_group([glob[d * tp + t] for t in range(tp)]) for d in range(data)]
+    cols = [dist.new_group([glob[d * tp + t] for d in range(data)]) for t in range(tp)]
+    return rows[me // tp], cols[me % tp]
+
+
+# ---------------------------------------------------------------------------
+# the tensor shards' collectives
+# ---------------------------------------------------------------------------
+
+
+def _in_order(parts: list) -> torch.Tensor:
+    """``((p_0 + p_1) + p_2) + ...`` (a new tensor; one rounding an add)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def _rank_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A copy of ``t`` summed over ``group`` in rank order."""
+    return sum_in_rank_order_(t.detach().contiguous().clone(), group)
+
+
+class _CopyLocal(torch.autograd.Function):
+    """*f* of the local form: one view of x a shard; the backward adds the
+    shards' gradients in shard order."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        zero = next(g for g in grads if g is not None)
+        return _in_order([torch.zeros_like(zero) if g is None else g for g in grads]), None
+
+
+class _CopyRank(torch.autograd.Function):
+    """*f* of a rank: identity; the backward sums over the tp group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rank_sum(grad, ctx.group), None
+
+
+class _ReduceLocal(torch.autograd.Function):
+    """*g* of the local form: the partials added in shard order; the
+    backward hands each its gradient."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.n = len(parts)
+        return _in_order(list(parts))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad,) + tuple(grad.clone() for _ in range(ctx.n - 1))
+
+
+class _ReduceRank(torch.autograd.Function):
+    """*g* of a rank: its partial summed over the tp group; the backward
+    is the identity."""
+
+    @staticmethod
+    def forward(ctx, part, group):
+        return _rank_sum(part, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScatterLocal(torch.autograd.Function):
+    """The partials added in shard order and cut along ``dim``, chunk t
+    shard t's; the backward joins the chunks' gradients, each partial's."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *parts):
+        ctx.dim, ctx.n = dim, len(parts)
+        return tuple(c.contiguous() for c in _in_order(list(parts)).chunk(ctx.n, dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        whole = torch.cat(grads, dim=ctx.dim)
+        return (None, whole) + tuple(whole.clone() for _ in range(ctx.n - 1))
+
+
+class _ScatterRank(torch.autograd.Function):
+    """A rank's partial summed over the tp group, its own chunk along
+    ``dim`` kept; the backward gathers the chunks' gradients."""
+
+    @staticmethod
+    def forward(ctx, part, dim: int, shard):
+        ctx.dim, ctx.group = dim, shard.group
+        return _rank_sum(part, shard.group).chunk(shard.tp, dim)[shard.t].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(all_gather(grad.contiguous(), ctx.group), dim=ctx.dim), None, None
+
+
+def _local_form(shards) -> bool:
+    return shards[0].group is None
+
+
+def copy_to_tp(x: torch.Tensor, shards) -> list:
+    """Megatron's *f* at the input of a column-parallel block: ``x`` for
+    each shard (identity), the shards' input gradients summed over tp."""
+    if _local_form(shards):
+        return list(_CopyLocal.apply(x, len(shards)))
+    return [_CopyRank.apply(x, shards[0].group)]
+
+
+def reduce_from_tp(parts: list, shards) -> torch.Tensor:
+    """Megatron's *g* at the output of a row-parallel block: the shards'
+    partials summed over tp; the gradient passes to each unchanged."""
+    if _local_form(shards):
+        return _ReduceLocal.apply(*parts)
+    return _ReduceRank.apply(parts[0], shards[0].group)
+
+
+def reduce_scatter_tp(parts: list, shards, dim: int = -1) -> list:
+    """The shards' partial products summed over tp, each shard keeping its
+    own 1/tp along ``dim`` (a product over sharded input rows that feeds
+    sharded channels); the backward gathers the chunks' gradients."""
+    if _local_form(shards):
+        return list(_ScatterLocal.apply(dim, *parts))
+    return [_ScatterRank.apply(parts[0], dim, shards[0])]
+
+
+@torch.no_grad()
+def max_over_tp(parts: list, shards) -> torch.Tensor:
+    """The elementwise max of the shards' tensors (exact in any order; no
+    gradient): the vocab-parallel loss's shared max."""
+    if _local_form(shards):
+        outs = parts
+    else:
+        outs = all_gather(parts[0].contiguous(), shards[0].group)
+    acc = outs[0]
+    for o in outs[1:]:
+        acc = torch.maximum(acc, o)
+    return acc
+
+
+@torch.no_grad()
+def sum_over_tp_(parts: list, shards) -> None:
+    """Each shard's tensor overwritten with their sum over tp, in shard (or
+    rank) order: a whole leaf's partial gradients."""
+    if _local_form(shards):
+        for p in parts[1:]:
+            parts[0].add_(p)
+        for p in parts[1:]:
+            p.copy_(parts[0])
+    else:
+        sum_in_rank_order_(parts[0], shards[0].group)

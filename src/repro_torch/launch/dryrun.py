@@ -14,13 +14,15 @@ the mesh: its FLOPs, peak bytes, largest tensors and collectives, and
   * ``local``: one device (``mesh.make_local_mesh``): the whole global
     batch on one H100, a train cell at ``--microbatch`` microbatches.
 
-The port's program is reckoned as it is: under tp it shards only the
-analog sites' columns, and weights, caches and every digital site stay
-whole on every device (the artifact's ``replicates`` lists it); it is not
-made to look like the reference's. A train cell at tp > 1 is
-``not_ported`` (tensor-parallel training, ROADMAP A.3); an MoE cell
-whose data shard would split an expert group is ``not_ported`` too
-(``steps.MoEGroupsAcrossShards``, ROADMAP A). A train cell traces one
+The port's program is reckoned as it is: a train cell runs the
+tensor-parallel step (``steps.make_train_step`` on the mesh: shard (0, 0)
+holds its Megatron shards of the weights, ``steps.shard_params``, and its
+data shard's rows); a serving cell under tp shards only the analog sites'
+columns, and weights, caches and every digital site stay whole on every
+device. What the port keeps whole where the reference shards it is in the
+artifact's ``replicates``; the program is not made to look like the
+reference's. An MoE cell whose data shard would split an expert group is
+``not_ported`` (``steps.MoEGroupsAcrossShards``, ROADMAP A.4). A train cell traces one
 microbatch and scales its FLOPs by their count; a cell whose trace would
 take hours of host time (``_trace_points``) is traced at two smaller
 row or position counts and extrapolated linearly (the artifact says so).
@@ -54,8 +56,7 @@ MESHES = ("single", "multi", "local")
 #: cell is traced at two smaller points and extrapolated
 TRACE_ROWS = 2
 TRACE_POSITIONS = 1024
-#: the ROADMAP items a ``not_ported`` cell waits for
-TP_TRAIN_ITEM = "ROADMAP A.3 (tensor-parallel training)"
+#: the ROADMAP item a ``not_ported`` cell waits for
 MOE_GROUPS_ITEM = "ROADMAP A.4 (MoE expert groups across data shards)"
 
 CELL_ANALOG_EXTRAS = [
@@ -85,21 +86,33 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
-def _replicates(cfg, mesh, analog: str, rows_cut: bool) -> list:
+def _replicates(cfg, mesh, analog: str, batch_note, train: bool) -> list:
     """What the port keeps whole on every device of ``mesh`` where the
-    reference shards it."""
+    reference shards it (``batch_note``: how the batch is placed where it
+    is not one block of rows a data shard)."""
     out = []
     if mesh.size == 1:
         return out
-    if mesh.tp > 1:
+    if train and mesh.tp > 1 and cfg.sharding_profile == "tp":
+        if cfg.n_heads % mesh.tp:
+            out.append(f"attention: whole on every device ({cfg.n_heads} heads in {mesh.tp} "
+                       "shards; the reference's sequence-parallel attention is ROADMAP A.7)")
+        elif cfg.n_kv_heads % mesh.tp:
+            out.append(f"wk, wv: whole on every device ({cfg.n_kv_heads} kv heads in "
+                       f"{mesh.tp} shards)")
+        out.append("activations: whole over tp between the blocks (the reference keeps the "
+                   "residual stream sequence-sharded, act_seq; ROADMAP A.7)")
+        if cfg.family == "moe":
+            out.append("experts: whole across data shards (the reference's expert parallelism "
+                       "over data, ROADMAP A.4, A.5)")
+    elif mesh.tp > 1 and not train:
         out.append("weights: whole on every device (the reference shards heads, MLP, vocabulary "
                    "and experts over tp)")
         out.append("digital sites and everything outside analog_dot: whole on every device"
                    + ("" if analog != "none" else " (this cell has no analog site)"))
         out.append("caches: whole heads on every device (the reference shards KV heads over tp)")
-    if mesh.data > 1 and not rows_cut:
-        out.append("the batch: whole on every data shard (data does not divide its rows; the "
-                   "reference replicates it too)")
+    if batch_note:
+        out.append(batch_note)
     return out
 
 
@@ -134,9 +147,6 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, analog: str = "none",
     if not ok:
         return {**head, "status": "skipped", "reason": why}
     mesh = _mesh(mesh_name)
-    if shape.kind == "train" and mesh.tp > 1:
-        return {**head, "status": "not_ported",
-                "reason": f"training at tp={mesh.tp}: {TP_TRAIN_ITEM}"}
     if shape.kind == "train" and (analog != "none" or int8_weights or kv_dtype):
         raise ValueError("a train cell takes no --analog, --int8-weights or --kv-dtype")
     if shape.kind == "train" and shape.global_batch % microbatch:
@@ -150,12 +160,25 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, analog: str = "none",
 
         params = quantize_params(params)
         params_bytes = _nbytes(params)
-    dp = mesh.data
-    rows_cut = shape.global_batch % dp == 0
-    # rows the device runs (a train cell: one microbatch of the one device)
-    own = shape.global_batch // microbatch if shape.kind == "train" else (
-        shape.global_batch // dp if rows_cut else shape.global_batch)
-    per_own = dp if rows_cut and shape.kind != "train" else 1  # global rows a device row
+    if shape.kind == "train":  # the batch's blocks among the data shards, one a device
+        dp = steps.train_layout(cfg, mesh).dp
+        blocks = steps.row_blocks(cfg, mesh, shape.global_batch)
+        batch_note = None if blocks == dp else (
+            f"the batch: {blocks} blocks of rows, each on {dp // blocks} data shards (the "
+            "reference's placement of the rows degrades the same way)")
+        own, per_own = shape.global_batch // blocks // microbatch, blocks
+        if cfg.family == "moe" and dp > 1 and (own * shape.seq_len) % cfg.moe_group_size:
+            return {**head, "status": "not_ported", "reason": (
+                f"a data shard of {own} x {shape.seq_len} tokens is not whole expert groups of "
+                f"{cfg.moe_group_size}: {MOE_GROUPS_ITEM}")}
+    else:
+        dp = mesh.data
+        rows_cut = shape.global_batch % dp == 0
+        own = shape.global_batch // dp if rows_cut else shape.global_batch
+        per_own = dp if rows_cut else 1  # global rows a device row
+        batch_note = None if rows_cut or dp == 1 else (
+            "the batch: whole on every data shard (data does not divide its rows; the reference "
+            "replicates it too)")
     analog_cfg = AnalogConfig.shot(backend="cuda") if analog == "shot" else None
     energies = lm.init_energy_tree(cfg, 1.0, device=meta) if analog_cfg else None
     key = np.zeros(2, np.uint32) if analog_cfg else None
@@ -165,10 +188,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, analog: str = "none",
         cache_bytes = _nbytes(lm.init_cache(cfg, shape.global_batch, shape.seq_len, device=meta,
                                             dtype=kv))
     tree = params if int8_weights else None
-    if shape.kind == "train":
+    if shape.kind == "train":  # one microbatch of the device's rows
         tcfg = steps.TrainConfig()
-        opt = steps.make_opt_init(cfg, None, tcfg)(params)
-        step = steps.make_train_step(cfg, None, tcfg)
+        params = steps.shard_params(params, cfg, mesh)
+        opt = steps.make_opt_init(cfg, mesh, tcfg)(params)
+        step = steps.make_train_step(cfg, mesh, tcfg)
     elif shape.kind == "prefill":
         step = steps.make_prefill_step(cfg, mesh, cache_len=shape.seq_len, analog_cfg=analog_cfg,
                                        param_tree=tree)
@@ -208,7 +232,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, analog: str = "none",
                      "each (the program's work and state are linear in its rows and, in the "
                      "xlstm family, in its positions); largest tensors of the last trace")
     return _artifact(head, cfg, shape, mesh, st, seconds, float(microbatch) if
-                     shape.kind == "train" else 1.0, "; ".join(notes) or None, analog, rows_cut,
+                     shape.kind == "train" else 1.0, "; ".join(notes) or None, analog, batch_note,
                      cache_bytes, params_bytes)
 
 
@@ -278,7 +302,7 @@ def _extrapolate(traced: dict, row_points, pos_points, rows: int, positions: int
     )
 
 
-def _artifact(head, cfg, shape, mesh, st, trace_s, scale, note, analog, rows_cut, cache_bytes,
+def _artifact(head, cfg, shape, mesh, st, trace_s, scale, note, analog, batch_note, cache_bytes,
               params_bytes) -> dict:
     from repro_torch.launch import roofline
     from repro_torch.launch.roofline import H100
@@ -311,7 +335,7 @@ def _artifact(head, cfg, shape, mesh, st, trace_s, scale, note, analog, rows_cut
                         "link_bytes": st.collective_link_bytes,
                         "calls": [dict(kind=k, bytes=b, group=g, calls=n)
                                   for k, b, g, n in st.collective_calls]},
-        "replicates": _replicates(cfg, mesh, analog, rows_cut),
+        "replicates": _replicates(cfg, mesh, analog, batch_note, shape.kind == "train"),
         "roofline": rt.as_dict(),
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),

@@ -17,16 +17,23 @@ mesh. Three forms:
     computes shard (0, 0) alone; its collectives record their kind, bytes
     and group size (``collectives.Recorder``) and communicate nothing.
 
+A distributed mesh of both axes makes its tp rows and data columns as
+subgroups (``tp_group``, ``data_group``; every rank makes every subgroup,
+in the same order, when it builds the mesh); a mesh of one axis uses its
+group for that axis.
+
 Serving reads ``tp``: the analog matmul runs as ``tp`` column shards,
 shard r computing columns ``[r N / tp, (r + 1) N / tp)`` with its noise
 drawn at that global column offset
 (``core.analog._maybe_sharded_analog_dot``), and everything else stays
 replicated; the serving steps (``launch/steps.py``) also cut the batch's
-rows by ``data``. Training reads only ``data`` (each data shard takes
-its rows of the batch; the gradients are summed over the shards and the
-Adam moments cut among them, ZeRO-1), as does the LM calibration;
-tensor-parallel training and a distributed mesh of both axes are not
-ported (ROADMAP A).
+rows by ``data``. Training reads both: under the ``"tp"`` profile each
+rank holds its tensor shard of the weights (Megatron's column and row
+shards, ``models/sharding.py``) and its data shard's rows, the gradients
+are summed over ``data`` and the Adam moments cut among the data shards
+(ZeRO-1); under ``"dp"`` the weights are whole and the batch and the
+moments go over ``data * tp`` shards. The LM calibration reads only
+``data``.
 """
 from __future__ import annotations
 
@@ -49,15 +56,15 @@ class Mesh:
     def __post_init__(self):
         if self.tp < 1 or self.data < 1:
             raise ValueError(f"a mesh needs tp >= 1 and data >= 1, got {self.tp}, {self.data}")
+        groups = (self.group, self.group)
         if self.group is not None and not self.dry:
-            if self.tp > 1 and self.data > 1:
-                raise NotImplementedError(
-                    "a distributed mesh of both data and tensor shards is not ported "
-                    "(tensor-parallel training, ROADMAP A)")
             size = collectives.world_size(self.group)
             if size != self.size:
                 raise ValueError(f"a distributed mesh runs one shard a rank: the group has "
                                  f"{size} ranks for data={self.data} x tp={self.tp}")
+            if self.tp > 1 and self.data > 1:
+                groups = collectives.mesh_subgroups(self.group, self.data, self.tp)
+        object.__setattr__(self, "_groups", groups)
 
     @property
     def distributed(self) -> bool:
@@ -79,18 +86,19 @@ class Mesh:
     @property
     def tp_group(self):
         """The group of the tensor shards' collectives: a dry mesh's group
-        of ``tp`` ranks, else the mesh's group (a distributed mesh has one
-        axis)."""
+        of ``tp`` ranks; this rank's tp row of a distributed mesh of both
+        axes; else the mesh's group."""
         if self.dry:
             return collectives.DryGroup(self.tp, self.group.recorder)
-        return self.group
+        return self._groups[0]
 
     @property
     def data_group(self):
-        """The group of the data shards' collectives (as ``tp_group``)."""
+        """The group of the data shards' collectives (as ``tp_group``: the
+        data column)."""
         if self.dry:
             return collectives.DryGroup(self.data, self.group.recorder)
-        return self.group
+        return self._groups[1]
 
     def _rank(self) -> int:
         return collectives.rank(self.group)

@@ -12,6 +12,18 @@ The temporal-mixing block is: [gate branch: GELU(W_g x)] * [recurrent
 branch: conv1d(W_x x) -> RG-LRU] -> out projection. GELU is the tanh
 approximation, as ``jax.nn.gelu``'s default.
 
+Tensor shards (training, ``models/sharding.py``): the block cuts its
+recurrent width "rnn" among the shards. ``w_gate``, ``w_x``, ``conv_w``
+and ``conv_b`` are column shards, and the conv and the scan run on the
+shard's channels; ``w_a`` and ``w_i`` are placed ``("rnn", None)``, so a
+shard holds their rows for its channels: each gate's pre-activation is a
+partial product over the shard's input channels, summed over tp before
+the sigmoid with each shard keeping its own channels
+(``collectives.reduce_scatter_tp``; no ``xr`` is gathered). ``b_a``,
+``b_i`` and ``lambda`` stay whole, as the placement has them: each shard
+slices its channels, and their gradients are summed over tp. ``w_out``
+is a row shard, summed by *g*.
+
 The diagonal linear recurrence runs as a Hillis-Steele scan for prefill
 (``log2 T`` steps; at step s position t combines with t - 2^s) and as one
 fused update for decode. Position t's result is a function of positions
@@ -28,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.hooks import MatmulHook
+from repro_torch.models.sharding import shard_part, shards_of
 
 F32 = torch.float32
 LRU_C = 8.0
@@ -36,8 +49,14 @@ LRU_C = 8.0
 def rg_lru_coeffs(xr: torch.Tensor, p: Dict[str, torch.Tensor], hook: MatmulHook):
     """(a, beta * gated input) coefficients per position; xr: (B, T, R)
     post-conv recurrent-branch activations."""
-    r = torch.sigmoid(hook("rec_a", xr, p["w_a"]).to(F32) + p["b_a"])
-    i = torch.sigmoid(hook("rec_i", xr, p["w_i"]).to(F32) + p["b_i"])
+    return _lru_coeffs(hook("rec_a", xr, p["w_a"]).to(F32), hook("rec_i", xr, p["w_i"]).to(F32),
+                       xr, p)
+
+
+def _lru_coeffs(pre_a: torch.Tensor, pre_i: torch.Tensor, xr: torch.Tensor, p):
+    """``rg_lru_coeffs`` from the gates' f32 pre-activations."""
+    r = torch.sigmoid(pre_a + p["b_a"])
+    i = torch.sigmoid(pre_i + p["b_i"])
     lam = p["lambda"].to(F32)
     log_a = -LRU_C * r * torch.logaddexp(lam, torch.zeros_like(lam))  # softplus
     a = torch.exp(log_a)
@@ -111,23 +130,49 @@ def recurrent_mix(
     is read at each row's last real position, so it is exactly the state
     after the row's last real token; the conv state is gathered at the
     length boundary. Outputs at pad positions are garbage.
+
+    With ``p`` cut among tensor shards (``Shards`` leaves, the module
+    docstring) the block runs on each shard's channels in turn and returns
+    (y, None, None): a training forward keeps no state.
     """
-    gate = F.gelu(hook("rec_gate", x, p["w_gate"]).to(F32), approximate="tanh")
-    xr = hook("rec_in", x, p["w_x"])  # (B, T, R)
-    xr, conv_state = causal_conv1d(xr, p["conv_w"], p["conv_b"], lengths=lengths)
-    a, b = rg_lru_coeffs(xr, p, hook)
-    if pad_mask is not None:
-        a = torch.where(pad_mask[..., None], torch.ones_like(a), a)
-        b = torch.where(pad_mask[..., None], torch.zeros_like(b), b)
-    h = rg_lru_scan(a, b)  # (B, T, R) f32
-    if lengths is None:
-        h_last = h[:, -1]
+    shards = shards_of(p)
+    if shards:
+        from repro_torch.launch import collectives
+
+        xs, ps = collectives.copy_to_tp(x, shards), [shard_part(p, i) for i in range(len(shards))]
     else:
-        last = torch.clamp(lengths.to(h.device).long() - 1, 0, h.shape[1] - 1)
-        h_last = h[torch.arange(h.shape[0], device=h.device), last]
-    y = (h * gate).to(x.dtype)
-    y = hook("rec_out", y, p["w_out"])
-    return y, h_last, conv_state
+        xs, ps = [x], [p]
+    gates, xrs, pre_a, pre_i = [], [], [], []
+    for xi, pi in zip(xs, ps):
+        gates.append(F.gelu(hook("rec_gate", xi, pi["w_gate"]).to(F32), approximate="tanh"))
+        xr = hook("rec_in", xi, pi["w_x"])  # (B, T, R)
+        xr, conv_state = causal_conv1d(xr, pi["conv_w"], pi["conv_b"], lengths=lengths)
+        xrs.append(xr)
+        pre_a.append(hook("rec_a", xr, pi["w_a"]).to(F32))
+        pre_i.append(hook("rec_i", xr, pi["w_i"]).to(F32))
+    if shards:
+        pre_a = collectives.reduce_scatter_tp(pre_a, shards)
+        pre_i = collectives.reduce_scatter_tp(pre_i, shards)
+    ys = []
+    for j, (xr, pi, gate) in enumerate(zip(xrs, ps, gates)):
+        if shards:  # the whole per-channel leaves: this shard's channels
+            lo, n = shards[j].t * xr.shape[-1], xr.shape[-1]
+            pi = {**pi, **{k: pi[k][lo:lo + n] for k in ("b_a", "b_i", "lambda")}}
+        a, b = _lru_coeffs(pre_a[j], pre_i[j], xr, pi)
+        if pad_mask is not None:
+            a = torch.where(pad_mask[..., None], torch.ones_like(a), a)
+            b = torch.where(pad_mask[..., None], torch.zeros_like(b), b)
+        h = rg_lru_scan(a, b)  # (B, T, R) f32
+        if lengths is None:
+            h_last = h[:, -1]
+        else:
+            last = torch.clamp(lengths.to(h.device).long() - 1, 0, h.shape[1] - 1)
+            h_last = h[torch.arange(h.shape[0], device=h.device), last]
+        y = (h * gate).to(x.dtype)
+        ys.append(hook("rec_out", y, pi["w_out"]))
+    if shards:
+        return collectives.reduce_from_tp(ys, shards), None, None
+    return ys[0], h_last, conv_state
 
 
 def recurrent_decode(

@@ -14,12 +14,14 @@ attention with its two-pass recompute backward (``_FlashAttention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.models.hooks import MatmulHook
+from repro_torch.models.sharding import Shards, tensor_parallel
 from repro_torch.reduce import contraction, row_norm, row_sum
 
 F32 = torch.float32
@@ -351,11 +353,7 @@ def decode_attention(
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
-        mlp_type: str = "swiglu") -> torch.Tensor:
-    """SwiGLU, ``down(silu(gate(x)) * up(x))``, or GELU,
-    ``out(gelu(in(x) + b_in)) + b_out`` with the tanh form of GELU (the
-    reference's ``jax.nn.gelu``) in f32; the biases are optional leaves."""
+def _mlp_partial(x, p, _shard, *, hook, prefix, mlp_type):
     if mlp_type == "swiglu":
         gate = hook(f"{prefix}_gate", x, p["w_gate"])
         up = hook(f"{prefix}_up", x, p["w_up"])
@@ -365,7 +363,19 @@ def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
         if "b_in" in p:
             h = h + p["b_in"].to(h.dtype)
         h = torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    y = hook(f"{prefix}_out", h, p["w_down"])
+    return hook(f"{prefix}_out", h, p["w_down"])
+
+
+def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
+        mlp_type: str = "swiglu") -> torch.Tensor:
+    """SwiGLU, ``down(silu(gate(x)) * up(x))``, or GELU,
+    ``out(gelu(in(x) + b_in)) + b_out`` with the tanh form of GELU (the
+    reference's ``jax.nn.gelu``) in f32; the biases are optional leaves.
+    Tensor shards (``Shards`` leaves): gate, up, in and ``b_in`` are column
+    shards, down a row shard (``tensor_parallel``), ``b_out`` added once
+    after the shards' sum."""
+    y = tensor_parallel(lambda xi, pi, s: _mlp_partial(xi, pi, s, hook=hook, prefix=prefix,
+                                                       mlp_type=mlp_type), x, p)
     if "b_out" in p:
         y = y + p["b_out"].to(y.dtype)
     return y
@@ -383,12 +393,13 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *
     sum nor the mean. The sequence runs in chunks of the largest divisor
     of T not above ``chunk``; each chunk's logits (``hook("lm_head", ...)``,
     float32) are recomputed in the backward (``torch.utils.checkpoint``),
-    so no chunk's logits outlive its forward.
+    so no chunk's logits outlive its forward. A ``Shards`` head (its
+    columns cut among the tensor shards) takes the vocab-parallel loss,
+    ``_vocab_parallel_nll``.
     """
     b, t, _ = h.shape
     hook = hook or MatmulHook()
     chunk = _divisor_chunk(t, chunk)
-    vocab_padded = lm_head.shape[-1] // n_codebooks
     if labels.dim() == 2:
         labels = labels[..., None]
 
@@ -404,6 +415,12 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *
         mask = (lc != ignore_label).to(F32)
         return torch.sum((logz - gold) * mask), torch.sum(mask)
 
+    if isinstance(lm_head, Shards):  # its columns cut among the tensor shards
+        vocab_padded = lm_head[0].shape[-1] * lm_head.shards[0].tp // n_codebooks
+        chunk_nll = functools.partial(_vocab_parallel_nll, heads=lm_head, hook=hook, vocab=vocab,
+                                      vocab_padded=vocab_padded, ignore_label=ignore_label)
+    else:
+        vocab_padded = lm_head.shape[-1] // n_codebooks
     tot = torch.zeros((), dtype=F32, device=h.device)
     cnt = torch.zeros((), dtype=F32, device=h.device)
     for lo in range(0, t, chunk):
@@ -414,3 +431,58 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *
             t_, c_ = chunk_nll(hc, lc)
         tot, cnt = tot + t_, cnt + c_
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _by_codebook(x: torch.Tensor, c0: int, vocab_padded: int, n_codebooks: int, reduce,
+                 fill: float) -> torch.Tensor:
+    """``reduce`` over the last dim of ``x`` (columns ``[c0, c0 + n)`` of
+    the head) within each codebook: (..., n_codebooks), ``fill`` where a
+    codebook has no column here."""
+    n = x.shape[-1]
+    out = []
+    for k in range(n_codebooks):
+        lo, hi = max(c0, k * vocab_padded), min(c0 + n, (k + 1) * vocab_padded)
+        out.append(reduce(x[..., lo - c0:hi - c0], dim=-1) if lo < hi else
+                   torch.full(x.shape[:-1], fill, dtype=x.dtype, device=x.device))
+    return torch.stack(out, dim=-1)
+
+
+def _vocab_parallel_nll(hc, lc, *, heads, hook, vocab: int, vocab_padded: int,
+                        ignore_label: int):
+    """One chunk's (sum of NLL, count) with the lm_head's columns cut among
+    the tensor shards (``heads``: each shard's (d, C / tp) slice of the
+    (d, n_codebooks * vocab_padded) head; a slice may cut across a codebook
+    boundary). Megatron's vocab-parallel loss: each shard's logits, a local
+    max a codebook, the max over tp; a local sum of exp, the sum over tp;
+    the gold logit from the shard that holds it, summed over tp. Pad
+    columns (``>= vocab`` within a codebook) are masked on their shard."""
+    from repro_torch.launch import collectives
+
+    shards = heads.shards
+    n_cb = lc.shape[-1]
+    cols = heads[0].shape[-1]
+    logits, maxes = [], []
+    for x, w, s in zip(collectives.copy_to_tp(hc, shards), heads, shards):
+        lg = hook("lm_head", x, w).to(F32)
+        c0 = s.t * cols
+        if vocab_padded != vocab:
+            col = torch.arange(c0, c0 + cols, device=lg.device)
+            lg = lg.masked_fill(col % vocab_padded >= vocab, NEG_INF)
+        logits.append(lg)
+        maxes.append(_by_codebook(lg, c0, vocab_padded, n_cb, torch.amax, NEG_INF))
+    gmax = collectives.max_over_tp(maxes, shards)  # (b, chunk, n_cb), no gradient
+    sums, golds = [], []
+    lbl = torch.clamp(lc, 0, vocab - 1).long()
+    for lg, s in zip(logits, shards):
+        c0 = s.t * cols
+        cb = torch.arange(c0, c0 + cols, device=lg.device) // vocab_padded
+        e = torch.exp(lg - gmax.index_select(-1, cb))
+        sums.append(_by_codebook(e, c0, vocab_padded, n_cb, torch.sum, 0.0))
+        at = lbl + torch.arange(n_cb, device=lg.device) * vocab_padded - c0
+        hit = (at >= 0) & (at < cols)
+        gold = torch.gather(lg, -1, torch.clamp(at, 0, cols - 1))
+        golds.append(torch.where(hit, gold, torch.zeros((), dtype=F32, device=lg.device)))
+    logz = torch.log(collectives.reduce_from_tp(sums, shards)) + gmax
+    gold = collectives.reduce_from_tp(golds, shards)
+    mask = (lc != ignore_label).to(F32)
+    return torch.sum((logz - gold) * mask), torch.sum(mask)

@@ -87,6 +87,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.models.sharding import Shards, tensor_parallel
 from repro_torch.quant.weights import Int8Params, Int8Weight, dequantize_params, dequantize_weight
 from repro_torch.tree import map_leaves
 
@@ -692,10 +693,33 @@ def _ring_fill(dst: torch.Tensor, kv: torch.Tensor, window: int, lengths) -> Non
 # ===========================================================================
 
 
-def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rope, mode,
-                   cache, pos=None, window=None, lengths=None):
+def _shard_kv(k, v, cfg: ModelConfig, shard, qh: int):
+    """The kv heads (B, T, KH, hd) that tensor shard ``shard``'s ``qh``
+    query heads read, where every shard holds them all: grouped as the
+    whole attention groups them where its heads cover whole groups or lie
+    in one, else one kv head a query head."""
+    q_per_kv = cfg.n_heads // cfg.n_kv_heads
+    ids = [(shard.t * qh + i) // q_per_kv for i in range(qh)]
+    lo, hi = ids[0], ids[-1] + 1
+    if qh % (hi - lo) == 0 and ids == [lo + i // (qh // (hi - lo)) for i in range(qh)]:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    return k[:, :, ids], v[:, :, ids]
+
+
+def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, **kw):
+    """Attention; with its weights cut among tensor shards (``Shards``: wq,
+    bq by whole heads, wk, wv, bk, bv by whole kv heads or whole, wo by
+    rows) a Megatron block (``sharding.tensor_parallel``)."""
+    return tensor_parallel(functools.partial(_attention, cfg=cfg, hook=hook, prefix=prefix, **kw),
+                           x, p)
+
+
+def _attention(x, p, shard, *, cfg: ModelConfig, hook: MatmulHook, prefix: str, rope, mode,
+               cache, pos=None, window=None, lengths=None):
+    """The attention of the query heads ``p`` holds (every head, or tensor
+    shard ``shard``'s), its output projected by ``p["wo"]``."""
     b, t, _ = x.shape
-    hd, qh, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
     cos, sin = rope
     q = hook(f"{prefix}_q", x, p["wq"])
     k = hook(f"{prefix}_k", x, p["wk"])
@@ -704,7 +728,10 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, *, rop
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    qh, kh = q.shape[-1] // hd, k.shape[-1] // hd
     q, k, v = q.reshape(b, t, qh, hd), k.reshape(b, t, kh, hd), v.reshape(b, t, kh, hd)
+    if shard is not None and kh == cfg.n_kv_heads and qh < cfg.n_heads:
+        k, v = _shard_kv(k, v, cfg, shard, qh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if mode == "decode":
@@ -998,10 +1025,29 @@ def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
     batch = _as_batch(batch)
     if cfg.frontend == "frames":
         return batch["embeds"].to(cfg.compute_dtype)
-    h = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    h = _lookup(params["embed"], batch["tokens"]).to(cfg.compute_dtype)
     if cfg.frontend == "patch":
         h = torch.cat([batch["patch_embeds"].to(cfg.compute_dtype), h], dim=1)
     return h
+
+
+def _lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; an embedding whose vocabulary rows are cut among
+    the tensor shards (``Shards``) is looked up vocab-parallel: each shard
+    zeroes the tokens outside its rows, then *g* sums the shards'."""
+    if not isinstance(embed, Shards):
+        return embed[tokens]
+    from repro_torch.launch import collectives
+
+    shards = embed.shards
+    parts = []
+    for e, s in zip(embed, shards):
+        rows = e.shape[0]
+        at = tokens.long() - s.t * rows
+        hit = (at >= 0) & (at < rows)
+        parts.append(torch.where(hit[..., None], e[torch.clamp(at, 0, rows - 1)],
+                                 torch.zeros((), dtype=e.dtype, device=e.device)))
+    return collectives.reduce_from_tp(parts, shards)
 
 
 def forward_hidden(params, h, cfg: ModelConfig, *, cache=None, analog=None, lengths=None,
@@ -1025,8 +1071,9 @@ def hidden(params, batch, cfg: ModelConfig, analog=None) -> torch.Tensor:
 
 
 def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return params["embed"].T
+    if cfg.tie_embeddings:  # one tensor a shard for both uses: its gradient adds both
+        e = params["embed"]
+        return Shards((t.T for t in e), e.shards) if isinstance(e, Shards) else e.T
     head = params["lm_head"]
     return dequantize_weight(head) if isinstance(head, Int8Weight) else head
 

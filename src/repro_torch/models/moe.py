@@ -7,6 +7,13 @@ loss is training's). Tokens are routed in groups of ``moe_group_size``;
 each expert takes at most ``capacity`` tokens of a group, earlier routing
 slots first, and a token past its expert's capacity is dropped there.
 
+Tensor shards (training, ``models/sharding.py``): each expert's gate, up
+and in are column shards and its down a row shard on "expert_mlp", the
+shards' outputs summed by *g* before the combine; the router and the
+dispatch stay whole and run the same bits on every shard. The experts
+stay whole across data shards, as in the data-parallel step: expert
+parallelism over "data" and the "expert_embed" cut are ROADMAP A.4, A.5.
+
 Analog integration: the expert matmuls run through ``hook.batched`` with
 per-expert energies, one batch-level noise stream per site (capacity
 buffers mix requests; ``hooks.AnalogHook.batched``).
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.hooks import MatmulHook
 from repro_torch.models.layers import mlp
+from repro_torch.models.sharding import tensor_parallel
 from repro_torch.reduce import row_sum
 
 F32 = torch.float32
@@ -89,6 +97,18 @@ def make_dispatch(ids: torch.Tensor, gate_vals: torch.Tensor, n_experts: int, ca
     return (combine > 0.0).to(F32), combine
 
 
+def _expert_ff(xe: torch.Tensor, p, cfg: ModelConfig, hook: MatmulHook) -> torch.Tensor:
+    """Every expert's FF on its buffer: (E * split, G, C, d) -> the same."""
+    if cfg.mlp_type == "swiglu":
+        gate = hook.batched("moe_gate", xe, p["w_gate"])
+        up = hook.batched("moe_up", xe, p["w_up"])
+        h = F.silu(gate.to(F32)).to(xe.dtype) * up
+    else:
+        h = hook.batched("moe_in", xe, p["w_in"])
+        h = F.gelu(h.to(F32), approximate="tanh").to(xe.dtype)
+    return hook.batched("moe_down", h, p["w_down"])
+
+
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, hook: MatmulHook,
               pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, T, d) -> (B, T, d).
@@ -118,14 +138,8 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, hoo
         dispatch = torch.repeat_interleave(dispatch, split, dim=2)
     xe = torch.einsum("gsd,gsec->gecd", x.reshape(g, gs, d), dispatch).transpose(0, 1)
 
-    if cfg.mlp_type == "swiglu":
-        gate = hook.batched("moe_gate", xe, p["w_gate"])
-        up = hook.batched("moe_up", xe, p["w_up"])
-        h = F.silu(gate.to(F32)).to(x.dtype) * up
-    else:
-        h = hook.batched("moe_in", xe, p["w_in"])
-        h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    ye = hook.batched("moe_down", h, p["w_down"])  # (E * split, G, C, d)
+    experts = {k: p[k] for k in ("w_gate", "w_up", "w_in", "w_down") if k in p}
+    ye = tensor_parallel(lambda xi, pi, _s: _expert_ff(xi, pi, cfg, hook), xe, experts)
 
     # combine: each token's kept slots, its expert's split partials in
     # order, weighted by the gate value in the activation dtype

@@ -19,14 +19,22 @@ F32 = torch.float32
 Tree = Any
 
 
-def _sum_squares(l: torch.Tensor) -> torch.Tensor:
+@torch.no_grad()
+def sum_squares(l: torch.Tensor) -> torch.Tensor:
+    """A leaf's float32 sum of squares, slice by slice."""
     parts = [torch.sum(torch.square(l[sl].to(F32))) for sl in leading_slices(l)]
     return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
 
 
 @torch.no_grad()
+def norm_of(leaf_sums: list) -> torch.Tensor:
+    """The global norm from the leaves' sums of squares, in leaf order."""
+    return torch.sqrt(torch.sum(torch.stack(leaf_sums)))
+
+
+@torch.no_grad()
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack([_sum_squares(l) for l in leaves(tree)])))
+    return norm_of([sum_squares(l) for l in leaves(tree)])
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

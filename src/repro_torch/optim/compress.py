@@ -22,9 +22,13 @@ F32 = torch.float32
 Tree = Any
 
 
-def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes, scale); ``amax``: the tensor's max|x| where ``x`` is a shard
+    of it (default: ``x``'s own)."""
     x32 = x.to(F32)
-    scale = torch.clamp(torch.amax(torch.abs(x32)) / 127.0, min=1e-30)
+    amax = torch.amax(torch.abs(x32)) if amax is None else amax
+    scale = torch.clamp(amax / 127.0, min=1e-30)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -34,11 +38,13 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def ef_int8_roundtrip(grads: Tree) -> Tree:
-    """Per-tensor int8 quantize -> dequantize of every leaf, in its dtype."""
+def ef_int8_roundtrip(grads: Tree, amax: Optional[dict] = None) -> Tree:
+    """Per-tensor int8 quantize -> dequantize of every leaf, in its dtype.
+    ``amax``: path -> the whole tensor's max|g| for a leaf that is a
+    tensor shard of it."""
 
-    def one(_path, g):
-        q, s = int8_quantize(g)
+    def one(path, g):
+        q, s = int8_quantize(g, None if amax is None else amax.get(path))
         return int8_dequantize(q, s).to(g.dtype)
 
     return map_leaves(one, grads)

@@ -15,12 +15,13 @@ parameters, bit for bit, as one without. Initial parameters come from
 ``lm.init_params(cfg, seed)`` (the reference's ``jax.random`` draws are
 not reproduced).
 
-The mesh is None or a mesh of data shards (``launch/steps.py``: ZeRO-1
-moments). A checkpoint holds the whole state whatever the mesh: in the
-distributed form the moments are gathered and rank 0 writes; every rank
-restores the whole state and takes its regions. So a checkpoint restores
-on any data mesh, and ``resize`` moves a run to another one. Tensor
-shards in training are not ported (ROADMAP A).
+The mesh is None or a mesh of data x tensor shards (``launch/steps.py``:
+Megatron's shards of the weights, ZeRO-1 moments). A checkpoint holds the
+whole state whatever the mesh: in the distributed form the moments'
+regions and the tensor shards are gathered and rank 0 writes; every rank
+restores the whole state and takes its tensor shard and its regions. So a
+checkpoint restores on any mesh, and ``resize`` moves a run to another
+one.
 """
 from __future__ import annotations
 
@@ -33,12 +34,15 @@ import torch
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives
 from repro_torch.launch.steps import (
     TrainConfig,
     gather_opt_state,
+    gather_params,
     make_opt_init,
     make_train_step,
     shard_opt_state,
+    shard_params,
 )
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -94,7 +98,7 @@ class DriverConfig:
 class TrainDriver:
     """Trains ``model_cfg`` on ``data_cfg``'s Markov task on ``device``
     (the card unless the caller asks for the CPU), checkpointing under
-    ``ckpt_dir``. ``mesh``: None or a mesh of data shards (tp 1); in the
+    ``ckpt_dir``. ``mesh``: None or a mesh of data x tensor shards; in the
     distributed form every rank runs a driver on the same directory and
     rank 0 writes."""
 
@@ -135,10 +139,12 @@ class TrainDriver:
     def _writer(self) -> bool:
         """Whether this process writes checkpoints (rank 0 of a distributed
         mesh, else always)."""
-        return self.mesh is None or not self.mesh.distributed or self.mesh.data_shards()[0] == 0
+        return (self.mesh is None or not self.mesh.distributed
+                or collectives.rank(self.mesh.group) == 0)
 
     def _init_state(self) -> Dict[str, Any]:
-        params = lm.init_params(self.model_cfg, self.seed, device=self.device)
+        params = shard_params(lm.init_params(self.model_cfg, self.seed, device=self.device),
+                              self.model_cfg, self.mesh)
         return {"params": params, "opt": self._opt_init(params)}
 
     def _template(self) -> Dict[str, Any]:
@@ -153,14 +159,15 @@ class TrainDriver:
         if restored is None:
             return 0, self._init_state()
         step, host = restored
+        params = shard_params(host["params"], self.model_cfg, self.mesh)
         opt = shard_opt_state(host["opt"], self.model_cfg, self.mesh)
-        return step, {"params": map_leaves(lambda _p, t: t.to(self.device), host["params"]),
+        return step, {"params": map_leaves(lambda _p, t: t.to(self.device), params),
                       "opt": _to_device(opt, self.device)}
 
     def _save(self, step: int, state, blocking: bool) -> None:
-        """The whole state (moments gathered: a collective on a distributed
-        mesh), written by the writer."""
-        whole = {"params": state["params"],
+        """The whole state (tensor shards and moments gathered: collectives
+        on a distributed mesh), written by the writer."""
+        whole = {"params": gather_params(state["params"], self.model_cfg, self.mesh),
                  "opt": gather_opt_state(state["opt"], self.model_cfg, self.mesh)}
         if self._writer:
             self.ckpt.save(step, whole, blocking=blocking)
@@ -206,17 +213,18 @@ class TrainDriver:
 
     def resize(self, new_mesh) -> None:
         """Elastic re-mesh, the reference's: restore the live state, rebuild
-        the step for ``new_mesh``, reshard the state onto it (each data
-        shard takes its moments' regions), make a blocking save, and log
+        the step for ``new_mesh``, reshard the state onto it (each rank
+        takes its tensor shard and its moments' regions), make a blocking save, and log
         ``{"step", "event": "resize", "mesh_from", "mesh_to"}`` with both
         meshes' ``mesh_fingerprint``. A later ``run()`` resumes on the new
         mesh."""
         step, state = self._restore_or_init()
+        params = gather_params(state["params"], self.model_cfg, self.mesh)
         whole = gather_opt_state(state["opt"], self.model_cfg, self.mesh)
         old_fp = mesh_fingerprint(self.mesh)
         self.mesh = new_mesh
         self._build()
-        state = {"params": state["params"],
+        state = {"params": shard_params(params, self.model_cfg, self.mesh),
                  "opt": shard_opt_state(whole, self.model_cfg, self.mesh)}
         self._save(step, state, blocking=True)
         self.metrics_log.append({"step": step, "event": "resize", "mesh_from": old_fp,

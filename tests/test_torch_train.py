@@ -414,8 +414,14 @@ def test_train_step_accumulates_in_place_in_the_param_dtype():
 
 
 def test_steps_refuse_a_mesh():
+    """What still refuses tensor shards: the LM calibration (its analog
+    sites under tp, ROADMAP A.6); the train step takes them."""
+    from repro_torch.core.analog import AnalogConfig
     from repro_torch.launch.mesh import make_mesh_for_devices
 
     cfg, _ = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(cfg, make_mesh_for_devices(2))
+    steps.make_train_step(cfg, make_mesh_for_devices(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        steps.make_calibrate_step(cfg, make_mesh_for_devices(2),
+                                  analog_cfg=AnalogConfig.shot(backend="torch"), seq_len=T,
+                                  target_e_per_mac=1.0)
