@@ -147,7 +147,16 @@ tensor shards (Megatron's column and row shards, the vocab-parallel
 loss), 3 steps of 2 x 2,048 as one device, the local form and 2
 processes on the card over gloo (train_dp's, after their own steps):
 local == ranks bit for bit, both within a stated bound of one device, a
-rank's parameter bytes, peak and tp collectives' ms and bytes.
+rank's parameter bytes, peak and tp collectives' ms and bytes. The LM
+calibration on the same 2 tensor shards (``calibrate_tp``: shot noise on
+the "torch" backend, the analog sites' noise at the one-device call's
+place, 2 steps of 2 x 512, one device, the local form and the 2 ranks,
+which run it after train_tp's steps): local == ranks bit for bit, one
+device within a stated bound. Both calibrations also hold a checkpointed
+region's recompute, which the autograd device thread runs, to the data
+shard's place: data shard 1's energy gradients with every checkpoint on
+equal those of a step that checkpoints nothing, bit for bit, and a
+control that drops the place in the recompute lies outside.
 The dry run's reckoning (``dryrun``): the train programs this run
 measured (train_tp's as a rank on a dry mesh), reckoned on the meta
 device, each reckoned peak beside the measured one, and a small real step's FLOPs on the card against the
@@ -159,6 +168,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -300,7 +310,7 @@ PHASES = ("build", "threefry", "kernels", "routes", "tp_routes", "site_time", "s
           "serve_qwen14", "qwen32_fit", "serve_bert", "calibrate", "search", "frontends",
           "serve_xlstm", "xlstm_long", "serve_grok", "llama4_fit", "tp_families", "train",
           "calibrate_lm", "train_griffin", "train_xlstm", "train_moe", "train_driver", "conv",
-          "train_dp", "train_tp", "dryrun")
+          "train_dp", "train_tp", "calibrate_tp", "dryrun")
 #: phases that ``serve`` runs after its own (they share its weights)
 SERVE_FOLLOWERS = ("serve_weight", "profile", "continuous", "resilience")
 #: phases that ``serve_griffin`` runs after its own (recurrentgemma's weights)
@@ -3909,9 +3919,31 @@ CAL_DP_REL, CAL_DP_LOG_E = 1e-4, 2e-4
 #: shards), set from the card's readings (PERF.md); a rank holds at most
 #: ``TRAIN_TP_PARAM_SHARE`` of one device's parameter bytes
 TRAIN_TP, TRAIN_TP_B, TRAIN_TP_REL, TRAIN_TP_PARAM_SHARE = 2, 2, 2e-3, 0.6
+#: the calibrate_tp phase: the LM calibration at train_tp's model, depth and
+#: shards, ``CAL_TP_B`` x ``CAL_DP_T``, ``CAL_DP_STEPS`` steps, shot noise on
+#: the "torch" backend, three ways (one device, the local form, train_tp's
+#: ranks after their train steps). Local == ranks bit for bit; the local
+#: form holds the one-device step's loss and NLL within ``CAL_TP_REL``
+#: (relative) and its log energies within ``CAL_TP_LOG_E`` (absolute): the
+#: row-cut sites' partials are summed over the shards before their noise,
+#: in another order than one device's product. calibrate_dp's bounds (the
+#: log energies' is 4e-3 ``CAL_LM_LR``: Adam's normalised second step can
+#: amplify a small gradient's difference); the card's reading sits 5x and
+#: 70x inside them (PERF.md)
+CAL_TP_B = 2
+CAL_TP_REL, CAL_TP_LOG_E = CAL_DP_REL, CAL_DP_LOG_E
+#: a checkpointed region's recompute (``models/sharding.py`` ``remat``):
+#: data shard 1's energy gradients in one calibrate step with every
+#: checkpoint on equal a step's that checkpoints nothing bit for bit; the
+#: control, whose recompute drops the places (the autograd device thread's
+#: empty thread-local state), lies at least 5x this distance from them
+#: (largest |difference| over the largest |gradient|)
+CAL_REMAT_REL = 1e-4
 #: train_tp's ranks' results when train_dp's processes ran them after
 #: their own steps (no second pair of processes to start and warm)
 _TP_RANKS: list = []
+#: calibrate_tp's ranks' results (run by train_tp's ranks after their steps)
+_CAL_TP_RANKS: list = []
 #: the train phases' programs (phase -> (config, rows, positions, the
 #: measured peak bytes[, tensor shards])), for the dry run's reckoning
 TRAIN_PEAKS: dict = {}
@@ -4031,37 +4063,61 @@ def _dp_run(cfg, mesh, microbatches, profile=False, keep=False, counting=None,
     return out
 
 
-def _cal_dp_run(cfg, mesh, seed=0) -> dict:
-    """``CAL_DP_STEPS`` LM calibration steps (``make_calibrate_step`` on
-    ``mesh``: a data mesh or one device) on bf16 weights from seed 0, shot
-    noise on the "torch" backend, batches and noise keys from ``seed``:
-    each step's loss, NLL and ms, the log energies (their values and
-    fingerprint) and E a MAC after the steps."""
-    import torch
-
+def _cal_setup(cfg, mesh, rows, seed=0):
+    """A ``make_calibrate_step`` on ``mesh`` with its inputs: bf16 weights
+    from seed 0 (a tensor rank's shard of them, ``shard_params``), uniform
+    log energies at ``CAL_LM_INIT_MULT`` x ``CAL_LM_TARGET`` and their Adam
+    state, shot noise on the "torch" backend, ``markov_batch``es of
+    ``rows`` x ``CAL_DP_T`` from ``seed``: (step, params, log_e, opt,
+    data)."""
     from repro_torch.core.analog import AnalogConfig
-    from repro_torch.core.energy import avg_energy_per_mac, to_energy, uniform_log_energies
-    from repro_torch.data.pipeline import TokenTaskConfig, markov_batch
-    from repro_torch.kernels import prng
-    from repro_torch.launch.steps import make_calibrate_step
+    from repro_torch.core.energy import uniform_log_energies
+    from repro_torch.data.pipeline import TokenTaskConfig
+    from repro_torch.launch.steps import make_calibrate_step, shard_params
     from repro_torch.models import lm
     from repro_torch.optim.adam import AdamConfig, adam_init
-    from repro_torch.tree import leaves, map_leaves
+    from repro_torch.tree import map_leaves
 
-    _free()
-    params = lm.init_params(cfg, seed=0, device="cuda")
+    params = shard_params(lm.init_params(cfg, seed=0, device="cuda"), cfg, mesh)
     step = make_calibrate_step(cfg, mesh, analog_cfg=AnalogConfig.shot(backend="torch"),
                                seq_len=CAL_DP_T, target_e_per_mac=CAL_LM_TARGET, lam=CAL_LM_LAM,
                                lr=CAL_LM_LR)
     log_e = map_leaves(lambda _p, t: t.cuda(),
                        uniform_log_energies(step.macs, CAL_LM_INIT_MULT * CAL_LM_TARGET))
-    opt = adam_init(log_e, AdamConfig(lr=CAL_LM_LR))
-    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=CAL_DP_T, global_batch=CAL_DP_B,
+    data = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=CAL_DP_T, global_batch=rows,
                            seed=7 + seed)
-    out = dict(losses=[], nlls=[], step_ms=[])
+    return step, params, log_e, adam_init(log_e, AdamConfig(lr=CAL_LM_LR)), data
+
+
+def _cal_dp_run(cfg, mesh, seed=0, rows=CAL_DP_B, counting=None) -> dict:
+    """``CAL_DP_STEPS`` LM calibration steps (``make_calibrate_step`` on
+    ``mesh``: a data x tp mesh, a rank of one, or one device; ``_cal_setup``)
+    of ``rows`` x ``CAL_DP_T``, batches and noise keys from ``seed``: each
+    step's loss, NLL and ms, the steps' peak GiB, the log energies (their
+    values and fingerprint) and E a MAC after the steps. ``counting``: a
+    dict whose ``"on"`` is True while a step runs."""
+    import torch
+
+    from repro_torch.core.energy import avg_energy_per_mac, to_energy
+    from repro_torch.data.pipeline import markov_batch
+    from repro_torch.kernels import prng
+    from repro_torch.tree import leaves
+
+    _free()
+    step, params, log_e, opt, data = _cal_setup(cfg, mesh, rows, seed)
+    counting = {} if counting is None else counting
+    out = dict(losses=[], nlls=[], step_ms=[], peak_gib=0.0)
     for i in range(CAL_DP_STEPS):
-        (log_e, opt, m), ms = _wall_ms(lambda i=i: step(log_e, opt, params, markov_batch(data, i),
-                                                        prng.fold_in(prng.PRNGKey(seed), i)))
+        def one(i=i):
+            counting["on"] = True
+            res = step(log_e, opt, params, markov_batch(data, i),
+                       prng.fold_in(prng.PRNGKey(seed), i))
+            counting["on"] = False
+            return res
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (log_e, opt, m), ms = _wall_ms(one)
+        out["peak_gib"] = max(out["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
         out["losses"].append(float(m["loss"]))
         out["nlls"].append(float(m["nll"]))
         out["step_ms"].append(ms)
@@ -4074,13 +4130,86 @@ def _cal_dp_run(cfg, mesh, seed=0) -> dict:
     return out
 
 
-def _train_dp_worker(rank, port, out_dir, n_layers, with_tp=False):
+def _remat_check(cfg, tp) -> dict:
+    """A checkpointed region's recompute under its data shard's place: one
+    calibrate step (``_cal_setup``, ``CAL_DP_B`` rows) in the local form
+    of ``TRAIN_DP`` data x ``tp`` tensor shards, three ways, and data shard
+    1's energy gradients on each tensor shard (``steps._grads_of``' calls
+    for that shard, before their sum over tp): ``cfg.remat`` on with every
+    checkpoint of the port (``sharding.remat``: the layer groups and each
+    lm_head chunk of the loss; on the card their recompute runs on the
+    autograd device thread), ``eager`` (remat off and ``sharding.remat`` a
+    plain call: nothing checkpointed), and the control (every checkpoint,
+    its recompute under no places at all, as the autograd device thread saw
+    them before ``remat`` re-entered them). The remat gradients and
+    the control's against the eager ones: bit-equal, and the largest
+    |difference| over the largest |gradient|; ms of each step."""
+    import torch
+    import torch.utils.checkpoint
+
+    from repro_torch.data.pipeline import markov_batch
+    from repro_torch.kernels import prng
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import sharding
+    from repro_torch.tree import leaves
+
+    mesh = make_mesh_for_devices(tp, data=TRAIN_DP)
+    per = max(1, tp)  # _grads_of calls a data shard: one a tensor shard
+    ways = {"remat": sharding.remat, "eager": lambda fn, *args: fn(*args),
+            "control": lambda fn, *args: torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), sharding._within({})))}
+    plain_remat, plain_grads = sharding.remat, steps._grads_of
+    grads, ms = {}, {}
+    try:
+        for how, remat in ways.items():
+            got = []
+
+            def grads_of(tree, got=got):
+                g = plain_grads(tree)
+                got.append([t.detach().clone() for t in leaves(g)])
+                return g
+
+            _free()
+            step, params, log_e, opt, data = _cal_setup(
+                dataclasses.replace(cfg, remat=how != "eager"), mesh, CAL_DP_B)
+            sharding.remat, steps._grads_of = remat, grads_of
+            _, ms[how] = _wall_ms(lambda: step(log_e, opt, params, markov_batch(data, 0),
+                                               prng.fold_in(prng.PRNGKey(0), 0)))
+            sharding.remat, steps._grads_of = plain_remat, plain_grads
+            grads[how] = [g for shard in got[per:2 * per] for g in shard]
+            step = params = log_e = opt = None
+    finally:
+        sharding.remat, steps._grads_of = plain_remat, plain_grads
+    _free()
+
+    def rel(a, b):
+        return (max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+                / max(float(y.float().abs().max()) for y in b))
+
+    want = grads["eager"]
+    return dict(remat_bit_equal=all(torch.equal(x, y) for x, y in zip(grads["remat"], want)),
+                remat_rel=rel(grads["remat"], want), control_rel=rel(grads["control"], want),
+                grad_tensors=len(want), step_ms=ms, data_shards=TRAIN_DP, tensor_shards=tp)
+
+
+def _check_remat(phase, r) -> None:
+    """``_remat_check``'s verdict: the remat gradients bit-equal to the
+    eager ones, the control at least 5x ``CAL_REMAT_REL`` from them."""
+    if not (r["remat_bit_equal"] and r["control_rel"] >= 5 * CAL_REMAT_REL):
+        raise AssertionError(f"{phase}: a recompute's data-shard place: {r} "
+                             f"(the control's bound {5 * CAL_REMAT_REL})")
+
+
+def _train_dp_worker(rank, port, out_dir, n_layers, with_tp=False, with_cal=False):
     """One rank of the distributed form: a gloo group of ``TRAIN_DP`` ranks
     on the one card (NCCL refuses two ranks on one device), CUDA tensors
     staged through pinned host memory by ``launch/collectives.py``; the
     collectives' seconds and bytes a step counted; ``with_tp``: then
-    train_tp's distributed form on the same group (``_tp_rank_run``); its
-    results written to ``out_dir/rank<r>.json``."""
+    train_tp's distributed form on the same group (``_tp_rank_run``), and
+    with ``with_cal`` calibrate_tp's; its results written to
+    ``out_dir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -4130,14 +4259,14 @@ def _train_dp_worker(rank, port, out_dir, n_layers, with_tp=False):
         res["calibrate"].update({k: v / CAL_DP_STEPS for k, v in spent.items()})
         collectives.sum_in_rank_order_, collectives.gather_regions_ = plain
         if with_tp:
-            res["train_tp"] = _tp_rank_run(rank, n_layers)
+            res["train_tp"] = _tp_rank_run(rank, n_layers, with_cal)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_train_dp(with_tp=False):
+def phase_train_dp(with_tp=False, with_cal=False):
     """granite-3-8b at full width, trained on a data mesh of ``TRAIN_DP``
     shards with ZeRO-1 moments at ``TRAIN_DP_LAYERS`` layers (at most the
     depth ``train_dp_depth`` reckons, which the log names too):
@@ -4149,7 +4278,9 @@ def phase_train_dp(with_tp=False):
     rank 0's device ms a step, the collectives' seconds and bytes a step,
     peak GiB a rank and moment bytes a rank against one device's. Training
     launches no analog kernel. ``with_tp`` (the run has train_tp too): the
-    ranks then run train_tp's distributed form (``_TP_RANKS``)."""
+    ranks then run train_tp's distributed form (``_TP_RANKS``), and with
+    ``with_cal`` calibrate_tp's. calibrate_dp holds a checkpointed
+    region's recompute to its data shard's place (``_remat_check``)."""
     import shutil
     import socket
 
@@ -4166,6 +4297,7 @@ def phase_train_dp(with_tp=False):
     local = _dp_run(cfg, make_mesh_for_devices(1, data=TRAIN_DP), 1)
     cal_one = _cal_dp_run(cfg, None)
     cal_local = _cal_dp_run(cfg, make_mesh_for_devices(1, data=TRAIN_DP))
+    cal_remat = _remat_check(cfg, 1)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         with socket.socket() as s:
@@ -4173,7 +4305,7 @@ def phase_train_dp(with_tp=False):
             port = s.getsockname()[1]
         t0 = time.perf_counter()
         with_tp = with_tp and TRAIN_TP == TRAIN_DP
-        mp.start_processes(_train_dp_worker, args=(port, out_dir, depth, with_tp),
+        mp.start_processes(_train_dp_worker, args=(port, out_dir, depth, with_tp, with_cal),
                            nprocs=TRAIN_DP, start_method="spawn", join=True)
         spawn_s = time.perf_counter() - t0
         ranks = []
@@ -4216,22 +4348,18 @@ def phase_train_dp(with_tp=False):
     if sum(r["peak_gib"] for r in ranks) * 2**30 > TRAIN_PEAK_SHARE * total:
         raise AssertionError(f"train_dp: the ranks' peaks {[r['peak_gib'] for r in ranks]} GiB "
                              f"over {TRAIN_PEAK_SHARE} of the card")
-    _check_calibrate_dp(cfg, cal_one, cal_local, [r["calibrate"] for r in ranks])
+    _check_calibrate_dp(cfg, cal_one, cal_local, [r["calibrate"] for r in ranks], cal_remat)
 
 
-def _tp_rank_run(rank, n_layers) -> dict:
-    """train_tp's distributed form in one rank of a gloo group of
-    ``TRAIN_TP`` ranks on the one card, each holding its tensor shard of
-    the weights: ``_dp_run``'s results (its parameters' fingerprint its
-    shard's), with the tp collectives' seconds, calls and received bytes a
-    step (every exchange passes ``collectives._gather``)."""
+def _tp_counted(run) -> tuple:
+    """``run(counting)`` with each tp exchange (every one passes
+    ``collectives._gather``) made while ``counting["on"]`` is True timed
+    and counted: (its result, the exchanges' seconds, calls and received
+    bytes in all)."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.launch import collectives
-    from repro_torch.launch.mesh import make_mesh_for_devices
 
-    mesh = make_mesh_for_devices(TRAIN_TP, group=dist.group.WORLD)
     counting = {"on": False}
     spent = {"s": 0.0, "calls": 0, "bytes": 0}
     gather = collectives._gather
@@ -4250,15 +4378,37 @@ def _tp_rank_run(rank, n_layers) -> dict:
 
     collectives._gather = timed
     try:
-        res = _dp_run(_dp_cfg(n_layers), mesh, 1, profile=True, counting=counting,
-                      rows=TRAIN_TP_B)
+        return run(counting), spent
     finally:
         collectives._gather = gather
+
+
+def _tp_rank_run(rank, n_layers, with_cal=False) -> dict:
+    """train_tp's distributed form in one rank of a gloo group of
+    ``TRAIN_TP`` ranks on the one card, each holding its tensor shard of
+    the weights: ``_dp_run``'s results (its parameters' fingerprint its
+    shard's), with the tp collectives' seconds, calls and received bytes a
+    step (``_tp_counted``); ``with_cal``: then calibrate_tp's rank, its
+    ``_cal_dp_run`` on the same shards with its tp exchanges, under
+    ``"calibrate_tp"``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    mesh = make_mesh_for_devices(TRAIN_TP, group=dist.group.WORLD)
+    cfg = _dp_cfg(n_layers)
+    res, spent = _tp_counted(lambda counting: _dp_run(cfg, mesh, 1, profile=True,
+                                                      counting=counting, rows=TRAIN_TP_B))
     res.update({f"tp_{k}": v / TRAIN_DP_STEPS for k, v in spent.items()}, rank=rank)
+    if with_cal:
+        cal, spent = _tp_counted(lambda counting: _cal_dp_run(cfg, mesh, rows=CAL_TP_B,
+                                                              counting=counting))
+        cal.update({f"tp_{k}": v / CAL_DP_STEPS for k, v in spent.items()}, rank=rank)
+        res["calibrate_tp"] = cal
     return res
 
 
-def _train_tp_worker(rank, port, out_dir, n_layers):
+def _train_tp_worker(rank, port, out_dir, n_layers, with_cal=False):
     """One rank of train_tp's distributed form in a process of its own
     (the run has no train_dp): ``_tp_rank_run``, written to
     ``out_dir/rank<r>.json``."""
@@ -4270,14 +4420,14 @@ def _train_tp_worker(rank, port, out_dir, n_layers):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=TRAIN_TP, rank=rank)
     try:
-        res = _tp_rank_run(rank, n_layers)
+        res = _tp_rank_run(rank, n_layers, with_cal)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_train_tp():
+def phase_train_tp(with_cal=False):
     """granite-3-8b at full width trained on ``TRAIN_TP`` tensor shards
     (Megatron's column and row shards, the vocab-parallel loss) at
     train_dp's depth, positions and steps and ``TRAIN_TP_B`` rows, three
@@ -4293,7 +4443,8 @@ def phase_train_tp():
     analog kernel runs. Logged: ms a step of each form, a rank's parameter
     and moment bytes against one device's, peak GiB a rank, the tp
     collectives' ms, calls and received bytes a step, the parameters'
-    distance from one device's after the steps."""
+    distance from one device's after the steps. ``with_cal``: the ranks
+    run calibrate_tp's too (``_CAL_TP_RANKS``)."""
     import shutil
     import socket
 
@@ -4325,7 +4476,8 @@ def phase_train_tp():
                 s.bind(("127.0.0.1", 0))
                 port = s.getsockname()[1]
             t0 = time.perf_counter()
-            mp.start_processes(_train_tp_worker, args=(port, out_dir, depth), nprocs=TRAIN_TP,
+            mp.start_processes(_train_tp_worker, args=(port, out_dir, depth, with_cal),
+                               nprocs=TRAIN_TP,
                                start_method="spawn", join=True)
             spawn_s = time.perf_counter() - t0
             for r in range(TRAIN_TP):
@@ -4333,6 +4485,7 @@ def phase_train_tp():
                     ranks.append(json.load(f))
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
+    _CAL_TP_RANKS[:] = [r.pop("calibrate_tp") for r in ranks if "calibrate_tp" in r]
     forms = {"one_device": one, "local": local, **{f"rank{r['rank']}": r for r in ranks}}
     equal = {name: all(f[k] == local[k] for k in ("losses", "grad_norms"))
              for name, f in forms.items()}
@@ -4383,11 +4536,11 @@ def cal_dp_diffs(a, b) -> tuple:
     return rel, log_e
 
 
-def _check_calibrate_dp(cfg, one, local, ranks):
+def _check_calibrate_dp(cfg, one, local, ranks, remat):
     """``calibrate_dp``'s line and checks: the local form and every rank
     equal bit for bit (losses, NLLs, log energies); the one-device form
     within ``CAL_DP_REL`` (loss, NLL) and ``CAL_DP_LOG_E`` (log
-    energies)."""
+    energies); the recompute's place (``remat``, ``_check_remat``)."""
     keys = ("losses", "nlls", "prints")
     forms = {"one_device": one, "local": local, **{f"rank{r}": c for r, c in enumerate(ranks)}}
     equal = {name: all(f[k] == local[k] for k in keys) for name, f in forms.items()}
@@ -4402,13 +4555,67 @@ def _check_calibrate_dp(cfg, one, local, ranks):
         collective_ms_a_step={n: f.get("reduce_s", 0.0) * 1e3 for n, f in forms.items()},
         e_per_mac_after={n: f["e_per_mac"] for n, f in forms.items()},
         equal_to_local=equal, one_device_rel=rel, one_device_log_e_abs=log_e_diff,
-        bounds=dict(rel=CAL_DP_REL, log_e_abs=CAL_DP_LOG_E), card=card())
+        bounds=dict(rel=CAL_DP_REL, log_e_abs=CAL_DP_LOG_E),
+        peak_gib={n: f["peak_gib"] for n, f in forms.items()},
+        recompute=remat, recompute_control_bound=5 * CAL_REMAT_REL, card=card())
     if not all(v for n, v in equal.items() if n != "one_device"):
         raise AssertionError(f"calibrate_dp: the ranks differ from the local form: {equal}")
     if not (all(map(math.isfinite, local["losses"] + local["nlls"])) and rel <= CAL_DP_REL
             and log_e_diff <= CAL_DP_LOG_E):
         raise AssertionError(f"calibrate_dp: one device {rel} relative, log energies "
                              f"{log_e_diff}, losses {local['losses']}")
+    _check_remat("calibrate_dp", remat)
+
+
+def phase_calibrate_tp():
+    """granite-3-8b's LM calibration on ``TRAIN_TP`` tensor shards (the
+    analog sites' noise at the one-device call's place: a column shard's
+    window, a row-cut site's noise once after the sum) at train_tp's
+    depth: ``CAL_DP_STEPS`` steps of ``CAL_TP_B`` x ``CAL_DP_T``, shot
+    noise on "torch", three ways: one device, the local form in this
+    process, and train_tp's ranks (``_CAL_TP_RANKS``, run after their train
+    steps). The local form equals the ranks bit for bit (losses, NLLs, log
+    energies) and holds one device's within ``CAL_TP_REL`` and
+    ``CAL_TP_LOG_E``; the recompute's place on ``TRAIN_DP`` data x
+    ``TRAIN_TP`` tensor shards (``_remat_check``). Logged: each form's
+    losses, NLLs and ms a step, the tp collectives' ms, calls and received
+    bytes a step of a rank, peak GiB, the distance from one device."""
+    from repro_torch.configs.granite_3_8b import CONFIG
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    ranks = list(_CAL_TP_RANKS)
+    if len(ranks) != TRAIN_TP:
+        raise AssertionError(f"calibrate_tp: {len(ranks)} ranks ran it (train_tp's run them)")
+    depth = min(train_dp_depth(CONFIG), TRAIN_DP_LAYERS)
+    cfg = _dp_cfg(depth)
+    one = _cal_dp_run(cfg, None, rows=CAL_TP_B)
+    local = _cal_dp_run(cfg, make_mesh_for_devices(TRAIN_TP), rows=CAL_TP_B)
+    remat = _remat_check(cfg, TRAIN_TP)
+    forms = {"one_device": one, "local": local, **{f"rank{r['rank']}": r for r in ranks}}
+    equal = {n: all(f[k] == local[k] for k in ("losses", "nlls", "prints"))
+             for n, f in forms.items()}
+    rel, log_e_diff = cal_dp_diffs(local, one)
+    r0 = ranks[0]
+    log("calibrate_tp", config=cfg.name, layers=depth, of_layers=CONFIG.n_layers,
+        tensor_shards=TRAIN_TP, batch=[CAL_TP_B, CAL_DP_T], steps=CAL_DP_STEPS, noise="shot",
+        backend="torch", losses={n: f["losses"] for n, f in forms.items()},
+        nlls={n: f["nlls"] for n, f in forms.items()},
+        ms_a_step={n: statistics.median(f["step_ms"]) for n, f in forms.items()},
+        step_ms={n: f["step_ms"] for n, f in forms.items()},
+        tp_collective_ms_a_step=r0["tp_s"] * 1e3, tp_collective_calls_a_step=r0["tp_calls"],
+        tp_collective_bytes_received_a_step=r0["tp_bytes"],
+        peak_gib={n: f["peak_gib"] for n, f in forms.items()},
+        e_per_mac_after={n: f["e_per_mac"] for n, f in forms.items()},
+        equal_to_local=equal, one_device_rel=rel, one_device_log_e_abs=log_e_diff,
+        bounds=dict(rel=CAL_TP_REL, log_e_abs=CAL_TP_LOG_E), recompute=remat,
+        recompute_control_bound=5 * CAL_REMAT_REL, card=card())
+    if not all(v for n, v in equal.items() if n != "one_device"):
+        raise AssertionError(f"calibrate_tp: the ranks differ from the local form: {equal}")
+    if not (all(map(math.isfinite, local["losses"] + local["nlls"])) and rel <= CAL_TP_REL
+            and log_e_diff <= CAL_TP_LOG_E):
+        raise AssertionError(f"calibrate_tp: one device {rel} relative, log energies "
+                             f"{log_e_diff}, losses {local['losses']}")
+    _check_remat("calibrate_tp", remat)
 
 
 # ---------------------------------------------------------------------------
@@ -5347,12 +5554,15 @@ def main() -> int:
                          "weights, tp then on recurrentgemma-2b's; tp_families on xlstm-1.3b's "
                          "and grok-1's; calibrate_lm on train's config; train_griffin, "
                          "train_xlstm and train_moe each calibrate on their weights; train_dp "
-                         "runs calibrate_dp in its ranks; dryrun reckons the train phases run "
+                         "runs calibrate_dp in its ranks; calibrate_tp runs in train_tp's ranks "
+                         "and needs it; dryrun reckons the train phases run "
                          "before it, train_tp's a rank; conv stands alone); default all")
     args = ap.parse_args()
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
         ap.error(f"unknown phases {sorted(set(only) - set(PHASES))}")
+    if "calibrate_tp" in only and "train_tp" not in only:
+        ap.error("calibrate_tp runs in train_tp's ranks: add train_tp")
 
     import torch
 
@@ -5578,10 +5788,13 @@ def main() -> int:
         timed("train_driver", phase_train_driver)
     if "train_dp" in run:
         _free()
-        timed("train_dp", phase_train_dp, "train_tp" in run)
+        timed("train_dp", phase_train_dp, "train_tp" in run, "calibrate_tp" in run)
     if "train_tp" in run:
         _free()
-        timed("train_tp", phase_train_tp)
+        timed("train_tp", phase_train_tp, "calibrate_tp" in run)
+    if "calibrate_tp" in run:
+        _free()
+        timed("calibrate_tp", phase_calibrate_tp)
     if "dryrun" in run:
         _free()
         timed("dryrun", phase_dryrun)

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -64,6 +65,7 @@ from repro_torch.kernels.dispatch import (
     resolve_backend,
     tile_dot,
 )
+from repro_torch.kernels.ref import seed_words as _seed_word_tensors
 from repro_torch.quant.affine import QuantParams, fake_quant, ste_snap_levels
 
 PER_LAYER = "per_layer"
@@ -253,26 +255,43 @@ def _x_range(sq: Optional[SiteQuant], x: torch.Tensor) -> torch.Tensor:
     return (torch.amax(x) - torch.amin(x)).to(torch.float32)
 
 
-def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_repeats: int,
-               x_range=None, rows=None):
-    """One request on the ``"torch"`` backend (the reference's ``"jnp"``
-    branch, ``repro/core/analog.py``): float32 operands, straight-through
-    energy snapping and fake-quant, K repeats as one draw at K·E, and
-    weight, thermal or shot noise drawn from ``gen``. ``x_range``: thermal
-    noise's input range when it spans more rows than ``x`` (a data
-    shard's); ``rows`` (r, data): a data shard's rows of the whole call's
-    output noise (``noise.standard_normal``)."""
-    k_dim = w.shape[0]
-    x = x.to(torch.float32)
-    w = w.to(torch.float32)
-    energy = energy.to(x.device, torch.float32) if torch.is_tensor(energy) else torch.tensor(
-        float(energy), dtype=torch.float32, device=x.device)
+def _col_squares(w: torch.Tensor) -> torch.Tensor:
+    """Each column's sum of squares, (N,), summed along the contiguous
+    transpose: a column's bits do not depend on how many columns sit
+    beside it (a reduction across the strided dim picks its order by the
+    width), so a column shard's norms are the whole weight's."""
+    wt = w.T.contiguous()
+    return torch.sum(wt * wt, dim=-1)
+
+
+def _torch_energy(cfg: AnalogConfig, energy, n_repeats: int, device) -> torch.Tensor:
+    """The ``"torch"`` backend's energy: float32, snapped under
+    ``discrete_energy``, K repeats as one draw at K·E."""
+    energy = energy.to(device, torch.float32) if torch.is_tensor(energy) else torch.tensor(
+        float(energy), dtype=torch.float32, device=device)
     if cfg.discrete_energy:
         energy = ste_snap_levels(energy, cfg.energy_quantum)
     if n_repeats > 1:
         # K repeats at E averaged == one draw at K*E (noise in quadrature);
         # core/redundant.py holds the explicit-K oracles
         energy = energy * n_repeats
+    return energy
+
+
+def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_repeats: int,
+               x_range=None, rows=None, cols=None):
+    """One request on the ``"torch"`` backend (the reference's ``"jnp"``
+    branch, ``repro/core/analog.py``): float32 operands, straight-through
+    energy snapping and fake-quant, K repeats as one draw at K·E, and
+    weight, thermal or shot noise drawn from ``gen``. ``x_range``: thermal
+    noise's input range when it spans more rows than ``x`` (a data
+    shard's); ``rows`` (r, data): a data shard's rows of the whole call's
+    output noise, ``cols`` (t, tp): a tensor shard's window of its columns
+    (``noise.standard_normal``)."""
+    k_dim = w.shape[0]
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    energy = _torch_energy(cfg, energy, n_repeats, x.device)
     w_q = fake_quant(w, sq.wqp) if cfg.weight_bits is not None and sq is not None and \
         sq.wqp is not None else w
     x_q = fake_quant(x, sq.xqp) if cfg.act_bits is not None and sq is not None and \
@@ -280,21 +299,22 @@ def _torch_dot(x, w, *, cfg: AnalogConfig, energy, gen: torch.Generator, sq, n_r
 
     kind = cfg.noise.kind
     if kind == noise_lib.WEIGHT:
-        w_noisy = noise_lib.perturb_weights(gen, w_q, _w_range(sq, w_q), cfg.noise.sigma, energy)
+        w_noisy = noise_lib.perturb_weights(gen, w_q, _w_range(sq, w_q), cfg.noise.sigma, energy,
+                                            cols=cols)
         y = torch.matmul(x_q, w_noisy)
     elif kind == noise_lib.THERMAL:
         y = torch.matmul(x_q, w_q)
         x_rng = _x_range(sq, x_q) if x_range is None or (sq is not None and sq.xqp is not None) \
             else x_range
         std = noise_lib.thermal_noise_std(k_dim, _w_range(sq, w_q), x_rng, cfg.noise.sigma, energy)
-        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows, cols=cols)
     elif kind == noise_lib.SHOT:
         y = torch.matmul(x_q, w_q)
         # eps-safe norms: a norm's gradient is NaN at exactly zero
-        w_col = torch.sqrt(torch.sum(w_q * w_q, dim=0, keepdim=True) + 1e-20)
+        w_col = torch.sqrt(_col_squares(w_q).reshape(1, -1) + 1e-20)
         x_row = torch.sqrt(torch.sum(x_q * x_q, dim=-1, keepdim=True) + 1e-20)
         std = noise_lib.shot_noise_std(w_col, x_row, k_dim, energy, cfg.noise.photon_energy_aj)
-        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows)
+        y = y + noise_lib.sample_output_noise(gen, y.shape, std, rows=rows, cols=cols)
     else:
         y = torch.matmul(x_q, w_q)
 
@@ -360,29 +380,31 @@ def _maybe_sharded_analog_dot(x, w, *, backend: str, cfg: AnalogConfig, energy, 
     return torch.cat(outs, dim=-1)
 
 
-#: (device, row offset) -> the (4,) int64 row0 offset of a data shard's seed
-_ROW_OFFSETS: dict = {}
+#: (device, row offset, column offset) -> the (4,) int64 offsets of a shard's seed
+_OFFSETS: dict = {}
 
 
-def _row_offset_seed(seed: torch.Tensor, rows: int) -> torch.Tensor:
-    """A (4,) seed with its row0 word increased by ``rows`` as a uint32."""
-    key = (seed.device, rows)
-    off = _ROW_OFFSETS.get(key)
+def _offset_seed(seed: torch.Tensor, row: int = 0, col: int = 0) -> torch.Tensor:
+    """A (4,) seed (or a (B, 4) table) with its row0 and col0 words
+    increased by ``row`` and ``col`` as uint32s."""
+    key = (seed.device, row, col)
+    off = _OFFSETS.get(key)
     if off is None:
         off = torch.zeros(4, dtype=torch.int64)
-        off[2] = rows
-        off = _ROW_OFFSETS[key] = off.to(seed.device)
+        off[2], off[3] = row, col
+        off = _OFFSETS[key] = off.to(seed.device)
     # summed in int64 from the sign-extended words; the cast keeps the low
-    # 32 bits, so row0 wraps as the uint32 counter does
+    # 32 bits, so the words wrap as the uint32 counters do
     return (seed.to(torch.int64) + off).to(torch.int32)
 
 
 def _shard_x_range(x: torch.Tensor, group) -> torch.Tensor:
     """The whole call's input range ``max - min`` (float32) from a data
     shard's rows: the shards' maxima and minima reduced over ``group``
-    (exact), subtracted in x's dtype as ``_x_range`` does. The gradient
-    reaches the shard that holds the global extremum, as the whole call's
-    does (ties across shards aside)."""
+    (exact), subtracted in x's dtype as ``_x_range`` does. Every shard's
+    rows read it: its gradient, summed over ``group``, reaches the shard
+    that holds the global extremum, as the whole call's does (ties across
+    shards aside)."""
     import torch.distributed as dist
 
     from repro_torch.launch import collectives
@@ -393,7 +415,33 @@ def _shard_x_range(x: torch.Tensor, group) -> torch.Tensor:
     g_hi, g_lo = ext[0].to(x.dtype), (-ext[1]).to(x.dtype)
     hi = torch.where(hi == g_hi, hi, g_hi)
     lo = torch.where(lo == g_lo, lo, g_lo)
-    return (hi - lo).to(torch.float32)
+    return collectives.copy_to_group((hi - lo).to(torch.float32), group)
+
+
+class QuantizersUnderTensorShards(NotImplementedError):
+    """Calibrated site quantizers (``SiteQuant``) on a tensor shard's part
+    of an analog call: the quantizers' ranges belong to the whole call,
+    which no shard holds. The calibration's and training's sites run
+    without them."""
+
+
+def _data_shard(x: torch.Tensor, seed: torch.Tensor, cfg: AnalogConfig, sq):
+    """The ambient data shard of more than one (or None), after the checks
+    a call on it must pass: one (4,) seed; thermal noise's input range
+    from the data group, which the local form has none of."""
+    shard = active_data_shard()
+    if shard is None or shard.data == 1:
+        return None
+    if seed.dim() != 1:
+        raise NotImplementedError(
+            "a stacked per-request seed table on a data shard: its requests are cut "
+            "with the rows; pass one (4,) seed")
+    if cfg.noise.kind == noise_lib.THERMAL and (sq is None or sq.xqp is None) \
+            and shard.group is None:
+        raise ThermalRangeAcrossShards(
+            "thermal noise on the local form of a data mesh: the input range spans "
+            "every shard's rows; run the shards as ranks (the distributed form)")
+    return shard
 
 
 def analog_dot(
@@ -405,6 +453,7 @@ def analog_dot(
     seed: Optional[torch.Tensor] = None,
     sq: Optional[SiteQuant] = None,
     n_repeats: int = 1,
+    cols: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Noisy (or digital) matmul ``(..., K) @ (K, N) -> (..., N)``.
 
@@ -413,8 +462,11 @@ def analog_dot(
     stream, or a stacked (B, 4) table: then ``x[b]`` is request b and runs
     exactly as the reference's ``vmap`` over stacked keys runs it alone
     (its own noise, its own thermal input range, its own row norms).
-    ``n_repeats``: K-repeat redundancy averaged in the kernel. Analog
-    outputs are float32.
+    ``n_repeats``: K-repeat redundancy averaged in the kernel. ``cols``
+    (t, tp): ``w`` is tensor shard t's columns of a weight ``tp`` times as
+    wide (a column-cut site of a Megatron block), whose noise is that
+    window of the whole call's: at col0 + t N on ``"tile"`` and ``"cuda"``,
+    the whole draw's columns on ``"torch"``. Analog outputs are float32.
 
     Backward: ``"tile"`` and ``"torch"`` are plain differentiable ops; the
     kernel (``"cuda"``) has none, so a ``"cuda"`` call whose x or energy
@@ -425,6 +477,9 @@ def analog_dot(
         raise ValueError(f"contract mismatch {tuple(x.shape)} @ {tuple(w.shape)}")
     if n_repeats < 1:
         raise ValueError(f"n_repeats must be >= 1, got {n_repeats}")
+    if cols is not None and sq is not None:
+        raise QuantizersUnderTensorShards(
+            "site quantizers on a column shard of an analog call")
     if cfg.mode == "digital":
         if cfg.weight_bits is not None and sq is not None and sq.wqp is not None:
             w = fake_quant(w, sq.wqp)
@@ -448,24 +503,19 @@ def analog_dot(
             'has no backward; take the gradient on backend="torch" or "tile", or run '
             "under torch.no_grad()")
     x_range = rows = None
-    shard = active_data_shard()
-    if shard is not None and shard.data > 1:
-        if seed.dim() != 1:
-            raise NotImplementedError(
-                "a stacked per-request seed table on a data shard: its requests are cut "
-                "with the rows; pass one (4,) seed")
+    shard = _data_shard(x, seed, cfg, sq)
+    if shard is not None:
         if cfg.noise.kind == noise_lib.THERMAL and (sq is None or sq.xqp is None):
-            if shard.group is None:
-                raise ThermalRangeAcrossShards(
-                    "thermal noise on the local form of a data mesh: the input range spans "
-                    "every shard's rows; run the shards as ranks (the distributed form)")
             x_range = _shard_x_range(x, shard.group)
         if backend == TORCH:
             rows = (shard.r, shard.data)
         else:
-            seed = _row_offset_seed(seed, shard.r * (x.numel() // x.shape[-1]))
-    y = _maybe_sharded_analog_dot(x, w, backend=backend, cfg=cfg, energy=energy, seed=seed,
-                                  sq=sq, n_repeats=n_repeats, x_range=x_range)
+            seed = _offset_seed(seed, row=shard.r * (x.numel() // x.shape[-1]))
+    if cols is not None and backend != TORCH:
+        seed = _offset_seed(seed, col=cols[0] * w.shape[1])
+    y = None if cols is not None else _maybe_sharded_analog_dot(
+        x, w, backend=backend, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats,
+        x_range=x_range)
     if y is not None:
         return y
     if backend == CUDA:
@@ -476,14 +526,225 @@ def analog_dot(
         words = seed.detach().cpu().numpy()
         if words.ndim == 1:
             return _torch_dot(x, w, cfg=cfg, energy=energy, gen=_generator(words, x.device),
-                              sq=sq, n_repeats=n_repeats, x_range=x_range, rows=rows)
+                              sq=sq, n_repeats=n_repeats, x_range=x_range, rows=rows, cols=cols)
         return torch.stack([
             _torch_dot(x[b], w, cfg=cfg, energy=energy, gen=_generator(words[b], x.device),
-                       sq=sq, n_repeats=n_repeats)
+                       sq=sq, n_repeats=n_repeats, cols=cols)
             for b in range(words.shape[0])
         ])
     return tile_dot(x, w, cfg=cfg, energy=energy, seed=seed, sq=sq, n_repeats=n_repeats,
                     x_range=x_range)
+
+
+# ---------------------------------------------------------------------------
+# a row-cut site: the shards' partial products summed, the noise after
+# ---------------------------------------------------------------------------
+
+
+def _extreme_over(parts, groups, largest: bool) -> torch.Tensor:
+    """The elementwise max (``largest``) or min of equal-shape tensors: the
+    local tensor shards' ``parts``, then the other ranks' over each process
+    group in ``groups`` (None: no such axis). Its value is exact in any
+    order, in the parts' dtype; its gradient reaches every part that holds
+    it (ties across shards aside: a one-device ``amax`` shares it)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+
+    sign = 1.0 if largest else -1.0
+    ext = parts[0].detach().to(torch.float32) * sign
+    for p in parts[1:]:
+        ext = torch.maximum(ext, p.detach().to(torch.float32) * sign)
+    for group in groups:
+        if group is not None:
+            ext = collectives.all_reduce(ext.contiguous(), dist.ReduceOp.MAX, group)
+    top = (ext * sign).to(parts[0].dtype)
+    out = top
+    for p in parts:  # + 0 with a gradient to each part that holds it
+        out = out + torch.where(p == top, p - p.detach(), torch.zeros_like(p))
+    return out
+
+
+def _range_over(parts, groups, dim=None) -> torch.Tensor:
+    """``max - min`` (float32) over ``parts`` (``_extreme_over``), each part
+    reduced over ``dim`` first (None: every element)."""
+    hi = [torch.amax(p) if dim is None else torch.amax(p, dim=dim) for p in parts]
+    lo = [torch.amin(p) if dim is None else torch.amin(p, dim=dim) for p in parts]
+    return (_extreme_over(hi, groups, True) - _extreme_over(lo, groups, False)).to(torch.float32)
+
+
+def _reduce_parts(pieces: list, shards) -> list:
+    """Each local shard's list of tensors summed over tp as one flat
+    tensor (*g*: in shard order, the ranks in rank order), cut back into
+    the pieces' shapes."""
+    from repro_torch.launch import collectives
+
+    shapes = [p.shape for p in pieces[0]]
+    flat = collectives.reduce_from_tp([torch.cat([p.reshape(-1) for p in ps]) for ps in pieces],
+                                      shards)
+    sizes = [math.prod(sh) for sh in shapes]
+    return [t.reshape(sh) for t, sh in zip(torch.split(flat, sizes), shapes)]
+
+
+def _norm(squares: torch.Tensor) -> torch.Tensor:
+    """``sqrt`` of summed squares with a zero gradient where they are 0,
+    as ``torch.linalg.vector_norm``'s at a zero row (an MoE capacity
+    slot no token took)."""
+    some = squares > 0
+    return torch.where(some, torch.sqrt(torch.where(some, squares, torch.ones_like(squares))),
+                       torch.zeros_like(squares))
+
+
+def analog_dot_rows(xs, ws, shards, *, cfg: AnalogConfig, energies, seed: torch.Tensor,
+                    sq: Optional[SiteQuant] = None, n_repeats: int = 1, scatter: bool = False):
+    """A row-cut analog matmul: ``xs[i] @ ws[i]`` is local tensor shard
+    ``shards[i]``'s partial product over its 1/tp of K (the row shard of a
+    Megatron block), and the result is the whole call's, noise and all.
+
+    The noise-free partials are summed in float32 (*g*: shard order, the
+    ranks in rank order), and the noise is drawn once, after the sum, at
+    the place the one-device call draws it: its std from the norms (shot:
+    each row of x's and each column of w's squares summed over tp) or
+    ranges (thermal: x's per tensor, w's per column, reduced over tp and,
+    on a data shard, over the data group) of the whole K. Weight noise is
+    the whole (K, N) draw, shard i's K rows in its partial ``x_i @ xi_i``,
+    summed as the products are and scaled by the columns' std after. So
+    the energy enters once, after the sum: its gradient is the same on
+    every shard. The sums run in another order than the one-device call's
+    product: the result agrees with it within the kernel rule (3e-5
+    max|y|), not bit for bit.
+
+    ``scatter``: the sums are reduce-scattered instead (a product over the
+    shards' input rows that feeds their channels, griffin's ``rec_a`` and
+    ``rec_i``): shard i keeps its 1/tp of the columns and draws their
+    window of the noise. ``energies``: the site's energy on each local
+    shard; the noise of the sum (not scattered) reads the first.
+
+    ``"torch"`` draws the whole call's noise (``noise.standard_normal``)
+    and keeps its window; ``"tile"`` draws the counter-based gaussians at
+    the window's offsets. ``"cuda"`` adds its noise inside the product and
+    has no backward: it refuses. Returns float32: the whole (..., N), or a
+    list of each local shard's (..., N / tp) with ``scatter``.
+    """
+    if sq is not None:
+        raise QuantizersUnderTensorShards("site quantizers on a row shard of an analog call")
+    from repro_torch.launch import collectives
+
+    tp = shards[0].tp
+    k = ws[0].shape[0] * tp
+    n = ws[0].shape[1]
+    if cfg.mode == "digital" or cfg.noise.kind == noise_lib.NONE:
+        parts = [torch.matmul(x.to(torch.float32), w.to(torch.float32)) for x, w in zip(xs, ws)]
+        if scatter:
+            return collectives.reduce_scatter_tp(parts, shards)
+        return collectives.reduce_from_tp(parts, shards)
+    backend = resolve_backend(cfg, xs[0])
+    if backend == CUDA:
+        raise NotImplementedError(
+            'a row-cut analog site on backend="cuda": the kernel adds its noise inside the '
+            'product, not after the sum over the shards; run it on "torch" or "tile"')
+    if seed.dim() != 1:
+        raise NotImplementedError("a row-cut analog site takes one (4,) seed, not a stacked table")
+    kind = cfg.noise.kind
+    data = _data_shard(xs[0], seed, cfg, sq)
+    lead = xs[0].shape[:-1]
+    m = math.prod(lead)
+    torch_backend = backend == TORCH
+    xf = [x.to(torch.float32) for x in xs] if torch_backend else list(xs)
+    wf = [w.to(torch.float32) for w in ws]
+    words = seed.detach().cpu().numpy() if torch_backend else None
+    rows = None
+    if data is not None:
+        if torch_backend:
+            rows = (data.r, data.data)
+        else:
+            seed = _offset_seed(seed, row=data.r * m)
+
+    # the partial products and the statistics the noise reads, summed over tp
+    pieces = [[torch.matmul(x.to(torch.float32), w)] for x, w in zip(xf, wf)]
+    if kind == noise_lib.WEIGHT:
+        if torch_backend:
+            xi_w = noise_lib.standard_normal(_generator(words, xs[0].device), (k, n))
+            xis = [xi_w[s.t * (k // tp):(s.t + 1) * (k // tp)] for s in shards]
+        else:
+            k0, k1, _, col0 = _seed_word_tensors(seed.reshape(1, 4))
+            xis = [prng.repeat_averaged_gaussian_tile(
+                k0 ^ prng.WEIGHT_STREAM_SALT, k1, s.t * (k // tp), col0, (k // tp, n),
+                n_repeats)[0] for s in shards]
+        for ps, x, xi in zip(pieces, xf, xis):
+            ps.append(torch.matmul(x.to(torch.float32), xi))
+    if scatter:
+        ys = collectives.reduce_scatter_tp(
+            [torch.stack(ps) if len(ps) > 1 else ps[0] for ps in pieces], shards)
+        outs = [(y[0], y[1]) if kind == noise_lib.WEIGHT else (y, None) for y in ys]
+        cols = [(s.t, tp) for s in shards]
+    else:
+        outs = [tuple(_reduce_parts(pieces, shards)) + (None,) * (2 - len(pieces[0]))]
+        cols = [None]
+    stats = []
+    if kind == noise_lib.SHOT:
+        stats = _reduce_parts([[torch.sum(x.to(torch.float32) ** 2, dim=-1, keepdim=True),
+                                _col_squares(w)] for x, w in zip(xf, wf)], shards)
+    groups = (shards[0].group, None if data is None else data.group)
+    w_rng = x_rng = None
+    if kind in (noise_lib.THERMAL, noise_lib.WEIGHT):
+        # (N,): each column over the whole K, in the dtype each backend's
+        # one-device call subtracts in
+        w_rng = _range_over(wf if torch_backend else list(ws), groups[:1], dim=0)
+    if kind == noise_lib.THERMAL:
+        x_rng = _range_over(xf, groups)
+        if groups[1] is not None:  # the data shards' rows read it (``_shard_x_range``)
+            x_rng = collectives.copy_to_group(x_rng, groups[1])
+    x_sq = stats[0] if stats else None
+    x_sqs, x_rngs = [x_sq], [x_rng]
+    if scatter:  # every shard's columns read the whole rows' statistics:
+        # their gradients summed over tp (*f*), as the one-device call's
+        x_sqs = [None] * len(shards) if x_sq is None else collectives.copy_to_tp(x_sq, shards)
+        x_rngs = [None] * len(shards) if x_rng is None else collectives.copy_to_tp(x_rng, shards)
+
+    results = []
+    for (y, b), c, energy, x_sq, x_rng in zip(outs, cols, energies, x_sqs, x_rngs):
+        nl = y.shape[-1]
+        lo = 0 if c is None else c[0] * nl
+        y2 = y.reshape(m, nl)
+        if torch_backend:
+            e = _torch_energy(cfg, energy, n_repeats, y.device)
+            if kind == noise_lib.SHOT:
+                w_col = torch.sqrt(stats[1][lo:lo + nl] + 1e-20).reshape(1, nl)
+                x_row = torch.sqrt(x_sq.reshape(m, 1) + 1e-20)
+                std = noise_lib.shot_noise_std(w_col, x_row, k, e, cfg.noise.photon_energy_aj)
+            elif kind == noise_lib.THERMAL:
+                std = noise_lib.thermal_noise_std(k, w_rng[lo:lo + nl].reshape(1, nl), x_rng,
+                                                  cfg.noise.sigma, e)
+            if kind == noise_lib.WEIGHT:
+                std = noise_lib.weight_noise_std(w_rng[lo:lo + nl].reshape(1, nl),
+                                                 cfg.noise.sigma, e)
+                y2 = y2 + b.reshape(m, nl) * std
+            else:
+                y2 = y2 + noise_lib.sample_output_noise(_generator(words, y.device), (m, nl), std,
+                                                        rows=rows, cols=c)
+        else:
+            e = torch.as_tensor(energy, dtype=torch.float32, device=y.device)
+            if cfg.discrete_energy:
+                e = ste_snap_levels(e, cfg.energy_quantum)
+            if kind == noise_lib.SHOT:
+                photons = e / cfg.noise.photon_energy_aj
+                col = _norm(stats[1][lo:lo + nl]).reshape(1, nl) / torch.sqrt(photons * float(k))
+                row = _norm(x_sq.reshape(m, 1))
+            elif kind == noise_lib.THERMAL:
+                col = noise_lib.thermal_noise_std(k, w_rng[lo:lo + nl].reshape(1, nl), x_rng,
+                                                  cfg.noise.sigma, e)
+                row = 1.0
+            if kind == noise_lib.WEIGHT:
+                col = noise_lib.weight_noise_std(w_rng[lo:lo + nl].reshape(1, nl),
+                                                 cfg.noise.sigma, e)
+                y2 = y2 + b.reshape(m, nl) * col
+            else:
+                k0, k1, row0, col0 = _seed_word_tensors(_offset_seed(seed, col=lo).reshape(1, 4))
+                xi = prng.repeat_averaged_gaussian_tile(k0, k1, row0, col0, (m, nl), n_repeats)[0]
+                y2 = y2 + row * col * xi
+        results.append(y2.reshape(*lead, nl))
+    return results if scatter else results[0]
 
 
 def _same_pads(n: int, k: int, s: int) -> tuple:

@@ -68,37 +68,43 @@ def shot_noise_std(
     return w_col_norms * x_row_norms / torch.sqrt(photons * float(np.float32(n_macs)))
 
 
-def standard_normal(gen: torch.Generator, shape, dtype=torch.float32, rows=None) -> torch.Tensor:
+def standard_normal(gen: torch.Generator, shape, dtype=torch.float32, rows=None,
+                    cols=None) -> torch.Tensor:
     """N(0, 1) of ``shape`` drawn from ``gen`` on its device. ``rows`` (r,
     data): data shard r's rows of the whole call's draw, whose flattened
-    rows (every dim but the last) are ``data`` times ``shape``'s; a
-    generator's stream cannot skip to a row, so the whole draw is made
-    (data x the draws) and the shard's rows taken: the bits of the same
-    rows of the one-device call."""
+    rows (every dim but the last) are ``data`` times ``shape``'s; ``cols``
+    (t, tp): tensor shard t's window of the whole call's columns, ``tp``
+    times ``shape``'s last dim. A generator's stream cannot skip, so the
+    whole draw is made (data x tp the draws) and the shard's block taken:
+    the bits of the same rows and columns of the one-device call."""
     shape = tuple(shape)
-    if rows is None:
+    if rows is None and cols is None:
         return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
-    r, data = rows
-    m = math.prod(shape[:-1])
-    whole = torch.randn((data * m, shape[-1]), generator=gen, device=gen.device, dtype=dtype)
-    return whole[r * m:(r + 1) * m].reshape(shape)
+    r, data = rows or (0, 1)
+    t, tp = cols or (0, 1)
+    m, n = math.prod(shape[:-1]), shape[-1]
+    whole = torch.randn((data * m, tp * n), generator=gen, device=gen.device, dtype=dtype)
+    return whole[r * m:(r + 1) * m, t * n:(t + 1) * n].reshape(shape)
 
 
 def sample_output_noise(gen: torch.Generator, shape, std, dtype=torch.float32,
-                        rows=None) -> torch.Tensor:
+                        rows=None, cols=None) -> torch.Tensor:
     """Reparameterized additive Gaussian output noise, ``std * N(0, 1)``,
     drawn from ``gen`` on its device; ``std`` broadcasts against ``shape``.
     The reparameterization (paper §V, [55]) makes the result differentiable
-    with respect to ``std`` and so to the energies. ``rows``: as
+    with respect to ``std`` and so to the energies. ``rows``, ``cols``: as
     ``standard_normal``'s."""
-    return standard_normal(gen, shape, dtype, rows) * std
+    return standard_normal(gen, shape, dtype, rows, cols) * std
 
 
-def perturb_weights(gen: torch.Generator, w, w_range, sigma_w: float, energy) -> torch.Tensor:
+def perturb_weights(gen: torch.Generator, w, w_range, sigma_w: float, energy,
+                    cols=None) -> torch.Tensor:
     """Eq. 10: elementwise Gaussian weight-read noise, drawn from ``gen``;
-    ``w_range`` and ``energy`` broadcast per output channel (w's last axis)."""
+    ``w_range`` and ``energy`` broadcast per output channel (w's last axis).
+    ``cols``: ``w`` is tensor shard t's columns of the whole weight, whose
+    draw it takes its window of (``standard_normal``)."""
     std = weight_noise_std(w_range, sigma_w, energy)
-    xi = torch.randn(tuple(w.shape), generator=gen, device=gen.device, dtype=torch.float32)
+    xi = standard_normal(gen, tuple(w.shape), cols=cols)
     return w.to(torch.float32) + xi * std
 
 

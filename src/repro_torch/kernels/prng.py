@@ -43,9 +43,37 @@ def _rounds(x0, x1, rots):
     return x0, x1
 
 
+#: the key words injected after each group of four rounds: (into x0, into
+#: x1, the count added to x1), as indices into (k0, k1, ks2)
+_INJECT = ((1, 2, 1), (2, 0, 2), (0, 1, 3), (1, 2, 4), (2, 0, 5))
+
+
+def _threefry_torch(k0, k1, c0, c1):
+    """``threefry2x32`` on torch tensors: every step in place on the two
+    words and one scratch buffer, a third of the passes over memory that a
+    new tensor an op takes; the same bits."""
+    ts = [v for v in (k0, k1, c0, c1) if torch.is_tensor(v)]
+    shape = torch.broadcast_shapes(*(v.shape for v in ts))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = torch.zeros(shape, dtype=torch.int64, device=ts[0].device)
+    x1, tmp = torch.zeros_like(x0), torch.empty_like(x0)
+    x0.add_(c0).add_(k0).bitwise_and_(MASK)
+    x1.add_(c1).add_(k1).bitwise_and_(MASK)
+    for rots, (a, b, n) in zip((_ROT_A, _ROT_B, _ROT_A, _ROT_B, _ROT_A), _INJECT):
+        for d in rots:
+            x0.add_(x1).bitwise_and_(MASK)
+            torch.bitwise_right_shift(x1, 32 - d, out=tmp)
+            x1.bitwise_left_shift_(d).bitwise_and_(MASK).bitwise_or_(tmp).bitwise_xor_(x0)
+        x0.add_(ks[a]).bitwise_and_(MASK)
+        x1.add_(ks[b]).add_(n).bitwise_and_(MASK)
+    return x0, x1
+
+
 def threefry2x32(k0, k1, c0, c1):
     """Full 20-round Threefry-2x32 on int64 words (torch or numpy),
     broadcastable. Returns two int64 word arrays in [0, 2**32)."""
+    if any(torch.is_tensor(v) for v in (k0, k1, c0, c1)):
+        return _threefry_torch(k0, k1, c0, c1)
     ks2 = k0 ^ k1 ^ _PARITY
     x0 = (c0 + k0) & MASK
     x1 = (c1 + k1) & MASK

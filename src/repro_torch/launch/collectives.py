@@ -279,7 +279,7 @@ class _CopyLocal(torch.autograd.Function):
 
 
 class _CopyRank(torch.autograd.Function):
-    """*f* of a rank: identity; the backward sums over the tp group."""
+    """*f* of a rank: identity; the backward sums over its group."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -351,12 +351,18 @@ def _local_form(shards) -> bool:
     return shards[0].group is None
 
 
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """*f* over any process group: ``x`` itself, its gradient summed over
+    ``group`` in rank order (a value every rank's different rows read)."""
+    return _CopyRank.apply(x, group)
+
+
 def copy_to_tp(x: torch.Tensor, shards) -> list:
     """Megatron's *f* at the input of a column-parallel block: ``x`` for
     each shard (identity), the shards' input gradients summed over tp."""
     if _local_form(shards):
         return list(_CopyLocal.apply(x, len(shards)))
-    return [_CopyRank.apply(x, shards[0].group)]
+    return [copy_to_group(x, shards[0].group)]
 
 
 def reduce_from_tp(parts: list, shards) -> torch.Tensor:

@@ -40,17 +40,30 @@ its tensor shard, and the regions are gathered. Under ``"dp"``
 equals the one-device step at ``microbatches = data`` bit for bit, and
 the local form of any mesh equals its ranks bit for bit.
 
-The LM calibration takes a mesh of data shards too, as the reference's
-step shards the batch over "data" and replicates the log energies and
-their Adam state: shard r's rows run under ``models.sharding
-.use_data_shard``, so every analog site draws the noise of its rows of
-the whole call (``core/analog.py``); the shards' NLLs and energy
-gradients are added in shard order in their dtype (over the ranks with
-``collectives.sum_in_rank_order_``) and divided by ``data``, the
-penalty and its gradient added once after, and Adam steps the replicated
-log energies with the same bits on every rank. Thermal noise needs the
-distributed form (its input range spans the shards); MoE needs whole
-expert groups in a shard (``MoEGroupsAcrossShards``).
+The LM calibration takes the same mesh of data x tensor shards, as the
+reference's step places the frozen parameters by ``param_shardings`` and
+replicates the log energies and their Adam state. The frozen parameters
+are cut as the train step cuts them (a rank holds its own,
+``shard_params``); each tensor shard reads the log energies through
+autograd leaves of its own (``Shards``), and an analog site takes its
+shard and its form as arguments (``models/hooks.py``): a column-cut site
+draws its window of the whole call's noise, a row-cut site's partials
+are summed over tp and its noise drawn once after the sum, a whole site
+draws the whole call's on every shard. An energy leaf's gradient is
+summed over tp in shard order where each shard's part reads its own
+columns (``models.sharding.energy_sums``), else taken once. Data shard
+r's rows run under ``models.sharding.use_data_shard``, so every analog
+site draws the noise of its rows of the whole call (``core/analog.py``),
+and a checkpointed region's recompute re-enters that place
+(``models.sharding.remat``); the shards' NLLs and energy gradients are
+added in shard order in their dtype (over the ranks with
+``collectives.sum_in_rank_order_``) and divided by ``data``, the penalty
+and its gradient added once after, and Adam steps the replicated log
+energies with the same bits on every rank. Thermal noise on a data axis
+needs the distributed form (its input range spans the shards); MoE needs
+whole expert groups in a shard (``MoEGroupsAcrossShards``); calibrated
+site quantizers do not run on tensor shards
+(``core.analog.QuantizersUnderTensorShards``).
 
 The serving steps cut the batch's rows by ``data`` the same way (a batch
 that ``data`` does not divide runs whole on every shard, as the
@@ -77,6 +90,7 @@ from repro_torch.models.sharding import (
     Shards,
     TensorShard,
     TPLeaf,
+    energy_sums,
     join_tensor_shards,
     shard_shape,
     spec,
@@ -113,18 +127,6 @@ class TrainConfig:
                           state_dtype=getattr(torch, self.opt_state_dtype))
 
 
-def _data_shards(mesh, what: str) -> int:
-    """The mesh's data shards; raises on tensor shards (the LM
-    calibration)."""
-    if mesh is None:
-        return 1
-    if mesh.tp > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.tp} tensor shards: the LM calibration's analog sites "
-            "under tensor shards are not ported (ROADMAP A.6); take a mesh of data shards (tp=1)")
-    return mesh.data
-
-
 class MoEGroupsAcrossShards(NotImplementedError):
     """A data shard of an MoE model whose tokens are not whole expert
     groups: the reference's groups come from the flattened tokens of the
@@ -146,11 +148,14 @@ def _shard_rows(cfg: ModelConfig, rows: int, tokens: int, dp: int, what: str) ->
     return per
 
 
-def _shard(mesh, r: int, dp: int):
-    """Data shard r's ambient place (None for one shard)."""
+def _shard(mesh, r: int, dp: int, group=None):
+    """Data shard r's ambient place (None for one shard); ``group``: the
+    data group of a distributed mesh (default: the mesh's)."""
     if dp == 1:
         return None
-    return DataShard(r, dp, mesh.data_group if mesh.distributed else None)
+    if group is None and mesh.distributed:
+        group = mesh.data_group
+    return DataShard(r, dp, group)
 
 
 def _tokens(batch: dict) -> int:
@@ -517,6 +522,28 @@ def make_opt_init(cfg: ModelConfig, mesh=None, tcfg: TrainConfig = TrainConfig()
     return init
 
 
+def _frozen_views(trees: list, lay: Layout) -> Tree:
+    """The tensor shards' trees as ``lm`` reads them, without gradients:
+    a leaf cut or summed over the shards as ``Shards`` at each layer (or
+    expert, or mLSTM block), a whole leaf shard 0's; one tree as it is."""
+    if not lay.tensor:
+        return trees[0]
+
+    def views(ps, depth, per_shard):
+        if depth == 0:
+            return Shards(ps, lay.tensor) if per_shard else ps[0]
+        return [views([p[i] for p in ps], depth - 1, per_shard) for i in range(ps[0].shape[0])]
+
+    return map_leaves(lambda path, place, *ps: views(list(ps), lm.stacked_axes(path),
+                                                     place.per_shard), lay.plan, *trees)
+
+
+def _grads_of(tree: Tree) -> Tree:
+    """The ``.grad`` of each autograd leaf of ``tree`` (zeros where none
+    reached it)."""
+    return map_leaves(lambda _p, t: torch.zeros_like(t) if t.grad is None else t.grad, tree)
+
+
 def make_calibrate_step(cfg: ModelConfig, mesh=None, *, analog_cfg: AnalogConfig, seq_len: int,
                         target_e_per_mac: float, lam: float = 2.0, lr: float = 0.01):
     """The paper's Eq. 14 at LM scale, the weights frozen:
@@ -527,47 +554,76 @@ def make_calibrate_step(cfg: ModelConfig, mesh=None, *, analog_cfg: AnalogConfig
     ``target_e_per_mac`` over ``energy_macs(cfg, seq_len)``, and Adam at
     ``lr`` steps the log energies. ``metrics``: ``{"loss", "nll"}``. The
     gradient needs a backend with a backward (``"torch"`` or ``"tile"``);
-    the CUDA kernel has none. ``mesh``: None or a mesh of data shards
-    (module docstring); ``key`` is one (2,) key."""
-    dp = _data_shards(mesh, "make_calibrate_step")
+    the CUDA kernel has none. ``mesh``: None or a mesh of data x tensor
+    shards (module docstring): ``params`` are the whole tree in the local
+    form, a rank's tensor shard (``shard_params``) in the distributed form;
+    ``batch`` is the whole batch and ``key`` one (2,) key. The log
+    energies and their Adam state are replicated. A data shard's place
+    reaches every analog site through ``use_data_shard``, the recompute of
+    a checkpointed region included (``models.sharding.remat``), a tensor
+    shard's through the ``Shards`` leaves and the sites' arguments."""
+    lay = train_layout(cfg, mesh)
     macs = lm.energy_macs(cfg, seq_len)
     adam_cfg = AdamConfig(lr=lr)
-    group = mesh.data_group if mesh is not None and mesh.distributed and dp > 1 else None
+    sums = energy_sums(cfg, lay.tp) if lay.tensor else None
 
-    def grads_of(log_e, fn):
-        """(fn(energies), the gradient tree of its value over ``log_e``)."""
-        le = map_leaves(lambda _p, t: t.detach().requires_grad_(), log_e)
-        value = fn(to_energy(le))
-        value.backward()
-        return value.detach(), map_leaves(
-            lambda _p, t: torch.zeros_like(t) if t.grad is None else t.grad, le)
+    def energies_of(log_e):
+        """(the energies the loss reads, each tensor shard's log-energy
+        leaves): a tree of autograd leaves a tensor shard this process
+        runs, joined as ``Shards`` under tp."""
+        les = [map_leaves(lambda _p, t: t.detach().requires_grad_(), log_e)
+               for _ in range(max(1, len(lay.tensor)))]
+        es = [to_energy(le) for le in les]
+        if not lay.tensor:
+            return es[0], les
+        return map_leaves(lambda _p, *parts: Shards(parts, lay.tensor), *es), les
+
+    def shard_grads(les):
+        """The energy gradients of one data shard: each leaf summed over
+        tp in shard (rank) order where ``energy_sums`` says so, else the
+        first tensor shard's (the same on every shard)."""
+        grads = [_grads_of(le) for le in les]
+        if not lay.tensor:
+            return grads[0]
+
+        def combine(_p, summed, *gs):
+            if summed:
+                collectives.sum_over_tp_(list(gs), lay.tensor)
+            return gs[0]
+
+        return map_leaves(combine, sums, *grads)
 
     def step(log_e, opt_state, params, batch, key):
         batch = batch_tensors(batch, params["final_ln"].device)
         rows = next(iter(batch.values())).shape[0]
-        per = _shard_rows(cfg, rows, _tokens(batch), dp, "make_calibrate_step")
+        per = _shard_rows(cfg, rows, _tokens(batch), lay.dp, "make_calibrate_step")
+        tree = _frozen_views(_shard_trees(params, lay), lay)
         nll = grads = None
-        for r in range(1) if mesh is None else mesh.data_shards():
+        for r in lay.data_ids:
             part = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-            with use_data_shard(_shard(mesh, r, dp)):
-                part_nll, part_grads = grads_of(log_e, lambda e, part=part: lm.train_loss(
-                    params, part, cfg, analog=lm.AnalogSpec(cfg=analog_cfg, energies=e, key=key)))
+            with use_data_shard(_shard(mesh, r, lay.dp, lay.data_group)):
+                energies, les = energies_of(log_e)
+                part_nll = lm.train_loss(tree, part, cfg, analog=lm.AnalogSpec(
+                    cfg=analog_cfg, energies=energies, key=key))
+                part_nll.backward()
+            part_nll, part_grads = part_nll.detach(), shard_grads(les)
             if nll is None:
                 nll, grads = part_nll, part_grads
             else:  # in shard order, as the ranks' sum below
                 nll = nll + part_nll
                 map_leaves(lambda _p, g, t: g.add_(t), grads, part_grads)
-        if group is not None:
+        if lay.data_group is not None:
             for g in leaves(grads):
-                collectives.sum_in_rank_order_(g, group)
-            nll = collectives.sum_in_rank_order_(nll.reshape(1), group)[0]
-        nll = nll / dp
-        map_leaves(lambda _p, g: g.div_(dp), grads)
-        pen, pen_grads = grads_of(
-            log_e, lambda e: log_energy_penalty(e, macs, target_e_per_mac, lam))
-        map_leaves(lambda _p, g, t: g.add_(t), grads, pen_grads)
+                collectives.sum_in_rank_order_(g, lay.data_group)
+            nll = collectives.sum_in_rank_order_(nll.reshape(1), lay.data_group)[0]
+        nll = nll / lay.dp
+        map_leaves(lambda _p, g: g.div_(lay.dp), grads)
+        le = map_leaves(lambda _p, t: t.detach().requires_grad_(), log_e)
+        pen = log_energy_penalty(to_energy(le), macs, target_e_per_mac, lam)
+        pen.backward()
+        map_leaves(lambda _p, g, t: g.add_(t), grads, _grads_of(le))
         log_e, opt_state = adam_update(grads, opt_state, log_e, adam_cfg)
-        return log_e, opt_state, {"loss": nll + pen, "nll": nll}
+        return log_e, opt_state, {"loss": nll + pen.detach(), "nll": nll}
 
     step.macs = macs
     return step

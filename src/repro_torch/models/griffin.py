@@ -18,11 +18,11 @@ and ``conv_b`` are column shards, and the conv and the scan run on the
 shard's channels; ``w_a`` and ``w_i`` are placed ``("rnn", None)``, so a
 shard holds their rows for its channels: each gate's pre-activation is a
 partial product over the shard's input channels, summed over tp before
-the sigmoid with each shard keeping its own channels
-(``collectives.reduce_scatter_tp``; no ``xr`` is gathered). ``b_a``,
-``b_i`` and ``lambda`` stay whole, as the placement has them: each shard
-slices its channels, and their gradients are summed over tp. ``w_out``
-is a row shard, summed by *g*.
+the sigmoid with each shard keeping its own channels (the hook's
+``reduce_scatter``; no ``xr`` is gathered). ``b_a``, ``b_i`` and
+``lambda`` stay whole, as the placement has them: each shard slices its
+channels, and their gradients are summed over tp. ``w_out`` is a row
+shard, summed by *g* (the hook's ``row_parallel``).
 
 The diagonal linear recurrence runs as a Hillis-Steele scan for prefill
 (``log2 T`` steps; at step s position t combines with t - 2^s) and as one
@@ -142,17 +142,22 @@ def recurrent_mix(
         xs, ps = collectives.copy_to_tp(x, shards), [shard_part(p, i) for i in range(len(shards))]
     else:
         xs, ps = [x], [p]
-    gates, xrs, pre_a, pre_i = [], [], [], []
-    for xi, pi in zip(xs, ps):
-        gates.append(F.gelu(hook("rec_gate", xi, pi["w_gate"]).to(F32), approximate="tanh"))
-        xr = hook("rec_in", xi, pi["w_x"])  # (B, T, R)
+    gates, xrs = [], []
+    for j, (xi, pi) in enumerate(zip(xs, ps)):
+        s = shards[j] if shards else None
+        gates.append(F.gelu(hook("rec_gate", xi, pi["w_gate"], shard=s).to(F32),
+                            approximate="tanh"))
+        xr = hook("rec_in", xi, pi["w_x"], shard=s)  # (B, T, R)
         xr, conv_state = causal_conv1d(xr, pi["conv_w"], pi["conv_b"], lengths=lengths)
         xrs.append(xr)
-        pre_a.append(hook("rec_a", xr, pi["w_a"]).to(F32))
-        pre_i.append(hook("rec_i", xr, pi["w_i"]).to(F32))
     if shards:
-        pre_a = collectives.reduce_scatter_tp(pre_a, shards)
-        pre_i = collectives.reduce_scatter_tp(pre_i, shards)
+        pre_a = [a.to(F32) for a in hook.reduce_scatter("rec_a", xrs, [pi["w_a"] for pi in ps],
+                                                        shards)]
+        pre_i = [i.to(F32) for i in hook.reduce_scatter("rec_i", xrs, [pi["w_i"] for pi in ps],
+                                                        shards)]
+    else:
+        pre_a = [hook("rec_a", xrs[0], p["w_a"]).to(F32)]
+        pre_i = [hook("rec_i", xrs[0], p["w_i"]).to(F32)]
     ys = []
     for j, (xr, pi, gate) in enumerate(zip(xrs, ps, gates)):
         if shards:  # the whole per-channel leaves: this shard's channels
@@ -168,11 +173,10 @@ def recurrent_mix(
         else:
             last = torch.clamp(lengths.to(h.device).long() - 1, 0, h.shape[1] - 1)
             h_last = h[torch.arange(h.shape[0], device=h.device), last]
-        y = (h * gate).to(x.dtype)
-        ys.append(hook("rec_out", y, pi["w_out"]))
+        ys.append((h * gate).to(x.dtype))
     if shards:
-        return collectives.reduce_from_tp(ys, shards), None, None
-    return ys[0], h_last, conv_state
+        return hook.row_parallel("rec_out", ys, [pi["w_out"] for pi in ps], shards), None, None
+    return hook("rec_out", ys[0], p["w_out"]), h_last, conv_state
 
 
 def recurrent_decode(

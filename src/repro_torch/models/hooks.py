@@ -15,20 +15,46 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.analog import AnalogConfig, analog_dot
+from repro_torch.core.analog import AnalogConfig, analog_dot, analog_dot_rows
 from repro_torch.kernels.analog_matmul import analog_matmul_raw, select_route
+from repro_torch.models.sharding import part_of
 
 
 class MatmulHook:
-    """Digital execution: plain matmuls in the model dtype."""
+    """Digital execution: plain matmuls in the model dtype.
 
-    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    Under tensor shards (a Megatron block, ``models/sharding.py``) a site
+    is called in one of its forms: a column-cut or whole site with the
+    tensor shard it runs on (``shard``; ``cut``: ``w`` is the shard's
+    columns of the whole weight, else the whole weight), a row-cut site
+    with every local shard's part at once (``row_parallel``: the partials
+    summed by *g*; ``reduce_scatter``: summed and cut into the shards'
+    columns). A digital hook reads neither place."""
+
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None,
+                 cut: bool = True) -> torch.Tensor:
         return torch.matmul(x, w.to(x.dtype))
 
-    def batched(self, site: str, x: torch.Tensor, w) -> torch.Tensor:
+    def batched(self, site: str, x: torch.Tensor, w, shard=None) -> torch.Tensor:
         """Expert-batched matmul: (E, ..., K) @ (E, K, N); ``w`` may be a
         list of the E (K, N) weights (a train step's gradient views)."""
         return torch.stack([torch.matmul(x[e], w[e].to(x.dtype)) for e in range(len(w))])
+
+    def row_parallel(self, site: str, xs: list, ws: list, shards, batched: bool = False):
+        """A row-cut site: each local shard's partial product (``batched``:
+        expert-batched), summed over tp (*g*)."""
+        from repro_torch.launch import collectives
+
+        mm = self.batched if batched else self
+        return collectives.reduce_from_tp([mm(site, x, w) for x, w in zip(xs, ws)], shards)
+
+    def reduce_scatter(self, site: str, xs: list, ws: list, shards) -> list:
+        """A row-cut site whose float32 sum is reduce-scattered: each local
+        shard's 1/tp of the columns."""
+        from repro_torch.launch import collectives
+
+        return collectives.reduce_scatter_tp(
+            [self(site, x, w).to(torch.float32) for x, w in zip(xs, ws)], shards)
 
 
 @dataclasses.dataclass
@@ -71,19 +97,24 @@ class AnalogHook(MatmulHook):
     expert_seeds: Optional[Dict[str, torch.Tensor]] = None
     noise_scale: Optional[torch.Tensor] = None
 
-    def _site_energy(self, site: str) -> torch.Tensor:
-        e = self.energies[site]
+    def _site_energy(self, site: str, shard=None) -> torch.Tensor:
+        """The site's energy on tensor shard ``shard`` (``sharding.part_of``:
+        a per-shard energy leaf's part; its first for a site run whole or
+        once after a sum)."""
+        e = part_of(self.energies[site], shard)
         if self.noise_scale is not None:
             e = e / (self.noise_scale * self.noise_scale)  # std ~ 1/sqrt(E)
         return e
 
-    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None,
+                 cut: bool = True) -> torch.Tensor:
         xs = x
         if self.rows_per_key > 1:
             xs = x.reshape(x.shape[0] // self.rows_per_key, -1, x.shape[-1])
         y = analog_dot(
-            xs, w, cfg=self.cfg, energy=self._site_energy(site),
+            xs, w, cfg=self.cfg, energy=self._site_energy(site, shard),
             seed=self.seeds[site], n_repeats=self.n_repeats,
+            cols=None if shard is None or not cut else (shard.t, shard.tp),
         )
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
 
@@ -95,17 +126,47 @@ class AnalogHook(MatmulHook):
             expert_seeds=None if self.expert_seeds is None else {
                 s: v[i] for s, v in self.expert_seeds.items()})
 
-    def batched(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _expert_energies(self, site: str, n_e: int, shard=None) -> torch.Tensor:
+        energy = self._site_energy(site, shard)
+        return energy.expand(n_e) if energy.dim() == 0 else energy
+
+    def batched(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None) -> torch.Tensor:
         n_e = len(w)
-        energy = self._site_energy(site)
-        energy = energy.expand(n_e) if energy.dim() == 0 else energy
+        energy = self._expert_energies(site, n_e, shard)
         seeds = self.expert_seeds[site]
+        cols = None if shard is None else (shard.t, shard.tp)
         y = torch.stack([
             analog_dot(x[e], w[e], cfg=self.cfg, energy=energy[e], seed=seeds[e],
-                       n_repeats=self.n_repeats)
+                       n_repeats=self.n_repeats, cols=cols)
             for e in range(n_e)
         ])
         return y.to(x.dtype)
+
+    def row_parallel(self, site: str, xs: list, ws: list, shards, batched: bool = False):
+        """A row-cut site (``core.analog.analog_dot_rows``): the noise-free
+        partials summed in float32 over tp, the noise drawn once after the
+        sum at the energy of the first shard, cast once to x's dtype."""
+        if not batched:
+            return analog_dot_rows(xs, ws, shards, cfg=self.cfg,
+                                   energies=[self._site_energy(site)], seed=self.seeds[site],
+                                   n_repeats=self.n_repeats).to(xs[0].dtype)
+        n_e = len(ws[0])
+        energy = self._expert_energies(site, n_e)
+        seeds = self.expert_seeds[site]
+        return torch.stack([
+            analog_dot_rows([x[e] for x in xs], [w[e] for w in ws], shards, cfg=self.cfg,
+                            energies=[energy[e]], seed=seeds[e], n_repeats=self.n_repeats)
+            for e in range(n_e)
+        ]).to(xs[0].dtype)
+
+    def reduce_scatter(self, site: str, xs: list, ws: list, shards) -> list:
+        """A row-cut site reduce-scattered into the shards' columns
+        (``analog_dot_rows(scatter=True)``): each shard's window of the
+        noise at its own energy, cast once to x's dtype."""
+        outs = analog_dot_rows(xs, ws, shards, cfg=self.cfg,
+                               energies=[self._site_energy(site, s) for s in shards],
+                               seed=self.seeds[site], n_repeats=self.n_repeats, scatter=True)
+        return [y.to(x.dtype) for y, x in zip(outs, xs)]
 
 
 #: (device, B, M, N) -> the noise-free operands of ``ServingMatmulHook``'s
@@ -141,7 +202,8 @@ class ServingMatmulHook(MatmulHook):
     shares its seq bucket, so its own matmul has one shape in both). On
     the CPU plain matmuls."""
 
-    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None,
+                 cut: bool = True) -> torch.Tensor:
         w = w.to(x.dtype)
         if not x.is_cuda or x.dim() < 3:
             return torch.matmul(x, w)
@@ -164,11 +226,18 @@ class PrefixHook(MatmulHook):
     inner: MatmulHook
     prefix: str
 
-    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return self.inner(f"{self.prefix}{site}", x, w)
+    def __call__(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None,
+                 cut: bool = True) -> torch.Tensor:
+        return self.inner(f"{self.prefix}{site}", x, w, shard=shard, cut=cut)
 
-    def batched(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return self.inner.batched(f"{self.prefix}{site}", x, w)
+    def batched(self, site: str, x: torch.Tensor, w: torch.Tensor, shard=None) -> torch.Tensor:
+        return self.inner.batched(f"{self.prefix}{site}", x, w, shard=shard)
+
+    def row_parallel(self, site: str, xs: list, ws: list, shards, batched: bool = False):
+        return self.inner.row_parallel(f"{self.prefix}{site}", xs, ws, shards, batched=batched)
+
+    def reduce_scatter(self, site: str, xs: list, ws: list, shards) -> list:
+        return self.inner.reduce_scatter(f"{self.prefix}{site}", xs, ws, shards)
 
 
 def hook_for_layer(

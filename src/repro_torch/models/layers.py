@@ -18,9 +18,9 @@ import functools
 from typing import Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.models.hooks import MatmulHook
+from repro_torch.models import sharding
 from repro_torch.models.sharding import Shards, tensor_parallel
 from repro_torch.reduce import contraction, row_norm, row_sum
 
@@ -353,17 +353,17 @@ def decode_attention(
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def _mlp_partial(x, p, _shard, *, hook, prefix, mlp_type):
+def _mlp_hidden(x, p, shard, *, hook, prefix, mlp_type):
+    """The MLP up to its down projection's input (on tensor shard
+    ``shard``'s columns, or whole)."""
     if mlp_type == "swiglu":
-        gate = hook(f"{prefix}_gate", x, p["w_gate"])
-        up = hook(f"{prefix}_up", x, p["w_up"])
-        h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
-    else:
-        h = hook(f"{prefix}_in", x, p["w_in"])
-        if "b_in" in p:
-            h = h + p["b_in"].to(h.dtype)
-        h = torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    return hook(f"{prefix}_out", h, p["w_down"])
+        gate = hook(f"{prefix}_gate", x, p["w_gate"], shard=shard)
+        up = hook(f"{prefix}_up", x, p["w_up"], shard=shard)
+        return torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
+    h = hook(f"{prefix}_in", x, p["w_in"], shard=shard)
+    if "b_in" in p:
+        h = h + p["b_in"].to(h.dtype)
+    return torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
 
 
 def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
@@ -374,8 +374,9 @@ def mlp(x: torch.Tensor, p: dict, hook: MatmulHook, prefix: str = "mlp",
     Tensor shards (``Shards`` leaves): gate, up, in and ``b_in`` are column
     shards, down a row shard (``tensor_parallel``), ``b_out`` added once
     after the shards' sum."""
-    y = tensor_parallel(lambda xi, pi, s: _mlp_partial(xi, pi, s, hook=hook, prefix=prefix,
-                                                       mlp_type=mlp_type), x, p)
+    y = tensor_parallel(lambda xi, pi, s: _mlp_hidden(xi, pi, s, hook=hook, prefix=prefix,
+                                                      mlp_type=mlp_type),
+                        x, p, hook, f"{prefix}_out", "w_down")
     if "b_out" in p:
         y = y + p["b_out"].to(y.dtype)
     return y
@@ -392,7 +393,7 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *
     (B, T, n_codebooks), ``ignore_label`` entries counted in neither the
     sum nor the mean. The sequence runs in chunks of the largest divisor
     of T not above ``chunk``; each chunk's logits (``hook("lm_head", ...)``,
-    float32) are recomputed in the backward (``torch.utils.checkpoint``),
+    float32) are recomputed in the backward (``sharding.remat``),
     so no chunk's logits outlive its forward. A ``Shards`` head (its
     columns cut among the tensor shards) takes the vocab-parallel loss,
     ``_vocab_parallel_nll``.
@@ -426,7 +427,7 @@ def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *
     for lo in range(0, t, chunk):
         hc, lc = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
         if torch.is_grad_enabled() and hc.requires_grad:
-            t_, c_ = torch.utils.checkpoint.checkpoint(chunk_nll, hc, lc, use_reentrant=False)
+            t_, c_ = sharding.remat(chunk_nll, hc, lc)
         else:
             t_, c_ = chunk_nll(hc, lc)
         tot, cnt = tot + t_, cnt + c_
@@ -463,7 +464,7 @@ def _vocab_parallel_nll(hc, lc, *, heads, hook, vocab: int, vocab_padded: int,
     cols = heads[0].shape[-1]
     logits, maxes = [], []
     for x, w, s in zip(collectives.copy_to_tp(hc, shards), heads, shards):
-        lg = hook("lm_head", x, w).to(F32)
+        lg = hook("lm_head", x, w, shard=s).to(F32)
         c0 = s.t * cols
         if vocab_padded != vocab:
             col = torch.arange(c0, c0 + cols, device=lg.device)

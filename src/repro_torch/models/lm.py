@@ -59,7 +59,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.core.analog import (
     AnalogConfig,
@@ -87,6 +86,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from repro_torch.models import sharding
 from repro_torch.models.sharding import Shards, tensor_parallel
 from repro_torch.quant.weights import Int8Params, Int8Weight, dequantize_params, dequantize_weight
 from repro_torch.tree import map_leaves
@@ -711,19 +711,22 @@ def _attn_sublayer(x, p, cfg: ModelConfig, hook: MatmulHook, prefix: str, **kw):
     bq by whole heads, wk, wv, bk, bv by whole kv heads or whole, wo by
     rows) a Megatron block (``sharding.tensor_parallel``)."""
     return tensor_parallel(functools.partial(_attention, cfg=cfg, hook=hook, prefix=prefix, **kw),
-                           x, p)
+                           x, p, hook, f"{prefix}_o", "wo")
 
 
 def _attention(x, p, shard, *, cfg: ModelConfig, hook: MatmulHook, prefix: str, rope, mode,
                cache, pos=None, window=None, lengths=None):
     """The attention of the query heads ``p`` holds (every head, or tensor
-    shard ``shard``'s), its output projected by ``p["wo"]``."""
+    shard ``shard``'s), before its output projection ``p["wo"]``: (B, T,
+    heads * head_dim). On a shard wk and wv are its kv heads' columns, or
+    the whole weights where tp does not divide the kv heads."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     cos, sin = rope
-    q = hook(f"{prefix}_q", x, p["wq"])
-    k = hook(f"{prefix}_k", x, p["wk"])
-    v = hook(f"{prefix}_v", x, p["wv"])
+    kv_cut = p["wk"].shape[-1] < cfg.n_kv_heads * hd
+    q = hook(f"{prefix}_q", x, p["wq"], shard=shard)
+    k = hook(f"{prefix}_k", x, p["wk"], shard=shard, cut=kv_cut)
+    v = hook(f"{prefix}_v", x, p["wv"], shard=shard, cut=kv_cut)
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -762,7 +765,7 @@ def _attention(x, p, shard, *, cfg: ModelConfig, hook: MatmulHook, prefix: str, 
             else:
                 _ring_fill(k_cache, k.to(k_cache.dtype), window, lengths)
                 _ring_fill(v_cache, v.to(v_cache.dtype), window, lengths)
-    return hook(f"{prefix}_o", out.reshape(b, t, qh * hd), p["wo"])
+    return out.reshape(b, t, qh * hd)
 
 
 def _sublayer(x, cfg: ModelConfig, hook, i: int, kind: str, ln1, ln2, mix_p, ffn, *, rope,
@@ -814,8 +817,7 @@ def _xlstm_group(x, gp, cfg: ModelConfig, hooks, *, mode, cache, pad_mask, remat
     for j in range(m):
         views = None if cache is None else (cache["C"][j], cache["n"][j], cache["m"][j])
         if remat:
-            x, st = torch.utils.checkpoint.checkpoint(mlstm_one, x, j, views,
-                                                      use_reentrant=False)
+            x, st = sharding.remat(mlstm_one, x, j, views)
         else:
             x, st = mlstm_one(x, j, views)
         for view, new in zip(views or (), st):
@@ -890,7 +892,8 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
     """The layer groups, then griffin's tail layers.
 
     ``remat``: each layer group runs under ``torch.utils.checkpoint``
-    (non-reentrant), its activations recomputed in the backward, as the
+    (non-reentrant; ``sharding.remat``, whose recompute re-enters the
+    forward's places), its activations recomputed in the backward, as the
     reference's train-mode scan body is (``cfg.remat``); inside a group,
     as in the reference, each griffin sublayer and each xlstm mLSTM block
     is checkpointed again. Griffin's tail layers run outside both.
@@ -942,7 +945,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
         xlstm's block j takes entry j of the mLSTM sites' (m,) energies."""
         if analog is None:
             return [hook or MatmulHook()] * len(ks)
-        energies = {s: energy_tree[sub][s][idx] for s in names}
+        energies = {s: sharding.take(energy_tree[sub][s], idx) for s in names}
         row = {s: seeds[idx, i] for i, s in enumerate(names)}
         ex = None if sub != "groups" or experts is None else {
             s: experts[idx, i] for i, s in enumerate(expert_sites(cfg))}
@@ -991,14 +994,14 @@ def _run_stack(params, h, cfg: ModelConfig, *, mode, cache, pos, positions,
                                     rope=rope, mode=mode, cache=lc, pos=pos, pad_mask=pad_mask,
                                     lengths=lengths)
             if sub_remat:  # griffin: each sublayer recomputed on its own
-                h = torch.utils.checkpoint.checkpoint(sub, h, use_reentrant=False)
+                h = sharding.remat(sub, h)
             else:
                 h = sub(h)
         return h
 
     for gi in range(g):
         if remat:  # the group's activations are recomputed in the backward
-            h = torch.utils.checkpoint.checkpoint(group, h, gi, use_reentrant=False)
+            h = sharding.remat(group, h, gi)
         else:
             h = group(h, gi)
     for j in range(tail):

@@ -97,16 +97,17 @@ def make_dispatch(ids: torch.Tensor, gate_vals: torch.Tensor, n_experts: int, ca
     return (combine > 0.0).to(F32), combine
 
 
-def _expert_ff(xe: torch.Tensor, p, cfg: ModelConfig, hook: MatmulHook) -> torch.Tensor:
-    """Every expert's FF on its buffer: (E * split, G, C, d) -> the same."""
+def _expert_hidden(xe: torch.Tensor, p, shard, cfg: ModelConfig, hook: MatmulHook
+                   ) -> torch.Tensor:
+    """Every expert's FF on its buffer up to its down projection's input
+    (on tensor shard ``shard``'s columns, or whole): (E * split, G, C, d)
+    -> (E * split, G, C, ff)."""
     if cfg.mlp_type == "swiglu":
-        gate = hook.batched("moe_gate", xe, p["w_gate"])
-        up = hook.batched("moe_up", xe, p["w_up"])
-        h = F.silu(gate.to(F32)).to(xe.dtype) * up
-    else:
-        h = hook.batched("moe_in", xe, p["w_in"])
-        h = F.gelu(h.to(F32), approximate="tanh").to(xe.dtype)
-    return hook.batched("moe_down", h, p["w_down"])
+        gate = hook.batched("moe_gate", xe, p["w_gate"], shard=shard)
+        up = hook.batched("moe_up", xe, p["w_up"], shard=shard)
+        return F.silu(gate.to(F32)).to(xe.dtype) * up
+    h = hook.batched("moe_in", xe, p["w_in"], shard=shard)
+    return F.gelu(h.to(F32), approximate="tanh").to(xe.dtype)
 
 
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, hook: MatmulHook,
@@ -139,7 +140,8 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig, hoo
     xe = torch.einsum("gsd,gsec->gecd", x.reshape(g, gs, d), dispatch).transpose(0, 1)
 
     experts = {k: p[k] for k in ("w_gate", "w_up", "w_in", "w_down") if k in p}
-    ye = tensor_parallel(lambda xi, pi, _s: _expert_ff(xi, pi, cfg, hook), xe, experts)
+    ye = tensor_parallel(lambda xi, pi, s: _expert_hidden(xi, pi, s, cfg, hook), xe, experts,
+                         hook, "moe_down", "w_down", batched=True)
 
     # combine: each token's kept slots, its expert's split partials in
     # order, weighted by the gate value in the activation dtype

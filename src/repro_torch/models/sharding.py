@@ -21,7 +21,11 @@ shard.
 of ``data``, and the data group of the distributed form) to the calls
 inside it, as ``use_mesh`` carries the mesh: ``analog_dot`` then draws
 its noise at the shard's global rows (``kernels.dispatch
-.active_data_shard``).
+.active_data_shard``). Both places are the calling thread's, and a
+checkpointed region's recompute may run on another (on the card, the
+autograd device thread, which sees none of the caller's state): every
+checkpointed region of the port runs through ``remat``, which captures
+the places at the forward and re-enters them in the recompute.
 
 Tensor-parallel training (Megatron's column and row shards) places the
 weights by ``tensor_plan``: for every leaf the dim that ``spec`` gives
@@ -41,12 +45,16 @@ The port's own exceptions to ``spec``:
     "expert_embed" on "data" are expert parallelism, ROADMAP A.4, A.5):
     only "expert_mlp" is cut.
 
-The train step hands the model each leaf cut or summed over the tensor
-shards it computes as ``Shards``: its tensor on each shard, with each
-shard's place (``TensorShard``: shard t of tp, and the tp group of the
-distributed form; the local form's every shard, which runs in turn inside
-each sharded block); the model runs a sharded block through
-``tensor_parallel``.
+The train step and the LM calibration hand the model each leaf cut or
+summed over the tensor shards it computes as ``Shards``: its tensor on
+each shard, with each shard's place (``TensorShard``: shard t of tp, and
+the tp group of the distributed form; the local form's every shard, which
+runs in turn inside each sharded block); the model runs a sharded block
+through ``tensor_parallel``. A tensor shard's place is no thread state:
+it travels on the leaves and reaches an analog site as an argument, with
+the site's form (``models/hooks.py``: a column-cut or whole site's
+``shard``, a row-cut site's ``row_parallel`` or ``reduce_scatter``);
+``energy_sums`` says whose energy gradients are summed over tp.
 """
 from __future__ import annotations
 
@@ -122,6 +130,37 @@ def use_mesh(mesh):
         yield mesh
     finally:
         set_mesh(prev)
+
+
+@contextlib.contextmanager
+def _within(places: dict):
+    """This thread's places (mesh, data shard, rules) set to ``places``
+    inside the block, its own restored after."""
+    state = vars(_state)
+    prev = dict(state)
+    state.clear()
+    state.update(places)
+    try:
+        yield
+    finally:
+        state.clear()
+        state.update(prev)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, under the places (the
+    ambient mesh, data shard and rules) its forward ran under, captured
+    here and re-entered in the recompute. On the card the recompute runs
+    on the autograd device thread, which sees none of the caller's
+    thread-local state; every checkpointed region of the port calls
+    this."""
+    import torch.utils.checkpoint
+
+    places = dict(vars(_state))
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _within(places)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,20 +240,41 @@ def shard_part(tree, i: int):
     return tree
 
 
-def tensor_parallel(fn, x, p):
-    """``fn(x, p, shard)`` as a Megatron block: where ``p`` holds
-    ``Shards``, ``x`` enters each shard through *f* (``copy_to_tp``),
-    ``fn`` runs on each shard's part of ``p`` in shard order, and the
-    partials leave through *g* (``reduce_from_tp``); otherwise ``fn(x, p,
-    None)``, the whole block, on every shard."""
+def part_of(leaf, shard=None):
+    """A ``Shards`` leaf's tensor on tensor shard ``shard``, or its first
+    where ``shard`` is None (a site run whole on every shard, or once after
+    a sum over them); any other leaf as it is."""
+    if not isinstance(leaf, Shards):
+        return leaf
+    return leaf[0] if shard is None else leaf[leaf.shards.index(shard)]
+
+
+def take(leaf, i):
+    """``leaf[i]``; for ``Shards``, each shard's tensor's (a layer of a
+    per-shard stacked leaf)."""
+    if isinstance(leaf, Shards):
+        return Shards((t[i] for t in leaf), leaf.shards)
+    return leaf[i]
+
+
+def tensor_parallel(fn, x, p, hook, site: str, leaf: str, batched: bool = False):
+    """A block whose last matmul is a row-cut site: ``fn(x, p, shard)``
+    returns that site's input, and ``hook`` runs the site (``site``, the
+    weight ``p[leaf]``; ``batched``: expert-batched). Where ``p`` holds
+    ``Shards`` it is a Megatron block: ``x`` enters each shard through *f*
+    (``copy_to_tp``), ``fn`` runs on each shard's part of ``p`` in shard
+    order, and ``hook.row_parallel`` sums the site's partials over tp (*g*);
+    otherwise the whole block on every shard."""
     shards = shards_of(p)
     if not shards:
-        return fn(x, p, None)
+        h = fn(x, p, None)
+        return (hook.batched if batched else hook)(site, h, p[leaf])
     from repro_torch.launch import collectives
 
     xs = collectives.copy_to_tp(x, shards)
-    return collectives.reduce_from_tp(
-        [fn(xi, shard_part(p, i), s) for i, (xi, s) in enumerate(zip(xs, shards))], shards)
+    parts = [shard_part(p, i) for i in range(len(shards))]
+    hs = [fn(xi, pi, s) for xi, pi, s in zip(xs, parts, shards)]
+    return hook.row_parallel(site, hs, [pi[leaf] for pi in parts], shards, batched=batched)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,6 +336,65 @@ def tensor_plan(cfg, tp: int) -> dict:
             f"{cfg.name} under the {cfg.sharding_profile!r} profile at tp={tp}: the xlstm "
             "family's tensor shards are not ported; it trains under its \"dp\" profile")
     return plan
+
+
+#: an analog site's weight leaf in its block, by the site name's suffix
+_SITE_LEAF = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "w_gate", "up": "w_up",
+              "in": "w_in", "out": "w_down", "down": "w_down", "rec_gate": "w_gate",
+              "rec_in": "w_x", "rec_a": "w_a", "rec_i": "w_i", "rec_out": "w_out"}
+#: row-cut weights whose sums are reduce-scattered into the shards'
+#: channels (griffin's ``recurrent_mix``)
+_SCATTERED = ("w_a", "w_i")
+
+
+def _site_path(cfg, sub: str, site: str) -> tuple:
+    """The parameter path of the weight an analog site of ``sub``
+    (``"groups"``, ``"tail"``) multiplies by."""
+    if site == "lm_head":
+        return ("embed",) if cfg.tie_embeddings else ("lm_head",)
+    if site == "router":
+        return ("blocks", "moe", "router")
+    if site.startswith("moe_shared_"):
+        return ("blocks", "moe", "shared", _SITE_LEAF[site[len("moe_shared_"):]])
+    if site.startswith("moe_"):
+        return ("blocks", "moe", _SITE_LEAF[site[len("moe_"):]])
+    block, name = site.split("_", 1)
+    if sub == "tail":
+        return ("tail", block.rstrip("0123456789"), _SITE_LEAF[name])
+    return ("blocks", block, _SITE_LEAF[name])
+
+
+def energy_sums(cfg, tp: int) -> dict:
+    """For every energy leaf (``lm.init_energy_tree``'s structure), whether
+    its gradient on tp tensor shards is summed over them: True for a site
+    cut by columns (each shard draws its window of the noise), a
+    reduce-scattered one (each shard its columns of the noise after the
+    sum) and a whole weight summed over tp (``TPLeaf.summed``: each
+    shard's query heads read their own part of its output); False, taken
+    once, for a site whole on every shard or row-cut with its noise drawn
+    once after *g*: its gradient is the same on every shard. Read from
+    ``tensor_plan``."""
+    from repro_torch.models import lm
+
+    plan, shapes = tensor_plan(cfg, tp), lm.param_leaves(cfg)
+
+    def get(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def summed(path, _leaf):
+        sub, site = (path[0], path[1]) if len(path) > 1 else ("", path[0])
+        where = _site_path(cfg, sub, site)
+        place = get(plan, where)
+        if place.summed or (site == "lm_head" and place.dim is not None):
+            return True  # a tied head's vocabulary rows are its columns
+        if place.dim is None:
+            return False
+        ndim = len(get(shapes, where).shape)
+        return place.dim == ndim - 1 or where[-1] in _SCATTERED
+
+    return map_leaves(summed, lm.energy_macs(cfg, 1))
 
 
 def shard_shape(shape, place: TPLeaf, tp: int) -> tuple:

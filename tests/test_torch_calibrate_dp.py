@@ -17,7 +17,9 @@ without remat, numpy weights, 2 steps of 4 x 32 from a uniform start at
   holds the one-device step to: loss, NLL and log energies at ``rtol``
   1e-5 (dense and xlstm; every family's local form is held to its own
   one-device step above, and the moe reference's NaN energy gradients,
-  ROADMAP C, keep moe out);
+  ROADMAP C, keep moe out), and so does dense on a data 2 x tp 2 mesh
+  (its local form; ``tests/test_torch_calibrate_tp.py`` holds the tp
+  forms to the port's one-device step), sharing the reference's run;
 * at the hooks: every site's noise of each shard is the one-device noise's
   rows bit for bit (``"tile"``: the counter-based gaussians at row0 + r ×
   the call's rows; ``"torch"``: the whole call's draw, the shard's rows),
@@ -178,8 +180,10 @@ def test_thermal_noise_on_ranks(ranks, arch, backend):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "xlstm-1.3b"])
-def test_data_mesh_matches_reference_step(arch):
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The reference's one-device ``make_calibrate_step`` ("tile", shot),
+    ``STEPS`` steps: ([(loss, nll)], log-energy leaves as numpy)."""
     import jax
     import jax.numpy as jnp
 
@@ -204,10 +208,28 @@ def test_data_mesh_matches_reference_step(arch):
         jlog_e, jopt, jm = jstep(jlog_e, jopt, jparams, batch,
                                  jax.random.fold_in(jax.random.PRNGKey(0), i))
         want.append((float(jm["loss"]), float(jm["nll"])))
-    metrics, log_e = _local(arch, "shot", "tile")
+    return want, [np.asarray(b) for b in jax.tree.leaves(jlog_e)]
+
+
+def _matches_reference(got, arch):
+    want, want_log_e = _reference(arch)
+    metrics, log_e = got
     np.testing.assert_allclose(np.asarray(metrics), np.asarray(want), rtol=LOSS_RTOL)
-    for a, b in zip(log_e, jax.tree.leaves(jlog_e)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=LOSS_RTOL)
+    for a, b in zip(log_e, want_log_e):
+        np.testing.assert_allclose(a.numpy(), b, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "xlstm-1.3b"])
+def test_data_mesh_matches_reference_step(arch):
+    _matches_reference(_local(arch, "shot", "tile"), arch)
+
+
+def test_data_x_tp_mesh_matches_reference_step():
+    """The local form on data 2 x tp 2 (granite's Megatron shards, the
+    row-cut sites' noise drawn after the sum) against the same one-device
+    reference step, at the same rule."""
+    _matches_reference(_run("granite-3-8b", "shot", "tile", make_mesh_for_devices(2, data=DP)),
+                       "granite-3-8b")
 
 
 # ---------------------------------------------------------------------------

@@ -414,14 +414,28 @@ def test_train_step_accumulates_in_place_in_the_param_dtype():
 
 
 def test_steps_refuse_a_mesh():
-    """What still refuses tensor shards: the LM calibration (its analog
-    sites under tp, ROADMAP A.6); the train step takes them."""
-    from repro_torch.core.analog import AnalogConfig
+    """What still refuses a mesh: thermal noise on the local form of a data
+    axis (its input range spans every shard's rows), and an MoE data shard
+    whose tokens are not whole expert groups. The LM calibration and the
+    train step take a data x tp mesh."""
+    from repro_torch.core.analog import AnalogConfig, ThermalRangeAcrossShards
+    from repro_torch.core.energy import uniform_log_energies
+    from repro_torch.kernels import prng
     from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.optim import adam
+
+    def calibrate(cfg, mesh, noise):
+        step = steps.make_calibrate_step(cfg, mesh, analog_cfg=noise(backend="torch"),
+                                         seq_len=T, target_e_per_mac=1.0)
+        log_e = uniform_log_energies(step.macs, 8.0)
+        return step(log_e, adam.adam_init(log_e, adam.AdamConfig()),
+                    _params(_weights(cfg), cfg), _batch(cfg), prng.PRNGKey(0))
 
     cfg, _ = _cfgs()
     steps.make_train_step(cfg, make_mesh_for_devices(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        steps.make_calibrate_step(cfg, make_mesh_for_devices(2),
-                                  analog_cfg=AnalogConfig.shot(backend="torch"), seq_len=T,
-                                  target_e_per_mac=1.0)
+    with pytest.raises(ThermalRangeAcrossShards):
+        calibrate(cfg, make_mesh_for_devices(2, data=2), AnalogConfig.thermal)
+    moe = dataclasses.replace(get_smoke_config("grok-1-314b"), dtype="float32",
+                              moe_group_size=3 * T)
+    with pytest.raises(steps.MoEGroupsAcrossShards):
+        calibrate(moe, make_mesh_for_devices(2, data=2), AnalogConfig.shot)
